@@ -1,0 +1,14 @@
+from . import datasets, transforms
+from .datasets import BaseDataset, VSRRefineNetDataset
+from .loader import Dataloader, default_collate
+from .transforms import compose
+
+__all__ = [
+    "datasets",
+    "transforms",
+    "BaseDataset",
+    "VSRRefineNetDataset",
+    "Dataloader",
+    "default_collate",
+    "compose",
+]
