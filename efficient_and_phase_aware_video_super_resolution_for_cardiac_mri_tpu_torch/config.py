@@ -141,8 +141,8 @@ class Registry:
         return cls(*args, **kwargs)
 
 
-# Registries of the components this slice of the port provides, populated by
-# the subpackages at import time.
+# Registries of the components the port provides, populated by the
+# subpackages at import time.
 DATASETS = Registry("dataset")
 DATALOADERS = Registry("dataloader")
 NETS = Registry("net")
@@ -150,3 +150,7 @@ LOSSES = Registry("loss")
 METRICS = Registry("metric")
 PREDICTORS = Registry("predictor")
 TRANSFORMS = Registry("transform")
+TRAINERS = Registry("trainer")
+LR_SCHEDULERS = Registry("lr_scheduler")
+LOGGERS = Registry("logger")
+MONITORS = Registry("monitor")

@@ -1,9 +1,11 @@
-"""Datasets of the RefineNet eval path (ACDC / DSB15 cardiac cine-MRI).
+"""Datasets of the RefineNet path (ACDC / DSB15 cardiac cine-MRI).
 
 The port's copy of the JAX package's ``VSRRefineNetDataset``: items are dicts
 of channel-last numpy arrays with time as the leading axis, (T, H, W, C),
-exactly as the JAX package yields them.  One implementation is registered
-under both the Acdc and the Dsb15 name.
+exactly as the JAX package yields them.  Train items run the config's
+augments with the ``rng`` the loader hands each item (``item_rng``), then its
+transforms; valid and test items run the transforms only.  One
+implementation is registered under both the Acdc and the Dsb15 name.
 """
 from __future__ import annotations
 

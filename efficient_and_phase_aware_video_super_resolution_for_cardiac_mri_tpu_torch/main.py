@@ -1,16 +1,15 @@
-"""Composition root of the PyTorch port: run the test path from a config.
+"""Composition root of the PyTorch port: train or test from a config.
 
-    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main CONFIG --test
+    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main CONFIG [--test]
 
-The reference's ``configs/test/**.yaml`` files load unchanged.  The device
-is the predictor's ``device`` kwarg: ``cuda:0`` (or any ``cuda``) is the
-card, ``cpu`` the CPU, and no device means ``cuda``.  A CUDA device on a
-machine without one raises; nothing falls back to the CPU.  On the card the
-fp32 path keeps TF32 off for convolutions and matrix products: the JAX
-package computes the SSIM filter at full precision, and the recurrent spine
-would accumulate TF32 rounding over its 42 steps.
-
-Training is ported in a later slice.
+The reference's RefineNet ``configs/train|test/**.yaml`` files load
+unchanged.  The device is the trainer's or the predictor's ``device`` kwarg:
+``cuda:0`` (or any ``cuda``) is the card, ``cpu`` the CPU, and no device
+means ``cuda``.  A CUDA device on a machine without one raises; nothing
+falls back to the CPU.  On the card the fp32 path keeps TF32 off for
+convolutions and matrix products: the JAX package computes the SSIM filter
+at full precision, and the recurrent spine would accumulate TF32 rounding
+over its 42 steps (and, in training, over its backward).
 """
 from __future__ import annotations
 
@@ -20,7 +19,20 @@ from pathlib import Path
 
 import torch
 
-from .config import DATALOADERS, DATASETS, LOSSES, METRICS, NETS, PREDICTORS, Cfg, load_config
+from .config import (
+    DATALOADERS,
+    DATASETS,
+    LOGGERS,
+    LOSSES,
+    METRICS,
+    MONITORS,
+    NETS,
+    PREDICTORS,
+    TRAINERS,
+    Cfg,
+    load_config,
+)
+from .utils.seeding import seed_everything
 
 logger = logging.getLogger(__name__)
 
@@ -28,7 +40,7 @@ logger = logging.getLogger(__name__)
 def _import_components():
     # populate the registries
     from . import data, losses, metrics, models  # noqa: F401
-    from .runner import predictors  # noqa: F401
+    from .runner import loggers, monitor, predictors, trainers  # noqa: F401
 
 
 def resolve_device(device_str: str | None) -> torch.device:
@@ -59,14 +71,114 @@ def _build_metrics(cfg: Cfg):
     return [METRICS.build(c) for c in cfg.get("metrics", [])]
 
 
+def _check_parallel(cfg: Cfg):
+    if cfg.get("parallel"):
+        raise NotImplementedError(
+            "the `parallel:` section is not implemented in the PyTorch port yet "
+            "(ROADMAP queue 1, item 10)"
+        )
+
+
+def _net_config(cfg: Cfg) -> Cfg:
+    """``cfg.net`` without the JAX package's ``remat`` knob, which raises when
+    it is on: the port does not checkpoint the ConvLSTM steps yet."""
+    net_cfg = cfg.net.copy()
+    kwargs = net_cfg.get("kwargs") or {}
+    if kwargs.pop("remat", False):
+        raise NotImplementedError(
+            "net knob remat=True is not implemented in the PyTorch port yet (ROADMAP queue 1, item 7)"
+        )
+    return net_cfg
+
+
 def train_from_config(cfg: Cfg):
-    raise NotImplementedError("training is ported in a later slice")
+    _import_components()
+    from .runner.checkpoint import find_latest_checkpoint
+    from .runner.optim import build_lr_scheduler, build_optimizer
+
+    _check_parallel(cfg)
+    trainer_kwargs = dict(cfg.trainer.get("kwargs") or {})
+    device = resolve_device(trainer_kwargs.pop("device", None))
+    net_cfg = _net_config(cfg)
+
+    saved_dir = Path(cfg.main.saved_dir)
+    saved_dir.mkdir(parents=True, exist_ok=True)
+    cfg.to_yaml(saved_dir / "config.yaml")
+
+    num_epochs = trainer_kwargs.get("num_epochs", 1)
+    seed_state = seed_everything(cfg.main.get("random_seed", "vsr"), num_epochs)
+
+    logger.info("Create the training and validation datasets.")
+    data_dir = Path(cfg.dataset.kwargs.data_dir)
+    train_ds = DATASETS.build(cfg.dataset, data_dir=data_dir, type="train")
+    valid_ds = DATASETS.build(cfg.dataset, data_dir=data_dir, type="valid")
+
+    logger.info("Create the training and validation dataloaders.")
+    dl_kwargs = dict(cfg.dataloader.get("kwargs") or {})
+    train_bs = dl_kwargs.pop("train_batch_size", dl_kwargs.pop("batch_size", 1))
+    valid_bs = dl_kwargs.pop("valid_batch_size", 1)
+    dl_cls = DATALOADERS.get(cfg.dataloader.name)
+    train_loader = dl_cls(train_ds, batch_size=train_bs, **dl_kwargs)
+    # as in the JAX package, and unlike the reference (which reuses the train
+    # kwargs, shuffle included), validation is deterministic
+    dl_kwargs["shuffle"] = False
+    valid_loader = dl_cls(valid_ds, batch_size=valid_bs, **dl_kwargs)
+
+    logger.info("Create the network architecture.")
+    net = NETS.build(net_cfg, generator=seed_state.torch_generator())
+
+    logger.info("Create the loss and metric functions.")
+    loss_fns, loss_weights = _build_losses(cfg)
+    metric_fns = _build_metrics(cfg)
+
+    logger.info("Create the optimizer and the lr scheduler.")
+    optimizer = build_optimizer(cfg.optimizer)
+    lr_scheduler = build_lr_scheduler(cfg.get("lr_scheduler"), optimizer.base_lr)
+
+    logger.info("Create the logger and the monitor.")
+    tb_logger = None
+    if cfg.get("logger"):
+        logger_kwargs = dict(cfg.logger.get("kwargs") or {})
+        logger_kwargs.pop("dummy_input", None)
+        tb_logger = LOGGERS.get(cfg.logger.name)(log_dir=saved_dir / "log", net=net, **logger_kwargs)
+    monitor = MONITORS.build(cfg.monitor, checkpoints_dir=saved_dir / "checkpoints")
+
+    logger.info("Create the trainer.")
+    trainer = TRAINERS.get(cfg.trainer.name)(
+        device=device,
+        train_dataloader=train_loader,
+        valid_dataloader=valid_loader,
+        net=net,
+        loss_fns=loss_fns,
+        loss_weights=loss_weights,
+        metric_fns=metric_fns,
+        optimizer=optimizer,
+        lr_scheduler=lr_scheduler,
+        logger=tb_logger,
+        monitor=monitor,
+        seed_state=seed_state,
+        **trainer_kwargs,
+    )
+
+    loaded_path = cfg.main.get("loaded_path")
+    if loaded_path == "auto":
+        # failure recovery: resume from the newest checkpoint if any exists
+        loaded_path = find_latest_checkpoint(saved_dir / "checkpoints")
+        logger.info(f"Auto-resume: {'found ' + str(loaded_path) if loaded_path else 'no checkpoint, fresh start'}.")
+    if loaded_path:
+        logger.info(f'Load the previous checkpoint from "{loaded_path}".')
+        trainer.load(Path(loaded_path))
+        logger.info("Resume training.")
+    else:
+        logger.info("Start training.")
+    trainer.train()
+    logger.info("End training.")
+    return trainer
 
 
 def test_from_config(cfg: Cfg):
     _import_components()
-    if cfg.get("parallel"):
-        raise NotImplementedError("the `parallel:` section is not implemented in the PyTorch port yet")
+    _check_parallel(cfg)
     pred_kwargs = dict(cfg.predictor.get("kwargs") or {})
     device = resolve_device(pred_kwargs.pop("device", None))
 
@@ -81,7 +193,7 @@ def test_from_config(cfg: Cfg):
     test_loader = DATALOADERS.get(cfg.dataloader.name)(test_ds, **dl_kwargs)
 
     logger.info("Create the network architecture.")
-    net = NETS.build(cfg.net)
+    net = NETS.build(_net_config(cfg))
 
     loss_fns, loss_weights = _build_losses(cfg)
     metric_fns = _build_metrics(cfg)

@@ -10,8 +10,10 @@ features run NCHW for cuDNN, with time as the axis after batch:
 * The recurrence over time is a Python loop of :meth:`ConvLSTM.step` (the
   JAX ``ConvLSTMStep`` scan body).  Its gate tail is the fused CUDA kernel
   (``ops/lstm_gates.py``) on the card and the plain version on the CPU.
-* The warm-up frames' ``stop_gradient`` cuts are ``.detach()`` at the same
-  places, so the training port inherits the same gradient structure.
+* The warm-up frames, which the JAX package cuts with ``stop_gradient``,
+  run under ``torch.no_grad()`` as in the reference (``refine_net.py:86-93``):
+  the same values and gradients, and no autograd graph is recorded for
+  frames whose graph would be thrown away.
 * The refine block's sliding window over time is one 3D conv, VALID over
   time, on the 2D weight the reference stores (``_WindowConv``).
 
@@ -56,9 +58,8 @@ class ConvLSTM(nn.Module):
     """Stacked ConvLSTM run over time, with warm-up segments.
 
     ``num_updated_frames`` leading and trailing frames advance the state but
-    pass no gradient (the reference's ``torch.no_grad()`` blocks at
-    ``refine_net.py:86-93``; ``.detach()`` where the JAX package has
-    ``stop_gradient``).
+    pass no gradient: they run under ``torch.no_grad()``, the reference's
+    blocks at ``refine_net.py:86-93`` (``stop_gradient`` in the JAX package).
     """
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int], memory: bool,
@@ -95,12 +96,12 @@ class ConvLSTM(nn.Module):
         ]
         if U == 0:
             return self._run(carry, xs)[1]
-        carry, h_pre = self._run(carry, xs[:, :U])
-        carry = [(h.detach(), c.detach()) for h, c in carry]
-        h_pre = h_pre.detach()
+        with torch.no_grad():
+            carry, h_pre = self._run(carry, xs[:, :U])
         carry, h_core = self._run(carry, xs[:, U : T - U])
-        _, h_suf = self._run(carry, xs[:, T - U :])
-        return torch.cat([h_pre, h_core, h_suf.detach()], dim=1)
+        with torch.no_grad():
+            _, h_suf = self._run(carry, xs[:, T - U :])
+        return torch.cat([h_pre, h_core, h_suf], dim=1)
 
 
 class _WindowConv(nn.Module):
@@ -243,8 +244,9 @@ class RefineNet(nn.Module):
 
         core = per_frame(self.in_block, x[:, U : T - U])
         if U > 0:
-            fwd_warm = per_frame(self.in_block, x[:, :U]).detach()
-            bwd_warm = per_frame(self.in_block, x[:, T - U :]).detach()
+            with torch.no_grad():
+                fwd_warm = per_frame(self.in_block, x[:, :U])
+                bwd_warm = per_frame(self.in_block, x[:, T - U :])
 
         outputs = []
         for stage in range(self.num_stages):
@@ -277,18 +279,15 @@ class RefineNet(nn.Module):
             if self.num_stages > 1 and stage < self.num_stages - 1:
                 if U > 0:
                     n_ref = max(0, U - half)
-                    fwd_warm = (
-                        fwd_warm
-                        + torch.cat([fwd_h[:, : min(half, U)], refine[:, :n_ref]], dim=1)
-                    ).detach()
                     b_start = min(K, max(0, T - U - half))
-                    bwd_warm = (
-                        bwd_warm
-                        + torch.cat(
+                    with torch.no_grad():
+                        fwd_warm = fwd_warm + torch.cat(
+                            [fwd_h[:, : min(half, U)], refine[:, :n_ref]], dim=1
+                        )
+                        bwd_warm = bwd_warm + torch.cat(
                             [refine[:, b_start : b_start + n_ref], bwd_h[:, T - min(half, U) :]],
                             dim=1,
                         )
-                    ).detach()
                 core = core + fused
 
         return outputs

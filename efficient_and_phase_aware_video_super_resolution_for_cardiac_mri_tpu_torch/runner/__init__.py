@@ -1,3 +1,3 @@
-from . import checkpoint, common, predictors
+from . import checkpoint, common, loggers, monitor, optim, predictors, trainers
 
-__all__ = ["checkpoint", "common", "predictors"]
+__all__ = ["checkpoint", "common", "loggers", "monitor", "optim", "predictors", "trainers"]

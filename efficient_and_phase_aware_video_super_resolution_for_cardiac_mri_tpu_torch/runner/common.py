@@ -1,5 +1,8 @@
-"""Helpers shared by the engines (the predictor in this slice; the trainer
-of the training slice reuses them)."""
+"""Helpers shared by the trainer and predictor engines.
+
+One definition, two engines: a change to the denorm convention or the log
+layout hits training metrics and test metrics together.
+"""
 from __future__ import annotations
 
 import torch
@@ -25,7 +28,7 @@ def init_log(loss_fns, metric_fns) -> dict:
 
 def register_dataset_variants(registry, workload: str, suffix: str, cls) -> None:
     """Register the Acdc/Dsb15 twins of a workload engine under the
-    reference's naming scheme (e.g. ``AcdcVSRRefineNetPredictor``) with the
+    reference's naming scheme (e.g. ``AcdcVSRRefineNetTrainer``) with the
     matching dataset stats baked in."""
     for prefix, stats in (("Acdc", "acdc"), ("Dsb15", "dsb15")):
         name = f"{prefix}{workload}{suffix}"

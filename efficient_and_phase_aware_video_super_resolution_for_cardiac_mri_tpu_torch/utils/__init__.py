@@ -1,12 +1,15 @@
 from . import nifti
 from .jax_weights import state_dict_from_jax_params
-from .seeding import item_rng
+from .seeding import SeedState, epoch_rng, item_rng, seed_everything
 from .stats import DATASET_STATS, denormalize, get_stats
 
 __all__ = [
     "nifti",
     "state_dict_from_jax_params",
+    "SeedState",
+    "epoch_rng",
     "item_rng",
+    "seed_everything",
     "DATASET_STATS",
     "denormalize",
     "get_stats",

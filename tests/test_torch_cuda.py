@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions: the
+gate tail forward and backward, a small net's forward, and one training
+step through the kernels against one through the plain gate tail.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -13,8 +15,14 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     RefineNet,
     set_gate_tail,
 )
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.losses import (
+    L1Loss,
+)
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
     lstm_gates,
+)
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.trainers import (
+    VSRRefineNetTrainer,
 )
 
 pytestmark = pytest.mark.cuda
@@ -80,3 +88,75 @@ def test_small_net_on_the_card_matches_the_cpu(cuda):
     for g, p, w in zip(got, plain, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4)
         torch.testing.assert_close(g, p, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,dim", [((16, 256, 32, 32), 1), ((3 * 11 * 7, 256), -1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_backward_kernel_matches_plain_version(cuda, dtype, shape, dim):
+    # fp32: an ulp or two of values up to ~5; bf16: the kernel rounds its
+    # fp32 result once, held against the fp32 plain version on the same
+    # (upcast) inputs, relative to max(1, |value|)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    c_shape = list(shape)
+    c_shape[dim] //= 4
+    g = (torch.randn(shape, device=cuda, generator=gen) * 2).to(dtype)
+    c, dh, dc = ((torch.randn(c_shape, device=cuda, generator=gen) * s).to(dtype)
+                 for s in (0.5, 1.0, 1.0))
+    before = lstm_gates.BWD_LAUNCHES
+    dg_got, dc_got = lstm_gates._launch_bwd(g, c, dh, dc, dim)
+    torch.cuda.synchronize()
+    assert lstm_gates.BWD_LAUNCHES == before + 1
+    assert dg_got.dtype == dtype and dg_got.shape == g.shape and dc_got.shape == c.shape
+    dg_want, dc_want = lstm_gates.lstm_gates_backward_reference(
+        g.float(), c.float(), dh.float(), dc.float(), dim=dim)
+    for got, want in ((dg_got, dg_want), (dc_got, dc_want)):
+        err = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 2e-6
+        else:
+            assert (err / want.abs().clamp_min(1)).max().item() <= 1e-2
+
+
+def test_gate_backward_takes_strided_and_missing_gradients(cuda):
+    """The grads of h' arrive as strided views (the backward of stack) and
+    the grad of c' is materialised as zeros when c' feeds nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    g = torch.randn(2, 32, 5, 7, device=cuda, generator=gen).requires_grad_()
+    c = torch.randn(2, 8, 5, 7, device=cuda, generator=gen).requires_grad_()
+    weights = torch.randn(2, 3, 8, 5, 7, device=cuda, generator=gen)
+    grads = []
+    for fn in (lstm_gates.fused_lstm_gates, lstm_gates.lstm_gates_reference):
+        h, _ = fn(g, c, dim=1)
+        (torch.stack([h, 2 * h, h * h], dim=1) * weights).sum().backward()
+        grads.append((g.grad.clone(), c.grad.clone()))
+        g.grad = c.grad = None
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+def test_training_step_through_the_kernels_matches_the_plain_tail(cuda):
+    kwargs = dict(in_channels=1, out_channels=1, num_features=[8, 8], num_stages=2,
+                  refine_window_size=5, upscale_factor=4, update_memory=True,
+                  num_updated_frames=3, positional_encoding=True)
+    net = RefineNet(**kwargs)
+    trainer = VSRRefineNetTrainer(device=cuda, net=net, loss_fns=[L1Loss()], num_epochs=1)
+    gen = torch.Generator().manual_seed(3)
+    batch = {"lr_imgs": torch.randn(2, 11, 8, 8, 1, generator=gen).numpy(),
+             "hr_imgs": torch.randn(2, 5, 32, 32, 1, generator=gen).numpy(),
+             "pos_code": (torch.rand(2, 11, 1, generator=gen) * 2 - 1).numpy()}
+    results = []
+    for tail in (lstm_gates.fused_lstm_gates, lstm_gates.lstm_gates_reference):
+        set_gate_tail(net, tail)
+        net.zero_grad(set_to_none=True)
+        fwd, bwd = lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES
+        total, *_ = trainer._forward(batch, True)
+        total.backward()
+        results.append((total.item(), {n: p.grad.clone() for n, p in net.named_parameters()
+                                       if p.grad is not None},
+                        lstm_gates.LAUNCHES - fwd, lstm_gates.BWD_LAUNCHES - bwd))
+    (loss_k, grads_k, fwd_k, bwd_k), (loss_p, grads_p, fwd_p, bwd_p) = results
+    assert (fwd_k, bwd_k, fwd_p, bwd_p) == (2 * 2 * 11 * 2, 2 * 2 * 5 * 2, 0, 0)
+    assert grads_k.keys() == grads_p.keys()
+    assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
+    for name, g in grads_p.items():
+        assert (grads_k[name] - g).abs().max().item() <= 1e-4 * g.abs().max().item(), name

@@ -15,6 +15,10 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
     resolve_device,
     test_from_config as run_port_test,
+    train_from_config as run_port_train,
+)
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import (
+    trainers,
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.predictors import (
     DEFERRED_KNOBS,
@@ -35,7 +39,9 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
-    assert f"{port.__name__}.runner.predictors" in modules
+    for name in ("runner.predictors", "runner.trainers", "runner.optim", "runner.monitor",
+                 "runner.loggers", "runner.checkpoint", "tools.profile_train"):
+        assert f"{port.__name__}.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {modules!r}:
@@ -103,3 +109,42 @@ def test_parallel_section_raises(tmp_path):
                "predictor": {"name": "AcdcVSRRefineNetPredictor", "kwargs": {"device": "cpu"}}})
     with pytest.raises(NotImplementedError, match="parallel"):
         run_port_test(cfg)
+
+
+@pytest.mark.parametrize("device", [None, "cuda:0", "cuda"])
+def test_training_on_cuda_without_a_card_raises(monkeypatch, tmp_path, device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kwargs = {"num_epochs": 1} if device is None else {"device": device}
+    cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "net": {"name": "RefineNet", "kwargs": {}},
+               "trainer": {"name": "AcdcVSRRefineNetTrainer", "kwargs": kwargs}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_port_train(cfg)
+    assert not (tmp_path / "config.yaml").exists()  # raised before any work
+
+
+@pytest.mark.parametrize("knob,value", [("compute_dtype", "bfloat16"), ("grad_accum_steps", 2),
+                                        ("aot_cache", "cache"), ("int_feed", True),
+                                        ("checkpoint_backend", "orbax"),
+                                        ("telemetry_warn_frac", 0.1)])
+def test_deferred_trainer_knobs_raise(knob, value):
+    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
+        trainers.VSRRefineNetTrainer(device="cpu", **{knob: value})
+
+
+def test_deferred_trainer_knobs_at_their_defaults_are_accepted():
+    defaults = {k: default for k, (default, _) in trainers.DEFERRED_KNOBS.items()}
+    trainers.VSRRefineNetTrainer(device="cpu", telemetry=False, **defaults)
+    with pytest.raises(TypeError):
+        trainers.VSRRefineNetTrainer(device="cpu", no_such_knob=1)
+
+
+@pytest.mark.parametrize("section,match", [
+    ({"parallel": {"num_devices": 2}}, "parallel"),
+    ({"net": {"name": "RefineNet", "kwargs": {"remat": True}}}, "remat"),
+])
+def test_training_sections_not_ported_raise(tmp_path, section, match):
+    cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "net": {"name": "RefineNet", "kwargs": {}},
+               "trainer": {"name": "AcdcVSRRefineNetTrainer", "kwargs": {"device": "cpu"}},
+               **section})
+    with pytest.raises(NotImplementedError, match=match):
+        run_port_train(cfg)

@@ -3,8 +3,12 @@
 On CPU tensors the port's wrapper runs its plain version; both are held
 against the JAX oracle and the Pallas kernel in interpret mode, forward and
 backward, at fp32 atol 1e-6 (the shapes of ``test_pallas_kernels.py``).  The
-CUDA kernel itself is checked on the card by ``chip_smoke.py`` and by
-``test_torch_cuda.py``.
+plain version of the backward kernel, ``lstm_gates_backward_reference``, is
+held against ``torch.autograd`` of the plain forward (atol 1e-6) and
+against ``jax.vjp(lstm_gates_reference)`` (atol 2e-6: torch's autograd
+itself differs from JAX by up to 1.1e-6 on these inputs, see the test) at
+the same shapes, in the channels-last and the NCHW layout.  The CUDA kernels themselves are checked
+on the card by ``chip_smoke.py`` and by ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -84,3 +88,59 @@ def test_gates_wrapper_rejects_what_the_kernel_does_not_take():
         lstm_gates._layout(torch.zeros(4 * 8, 4).t(), c, -1)
     assert lstm_gates._layout(torch.zeros(2, 4 * 8, 3, 5), torch.zeros(2, 8, 3, 5), 1) == (2, 8, 15)
 
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("shape,F", SHAPES)
+def test_backward_plain_version_matches_autograd_and_jax_vjp(shape, F, layout):
+    gates, c = _inputs(shape, F, seed=4)
+    rng = np.random.default_rng(5)
+    dh = rng.standard_normal(c.shape).astype(np.float32)
+    dc = rng.standard_normal(c.shape).astype(np.float32)
+    _, vjp = jax.vjp(jax_reference, jnp.asarray(gates), jnp.asarray(c))
+    dg_jax, dc_jax = (np.asarray(x) for x in vjp((jnp.asarray(dh), jnp.asarray(dc))))
+
+    def to_layout(x):  # channels-last (..., C) → the port's NCHW (N, C, ...)
+        t = torch.from_numpy(x)
+        return t if layout == "channels_last" else t.movedim(-1, 1).contiguous()
+
+    def from_layout(t):
+        return (t if layout == "channels_last" else t.movedim(1, -1)).numpy()
+
+    dim = -1 if layout == "channels_last" else 1
+    g_t, c_t, dh_t, dc_t = (to_layout(x) for x in (gates, c, dh, dc))
+    dg_got, dc_got = lstm_gates.lstm_gates_backward_reference(g_t, c_t, dh_t, dc_t, dim=dim)
+
+    g_req, c_req = g_t.clone().requires_grad_(), c_t.clone().requires_grad_()
+    torch.autograd.backward(lstm_gates.lstm_gates_reference(g_req, c_req, dim), (dh_t, dc_t))
+    torch.testing.assert_close(dg_got, g_req.grad, atol=1e-6, rtol=0)
+    torch.testing.assert_close(dc_got, c_req.grad, atol=1e-6, rtol=0)
+    # XLA's and ATen's sigmoid/tanh round differently by an ulp, and the
+    # backward amplifies it: 1 - tanh(g)^2 cancels as |tanh(g)| nears 1 (an
+    # ulp of tanh is ~1.2e-7 of it) and is then scaled by |dct*i| up to ~5,
+    # and |dgates| reaches ~4 (ulp 4.8e-7).  torch's own autograd differs
+    # from jax.vjp by up to 1.1e-6 on these inputs, so against JAX: 2e-6.
+    np.testing.assert_allclose(from_layout(dg_got), dg_jax, atol=2e-6, rtol=0)
+    np.testing.assert_allclose(from_layout(dc_got), dc_jax, atol=2e-6, rtol=0)
+
+
+def test_gradient_through_the_function_takes_strided_and_missing_grads():
+    """On CPU tensors that need a gradient the wrapper runs the same
+    ``autograd.Function`` as on the card, with the plain backward: grads of
+    h' that arrive as strided views (the backward of ``stack``) and a c'
+    that feeds nothing give autograd's gradients of the plain forward."""
+    gates, c = _inputs((2, 5, 7), 8, seed=6)
+    g_nchw = torch.from_numpy(gates).movedim(-1, 1).contiguous()
+    c_nchw = torch.from_numpy(c).movedim(-1, 1).contiguous()
+    weights = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 3, 8, 5, 7)).astype(np.float32))
+    grads = []
+    for fn in (lstm_gates.fused_lstm_gates, lstm_gates.lstm_gates_reference):
+        g, cc = g_nchw.clone().requires_grad_(), c_nchw.clone().requires_grad_()
+        h, _ = fn(g, cc, dim=1)
+        assert (h.grad_fn is not None and "FusedGates" in type(h.grad_fn).__name__) == (
+            fn is lstm_gates.fused_lstm_gates)
+        (torch.stack([h, 2 * h, h * h], dim=1) * weights).sum().backward()
+        grads.append((g.grad, cc.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
