@@ -36,17 +36,43 @@ non-zero and no result is printed:
 8. training step: one batch of the training shape, forward + the
    stage-discounted L1 + backward through the kernels and through the plain
    gate tail (autograd of the plain version): the loss and every gradient.
-9. backward kernel vs plain at the training shape in fp32 and bf16 and at
-   an unaligned channels-last shape; its time beside its bound and beside
-   the forward's time at the training shape.
+9. forward and backward kernel vs plain at the training shape in fp32 and
+   bf16, the backward also at an unaligned channels-last shape; the
+   backward's time beside its bound and beside the forward's time at the
+   training shape.
+10. bf16 serving: phase 4's run with the predictor knobs of
+    ``configs/test/refine_net/exp1_x4_tpu.yaml`` (``compute_dtype:
+    bfloat16``, ``t_bucket: 8``, ``aot_cache``): exactly 792 bf16 gate
+    launches a clip (the 30-frame cycle extended to 32, plus 2×6 warm-up),
+    every metric finite, PSNR/SSIM within ~5x the measured gap of phase 4's
+    fp32 run; clip latency and frames/s; the device's busy share in the
+    predictor's step on a warm clip.
+11. bf16 + remat training: phase 7's run with the knobs of
+    ``configs/train/refine_net/exp1_x4_tpu.yaml`` (``remat``,
+    ``compute_dtype: bfloat16``, ``int_feed``, ``aot_cache``, ``parallel:
+    {num_devices: 1}``): exactly 468 bf16 forward launches a step (342 +
+    the 126 core steps recomputed in the backward) + 756 a valid clip and
+    126 bf16 backward launches a step; no "int_feed disabled" warning;
+    every logged value finite; masters and Adam state fp32; ms a step,
+    frames/s and peak memory beside phase 7's.  Then, as phase 8 in fp32,
+    one bf16 + remat step through the kernels against the plain gate tail;
+    one step with ``grad_accum_steps: 2`` against the same step with 1;
+    the device's busy share in the trainer's step.
+12. tiled serving: ``configs/test/refine_net/exp1_x4_dsb15_tile_tpu.yaml``'s
+    knobs (``Dsb15VSRRefineNetDataset``, ``tile: 64``, ``tile_overlap: 12``,
+    bf16) on a tree of LR 96×80 and 80×96 frames: the bf16 launch count of
+    the window and seam-probe plan, the seam statistics, and tiled against
+    untiled output on one clip in gray levels.
 
-The second-to-last line is the ``{"kernels": [...]}`` record; the last is
-``{"ok": true, "device": {...}}``.  Needs only torch and numpy: no PyYAML,
-no imageio, nothing of JAX.
+Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
+2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
+record; the last is ``{"ok": true, "device": {...}}``.  Needs only torch
+and numpy: no PyYAML, no imageio, nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -78,6 +104,33 @@ TREE_SPLITS = {"test": (1, SLICES), "train": (2, 2), "valid": (1, 1)}  # (patien
 EPOCHS = 2
 STEPS_PER_EPOCH = math.ceil(2 * 2 * CYCLE / TRAIN_BATCH)  # 120 items → 8 steps
 VALID_CLIPS = 1
+
+# the _tpu configurations' knobs (configs/{test,train}/refine_net/exp1_x4_tpu.yaml)
+T_BUCKET = 8
+BUCKET_CLIP = -(-CYCLE // T_BUCKET) * T_BUCKET + 2 * U  # 32 core + 12 warm-up frames
+BUCKET_LAUNCHES_PER_CLIP = LAYER_STEPS * BUCKET_CLIP  # 792
+REMAT_FWD_PER_STEP = FWD_PER_STEP + BWD_PER_STEP  # 468: the core steps rerun in the backward
+# configs/test/refine_net/exp1_x4_dsb15_tile_tpu.yaml on frames of two sizes
+# (DSB15's frames differ by patient), each larger than the tile
+TILE, TILE_OVERLAP = 64, 12
+TILE_HR = [(384, 320), (320, 384)]  # LR 96×80 and 80×96; slice s takes TILE_HR[(s-1) % 2]
+TILE_SLICES = 3  # the third repeats the first size: no seam probes for it
+# bf16 + t_bucket serving against phase 4's fp32 run on the same clips: ~5x the
+# gap measured on an H100 (PSNR -2.0e-4 dB, CardiacPSNR -1.9e-4 dB, SSIM
+# +1.9e-5, CardiacSSIM +1.4e-5; the same in every run, the data and weights
+# being seeded).  The SSIM of seeded random weights is ~0.02, so the JAX
+# package's own bound (|dPSNR| < 0.5, |dSSIM| < 0.05) would pass a wrong path.
+BF16_DPSNR, BF16_DSSIM = 1e-3, 1e-4
+# one bf16 step as 2 microbatches of 8 against 1 of 16: the loss relative to
+# itself, each gradient relative to its largest element (bf16 rounds each
+# conv output to 8 bits, and the microbatches round differently)
+TOL_ACCUM_LOSS, TOL_ACCUM_GRAD = 1e-2, 5e-2
+# one bf16 + remat step through the kernels against the same step through the
+# plain gate tail in bf16 (which rounds after every op; the kernel computes in
+# fp32 and rounds once): the loss relative to itself, each gradient relative
+# to its largest element; ~3x the gaps measured on an H100 (loss 5.97e-5,
+# gradients 1.79e-2 at most, 6.9e-3 the median)
+TOL_BF16_STEP_LOSS, TOL_BF16_STEP_GRAD = 2e-4, 5e-2
 
 TOL_FP32 = 2e-6  # expf/tanhf against ATen's: an ulp or two
 TOL_BF16 = 1e-2  # one rounding to bf16 of values below 4, against the fp32 plain version
@@ -123,6 +176,60 @@ def time_graph_ms(fns) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * len(fns))
+
+
+def device_busy(fn, reps: int = 3) -> tuple[float, float, int]:
+    """(median host wall ms of ``fn()`` to the device's drain over ``reps``
+    warm calls without a profiler; device ms of the kernels of one more call
+    from a ``torch.profiler`` trace; their number).  The kernels run on one
+    stream, so their sum is the busy time; host tracing slows the host, not
+    the kernels, so the wall is taken untraced."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler traced no device activity")
+    return (sorted(walls)[reps // 2], sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            len(kernels))
+
+
+def rel_diffs(grads_a: dict, grads_b: dict) -> dict:
+    """Per parameter, the largest difference of two gradients relative to
+    the largest element of the second."""
+    return {n: ((grads_a[n] - g).abs().max() / g.abs().max()).item() for n, g in grads_b.items()}
+
+
+def reset_launches(lstm_gates) -> None:
+    lstm_gates.LAUNCHES = lstm_gates.BWD_LAUNCHES = 0
+    lstm_gates.BF16_LAUNCHES = lstm_gates.BF16_BWD_LAUNCHES = 0
+
+
+def launches(lstm_gates) -> tuple[int, int, int, int]:
+    """(forward, backward, bf16 forward, bf16 backward) launches since the reset."""
+    return (lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES, lstm_gates.BF16_LAUNCHES,
+            lstm_gates.BF16_BWD_LAUNCHES)
+
+
+class _Records(logging.Handler):
+    """Keeps the log records of a run, to read its warnings."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
 
 
 def bound_ms(nbytes: int, ops: int, mem_rate: float, fp32_peak: float) -> tuple[float, str]:
@@ -217,7 +324,8 @@ def main() -> int:
         RefineNet,
         set_gate_tail,
     )
-    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates, tiling
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import common
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
         load_checkpoint,
     )
@@ -306,22 +414,24 @@ def main() -> int:
     torch.cuda.synchronize()
 
     cfg = Cfg(eval_config(tree, ckpt, tmp / "test"))
-    lstm_gates.LAUNCHES = lstm_gates.BWD_LAUNCHES = 0
+    reset_launches(lstm_gates)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     predictor = port_main.test_from_config(cfg)
     wall = time.perf_counter() - t0
-    launches = lstm_gates.LAUNCHES
+    eval_launches = launches(lstm_gates)
+    n_eval = eval_launches[0]
     log("main", f"Test log: {predictor.log}")
-    log("main", f"lstm_gates launches: {launches} (expected {LAUNCHES_PER_CLIP} x {SLICES} clips)")
-    if launches != LAUNCHES_PER_CLIP * SLICES or lstm_gates.BWD_LAUNCHES:
-        raise AssertionError(f"the eval path launched the gate kernel {launches} times and its "
-                             f"backward {lstm_gates.BWD_LAUNCHES} times")
+    log("main", f"lstm_gates launches: {n_eval} (expected {LAUNCHES_PER_CLIP} x {SLICES} clips)")
+    if eval_launches != (LAUNCHES_PER_CLIP * SLICES, 0, 0, 0):
+        raise AssertionError(f"the eval path launched (forward, backward, bf16 forward, bf16 "
+                             f"backward) {eval_launches}")
     if predictor.throughput["frames"] != CYCLE * SLICES:
         raise AssertionError(f"scored {predictor.throughput['frames']} frames")
     if not all(math.isfinite(v) for v in predictor.log.values()):
         raise AssertionError(f"non-finite metric in {predictor.log}")
     clip_s = predictor.item_seconds
+    fp32_log = predictor.log
     log("main", f"frames/s {predictor.throughput['frames_per_sec']:.2f} over "
                 f"{predictor.throughput['frames']} frames; per-clip latency "
                 f"{', '.join(f'{s * 1e3:.1f}' for s in clip_s)} ms; test_from_config wall "
@@ -378,15 +488,31 @@ def main() -> int:
                  f"{mem_rate / 1e12} TB/s; {ops} ops at {fp32_peak / 1e12} TFLOP/s); per clip "
                  f"{LAUNCHES_PER_CLIP} launches = {kernel_ms * LAUNCHES_PER_CLIP:.2f} ms")
     del sets, kernel_calls, plain_calls
+    n_sets = 32  # 32 × 3.7 MB in bf16 > the 50 MB L2
+    sets = [((torch.randn(shape_g, device=dev, generator=gen) * 2).to(torch.bfloat16),
+             torch.randn(shape_c, device=dev, generator=gen).to(torch.bfloat16))
+            for _ in range(n_sets)]
+    cycle_sets = (sets * (100 // n_sets + 1))[:100]
+    kernel_ms16 = time_graph_ms([lambda g=g, c=c: lstm_gates.fused_lstm_gates(g, c, dim=1)
+                                 for g, c in cycle_sets])
+    plain_ms16 = time_graph_ms([lambda g=g, c=c: lstm_gates.lstm_gates_reference(g, c, dim=1)
+                                for g, c in cycle_sets])
+    nbytes16 = (g0.numel() + 3 * c0.numel()) * 2  # the same traffic at 2-byte elements
+    fwd_bound_ms16, _ = bound_ms(nbytes16, ops, mem_rate, fp32_peak)
+    log("times", f"lstm_gates bf16 NCHW {shape_g}: kernel {kernel_ms16 * 1e3:.2f} us, plain "
+                 f"{plain_ms16 * 1e3:.2f} us, bound {fwd_bound_ms16 * 1e3:.2f} us ({nbytes16} bytes); "
+                 f"per t_bucket clip {BUCKET_LAUNCHES_PER_CLIP} launches = "
+                 f"{kernel_ms16 * BUCKET_LAUNCHES_PER_CLIP:.2f} ms")
+    del sets, cycle_sets
 
     # ------------------------------------------------------ 7 train main path
     cfg = Cfg(train_config(tree, tmp / "train"))
-    lstm_gates.LAUNCHES = lstm_gates.BWD_LAUNCHES = 0
+    reset_launches(lstm_gates)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     trainer = port_main.train_from_config(cfg)
     train_wall = time.perf_counter() - t0
-    train_fwd, train_bwd = lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES
+    train_fwd, train_bwd, train_fwd16, train_bwd16 = launches(lstm_gates)
     train_peak = torch.cuda.max_memory_allocated(dev)
     steps = EPOCHS * STEPS_PER_EPOCH
     for epoch, (t_log, v_log) in enumerate(zip(trainer.history["train"], trainer.history["valid"]), 1):
@@ -396,7 +522,7 @@ def main() -> int:
     log("train", f"lstm_gates launches {train_fwd} (expected {FWD_PER_STEP} x {steps} steps + "
                  f"{LAUNCHES_PER_CLIP} x {VALID_CLIPS * EPOCHS} valid clips = {want_fwd}); "
                  f"lstm_gates_bwd launches {train_bwd} (expected {BWD_PER_STEP} x {steps} = {want_bwd})")
-    if (train_fwd, train_bwd) != (want_fwd, want_bwd):
+    if (train_fwd, train_bwd, train_fwd16, train_bwd16) != (want_fwd, want_bwd, 0, 0):
         raise AssertionError(f"the training path launched the gate kernels {train_fwd} / {train_bwd} times")
     if len(trainer.history["train"]) != EPOCHS or not all(
             math.isfinite(v) for h in trainer.history["train"] + trainer.history["valid"]
@@ -435,7 +561,7 @@ def main() -> int:
         "pos_code": rng.uniform(-1, 1, (TRAIN_BATCH, T_TRAIN, 1)).astype(np.float32),
     }
 
-    def step_grads():
+    def step_grads(trainer):
         trainer.net.zero_grad(set_to_none=True)
         total, *_ = trainer._forward(batch, True)
         total.backward()
@@ -443,14 +569,14 @@ def main() -> int:
                               if p.grad is not None}
 
     bwd_before = lstm_gates.BWD_LAUNCHES
-    loss_k, grads_k = step_grads()
+    loss_k, grads_k = step_grads(trainer)
     if lstm_gates.BWD_LAUNCHES - bwd_before != BWD_PER_STEP:
         raise AssertionError("the kernel step did not run the backward kernel 126 times")
     set_gate_tail(trainer.net, lstm_gates.lstm_gates_reference)
-    loss_p, grads_p = step_grads()
+    loss_p, grads_p = step_grads(trainer)
     set_gate_tail(trainer.net, lstm_gates.fused_lstm_gates)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    grad_rel = {n: ((grads_k[n] - g).abs().max() / g.abs().max()).item() for n, g in grads_p.items()}
+    grad_rel = rel_diffs(grads_k, grads_p)
     worst = max(grad_rel, key=grad_rel.get)
     log("step", f"batch ({TRAIN_BATCH}, {T_TRAIN}, {PATCH}, {PATCH}, 1): loss {loss_k:.6f} vs "
                 f"{loss_p:.6f} (rel {loss_rel:.2e}); {len(grads_p)} gradients, largest relative "
@@ -462,11 +588,21 @@ def main() -> int:
     # ---------------------------------------------- 9 backward kernel vs plain
     shape_tg = (TRAIN_BATCH, 4 * F_, PATCH, PATCH)  # NCHW, M = 16 384 rows
     shape_tc = (TRAIN_BATCH, F_, PATCH, PATCH)
-    bwd_errors = {}
+    bwd_errors, fwd_train_errors = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         g = (torch.randn(shape_tg, device=dev, generator=gen) * 2).to(dtype)
         c, dh, dc = ((torch.randn(shape_tc, device=dev, generator=gen) * s).to(dtype)
                      for s in (0.5, 1.0, 1.0))
+        # the forward at the training shape, against the fp32 plain version
+        h_k, c_k = lstm_gates.fused_lstm_gates(g, c, dim=1)
+        h_p, c_p = lstm_gates.lstm_gates_reference(g.float(), c.float(), dim=1)
+        torch.cuda.synchronize()
+        err = max((h_k.float() - h_p).abs().max().item(), (c_k.float() - c_p).abs().max().item())
+        fwd_train_errors[str(dtype)] = err
+        tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+        log("fwd", f"NCHW {shape_tg} {dtype}: max abs err {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"gate kernel disagrees at the training shape in {dtype}: {err}")
         dg_k, dc_k = lstm_gates._launch_bwd(g, c, dh, dc, 1)
         dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(g.float(), c.float(), dh.float(),
                                                               dc.float(), dim=1)
@@ -513,17 +649,268 @@ def main() -> int:
                  f"{fwd_train_plain_ms * 1e3:.2f} us, bound {fwd_train_bound_ms * 1e3:.2f} us; per step "
                  f"{FWD_PER_STEP} + {BWD_PER_STEP} launches = "
                  f"{fwd_train_ms * FWD_PER_STEP + bwd_kernel_ms * BWD_PER_STEP:.2f} ms")
+    del sets, cycle_sets
+    sets = [tuple(torch.randn(s, device=dev, generator=gen).to(torch.bfloat16)
+                  for s in (shape_tg, shape_tc, shape_tc, shape_tc))
+            for _ in range(n_sets)]  # 8 × 14.7 MB > the 50 MB L2
+    cycle_sets = (sets * (100 // n_sets + 1))[:100]
+    bwd_kernel_ms16 = time_graph_ms([lambda a=a: lstm_gates._launch_bwd(*a, 1) for a in cycle_sets])
+    bwd_plain_ms16 = time_graph_ms(
+        [lambda a=a: lstm_gates.lstm_gates_backward_reference(*a, dim=1) for a in cycle_sets])
+    fwd_train_ms16 = time_graph_ms([lambda a=a: lstm_gates.fused_lstm_gates(a[0], a[1], dim=1)
+                                    for a in cycle_sets])
+    fwd_train_plain_ms16 = time_graph_ms(
+        [lambda a=a: lstm_gates.lstm_gates_reference(a[0], a[1], dim=1) for a in cycle_sets])
+    bwd_bound_ms16, _ = bound_ms(bwd_bytes // 2, GATE_BWD_OPS_PER_ELEMENT * c0.numel(),
+                                 mem_rate, fp32_peak)
+    fwd_train_bound_ms16, _ = bound_ms((g0.numel() + 3 * c0.numel()) * 2,
+                                       GATE_OPS_PER_ELEMENT * c0.numel(), mem_rate, fp32_peak)
+    log("times", f"lstm_gates_bwd bf16 NCHW {shape_tg}: kernel {bwd_kernel_ms16 * 1e3:.2f} us, plain "
+                 f"{bwd_plain_ms16 * 1e3:.2f} us, bound {bwd_bound_ms16 * 1e3:.2f} us "
+                 f"({bwd_bytes // 2} bytes); forward at the same shape: kernel "
+                 f"{fwd_train_ms16 * 1e3:.2f} us, plain {fwd_train_plain_ms16 * 1e3:.2f} us, bound "
+                 f"{fwd_train_bound_ms16 * 1e3:.2f} us; per bf16 + remat step {REMAT_FWD_PER_STEP} + "
+                 f"{BWD_PER_STEP} launches = "
+                 f"{fwd_train_ms16 * REMAT_FWD_PER_STEP + bwd_kernel_ms16 * BWD_PER_STEP:.2f} ms")
+    del sets, cycle_sets
+
+    # ------------------------------------------------------- 10 bf16 serving
+    cfg = eval_config(tree, ckpt, tmp / "test_bf16")
+    cfg["predictor"]["kwargs"].update(compute_dtype="bfloat16", t_bucket=T_BUCKET,
+                                      aot_cache=str(tmp / "aot_cache"))
+    reset_launches(lstm_gates)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pred16 = port_main.test_from_config(Cfg(cfg))
+    wall16 = time.perf_counter() - t0
+    eval16_launches = launches(lstm_gates)
+    n_eval16 = eval16_launches[2]
+    eval16_peak = torch.cuda.max_memory_allocated(dev)
+    log("bf16 eval", f"Test log: {pred16.log}")
+    log("bf16 eval", f"fp32 Test log (phase 4): {fp32_log}")
+    want = BUCKET_LAUNCHES_PER_CLIP * SLICES
+    log("bf16 eval", f"bf16 lstm_gates launches {n_eval16} (expected {BUCKET_LAUNCHES_PER_CLIP} x "
+                     f"{SLICES} clips = {want}); all launches {eval16_launches}")
+    if eval16_launches != (want, 0, want, 0):
+        raise AssertionError(f"the bf16 eval path launched (forward, backward, bf16 forward, bf16 "
+                             f"backward) {eval16_launches}")
+    if pred16.throughput["frames"] != CYCLE * SLICES:
+        raise AssertionError(f"scored {pred16.throughput['frames']} frames, not the true {CYCLE * SLICES}")
+    if not all(math.isfinite(v) for v in pred16.log.values()):
+        raise AssertionError(f"non-finite metric in {pred16.log}")
+    gaps = {k: pred16.log[k] - fp32_log[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
+    log("bf16 eval", f"bf16 - fp32: {gaps} (bound |dPSNR| < {BF16_DPSNR}, |dSSIM| < {BF16_DSSIM})")
+    if not all(abs(v) < (BF16_DPSNR if "PSNR" in k else BF16_DSSIM) for k, v in gaps.items()):
+        raise AssertionError(f"bf16 serving left the bf16 bound of the fp32 run: {gaps}")
+    clip16_s = pred16.item_seconds
+    log("bf16 eval", f"frames/s {pred16.throughput['frames_per_sec']:.2f} over "
+                     f"{pred16.throughput['frames']} frames; per-clip latency "
+                     f"{', '.join(f'{x * 1e3:.1f}' for x in clip16_s)} ms (fp32, phase 4: "
+                     f"{', '.join(f'{x * 1e3:.1f}' for x in clip_s)} ms); test_from_config wall "
+                     f"{wall16:.2f} s; peak device memory {eval16_peak / 2**30:.2f} GiB")
+    # the device's busy share in the predictor's own step on a warm clip
+    item16 = next(iter(pred16.test_dataloader))
+    patient16 = pred16._item_meta(int(item16["index"][0]))[0]
+    item16, _ = pred16._bucket_batch(item16)
+    masks16 = pred16._metric_masks(patient16, np.shape(pred16._targets(item16))[-3:-1])
+    eval16_busy = device_busy(lambda: pred16._step(item16, masks16))
+    log("bf16 eval", f"predictor step on a warm {BUCKET_CLIP}-frame clip: wall {eval16_busy[0]:.2f} ms "
+                     f"(median of 3, untraced), kernels {eval16_busy[1]:.2f} ms ({eval16_busy[2]} on "
+                     f"the device, traced), device busy {eval16_busy[1] / eval16_busy[0]:.1%}")
+    print(json.dumps({"eval_bf16": {"frames_per_sec": pred16.throughput["frames_per_sec"],
+                                    "clip_ms": [x * 1e3 for x in clip16_s], "wall_s": wall16,
+                                    "peak_gib": eval16_peak / 2**30, "log": pred16.log,
+                                    "fp32_log": fp32_log, "step_wall_ms": eval16_busy[0],
+                                    "step_kernel_ms": eval16_busy[1],
+                                    "step_kernels": eval16_busy[2], "card": card_line}}), flush=True)
+
+    # ----------------------------------------------- 11 bf16 + remat training
+    cfg = train_config(tree, tmp / "train_bf16")
+    cfg["net"] = {"name": "RefineNet", "kwargs": {**NET_KWARGS, "remat": True}}
+    cfg["trainer"]["kwargs"].update(compute_dtype="bfloat16", int_feed=True,
+                                    aot_cache=str(tmp / "aot_cache"))
+    cfg["parallel"] = {"num_devices": 1}
+    records = _Records()
+    logging.getLogger().addHandler(records)
+    reset_launches(lstm_gates)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer16 = port_main.train_from_config(Cfg(cfg))
+    train16_wall = time.perf_counter() - t0
+    logging.getLogger().removeHandler(records)
+    train16_launches = launches(lstm_gates)
+    train16_peak = torch.cuda.max_memory_allocated(dev)
+    for epoch, (t_log, v_log) in enumerate(zip(trainer16.history["train"],
+                                               trainer16.history["valid"]), 1):
+        log("bf16 train", f"epoch {epoch}: Train log {t_log}; Valid log {v_log}")
+    want_fwd16 = REMAT_FWD_PER_STEP * steps + LAUNCHES_PER_CLIP * VALID_CLIPS * EPOCHS
+    want_bwd16 = BWD_PER_STEP * steps
+    log("bf16 train", f"bf16 lstm_gates launches {train16_launches[2]} (expected "
+                      f"{REMAT_FWD_PER_STEP} x {steps} steps + {LAUNCHES_PER_CLIP} x "
+                      f"{VALID_CLIPS * EPOCHS} valid clips = {want_fwd16}); bf16 lstm_gates_bwd "
+                      f"launches {train16_launches[3]} (expected {BWD_PER_STEP} x {steps} = "
+                      f"{want_bwd16}); all launches {train16_launches}")
+    if train16_launches != (want_fwd16, want_bwd16, want_fwd16, want_bwd16):
+        raise AssertionError(f"the bf16 + remat training path launched (forward, backward, bf16 "
+                             f"forward, bf16 backward) {train16_launches}")
+    warned = [r.getMessage() for r in records.records]
+    log("bf16 train", f"warnings during the run: {warned}")
+    if trainer16._feed_norm is None or any("int_feed disabled" in m for m in warned):
+        raise AssertionError("int_feed did not engage")
+    if len(trainer16.history["train"]) != EPOCHS or not all(
+            math.isfinite(v) for h in trainer16.history["train"] + trainer16.history["valid"]
+            for v in h.values()):
+        raise AssertionError(f"bf16 training logs incomplete or non-finite: {trainer16.history}")
+    state_dtypes = {p.dtype for p in trainer16.net.parameters()} | {
+        v.dtype for st in trainer16.opt.state.values() for v in st.values()
+        if torch.is_tensor(v) and v.is_floating_point()}
+    log("bf16 train", f"dtypes of the master parameters and Adam's state: {sorted(map(str, state_dtypes))}")
+    if state_dtypes != {torch.float32}:
+        raise AssertionError(f"the masters or Adam's state left fp32: {state_dtypes}")
+    tp16 = trainer16.throughput
+    step16_ms = 1e3 / tp16["train_steps_per_sec"]
+    print(f"bf16 + remat training: {tp16['train_steps_per_sec']:.4f} steps/s, "
+          f"{tp16['frames_per_sec']:.2f} frames/s, {step16_ms:.1f} ms per step after the first "
+          f"(fp32, phase 7: {step_ms:.1f} ms, {tp['frames_per_sec']:.2f} frames/s), peak device "
+          f"memory {train16_peak / 2**30:.2f} GiB (fp32: {train_peak / 2**30:.2f} GiB), "
+          f"train_from_config wall {train16_wall:.1f} s", flush=True)
+    print(json.dumps({"train_bf16_remat": {
+        "steps_per_sec": tp16["train_steps_per_sec"], "frames_per_sec": tp16["frames_per_sec"],
+        "step_ms": step16_ms, "peak_gib": train16_peak / 2**30, "wall_s": train16_wall,
+        "card": card_line}}), flush=True)
+
+    # one bf16 + remat step through the kernels against the plain gate tail
+    before = launches(lstm_gates)
+    loss_k, grads_k = step_grads(trainer16)
+    step16_launches = tuple(a - b for a, b in zip(launches(lstm_gates), before))
+    if step16_launches[2:] != (REMAT_FWD_PER_STEP, BWD_PER_STEP):
+        raise AssertionError(f"the bf16 + remat step launched {step16_launches}")
+    set_gate_tail(trainer16.net, lstm_gates.lstm_gates_reference)
+    loss_p, grads_p = step_grads(trainer16)
+    set_gate_tail(trainer16.net, lstm_gates.fused_lstm_gates)
+    step16_loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = rel_diffs(grads_k, grads_p)
+    worst = max(grad_rel, key=grad_rel.get)
+    step16_grad_rel = grad_rel[worst]
+    log("bf16 train", f"bf16 + remat step, kernels vs plain tail on batch ({TRAIN_BATCH}, {T_TRAIN}, "
+                      f"{PATCH}, {PATCH}, 1): {step16_launches[2]} + {step16_launches[3]} bf16 launches; "
+                      f"loss {loss_k:.6f} vs {loss_p:.6f} (rel {step16_loss_rel:.2e}, tol "
+                      f"{TOL_BF16_STEP_LOSS}); {len(grads_p)} gradients, largest relative difference "
+                      f"{step16_grad_rel:.2e} at {worst} (tol {TOL_BF16_STEP_GRAD}); median "
+                      f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.2e}")
+    if (grads_k.keys() != grads_p.keys() or step16_loss_rel > TOL_BF16_STEP_LOSS
+            or step16_grad_rel > TOL_BF16_STEP_GRAD):
+        raise AssertionError("a bf16 + remat step through the kernels disagrees with the plain tail")
+    del grads_k, grads_p
+
+    # one step as 2 microbatches against 1, the optimizer held still
+    def accum_step(accum: int):
+        trainer16.grad_accum_steps = accum
+        total, _, _, display = trainer16._train_step(batch)
+        return total.item(), {n: p.grad.clone() for n, p in trainer16.net.named_parameters()
+                              if p.grad is not None}, tuple(display.shape)
+
+    trainer16.optimizer.step = lambda opt: None
+    (loss1, grads1, disp1), (loss2, grads2, disp2) = accum_step(1), accum_step(2)
+    del trainer16.optimizer.step
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    grad_rel = rel_diffs(grads2, grads1)
+    worst = max(grad_rel, key=grad_rel.get)
+    log("bf16 train", f"grad_accum_steps 2 vs 1 on batch ({TRAIN_BATCH}, {T_TRAIN}, {PATCH}, "
+                      f"{PATCH}, 1): loss {loss2:.6f} vs {loss1:.6f} (rel {loss_rel:.2e}, tol "
+                      f"{TOL_ACCUM_LOSS}); largest gradient difference relative to its maximum "
+                      f"{grad_rel[worst]:.2e} at {worst} (tol {TOL_ACCUM_GRAD}); display {disp2}")
+    if (grads1.keys() != grads2.keys() or disp1 != disp2 or loss_rel > TOL_ACCUM_LOSS
+            or grad_rel[worst] > TOL_ACCUM_GRAD):
+        raise AssertionError("grad_accum_steps 2 disagrees with the undivided step")
+    del grads1, grads2
+    # the device's busy share in the trainer's own step (optimizer included)
+    trainer16.grad_accum_steps = 1
+    train16_busy = device_busy(lambda: trainer16._train_step(batch))
+    log("bf16 train", f"trainer step on batch ({TRAIN_BATCH}, {T_TRAIN}, {PATCH}, {PATCH}, 1): wall "
+                      f"{train16_busy[0]:.2f} ms (median of 3, untraced), kernels "
+                      f"{train16_busy[1]:.2f} ms ({train16_busy[2]} on the device, traced), device "
+                      f"busy {train16_busy[1] / train16_busy[0]:.1%}")
+    print(json.dumps({"train_bf16_remat_step": {
+        "kernels_vs_plain_loss_rel": step16_loss_rel, "kernels_vs_plain_grad_rel": step16_grad_rel,
+        "step_wall_ms": train16_busy[0], "step_kernel_ms": train16_busy[1],
+        "step_kernels": train16_busy[2], "card": card_line}}), flush=True)
+    del trainer16
+
+    # --------------------------------------------------------- 12 tiled serving
+    tile_tree = write_acdc_tree(tmp / "dsb15", {"test": (1, TILE_SLICES)}, cycle=CYCLE,
+                                hr=TILE_HR, scale=SCALE, seed=1)
+    cfg = eval_config(tile_tree, ckpt, tmp / "tiled")
+    cfg["dataset"]["name"] = "Dsb15VSRRefineNetDataset"
+    cfg["predictor"]["kwargs"].update(tile=TILE, tile_overlap=TILE_OVERLAP, compute_dtype="bfloat16",
+                                      aot_cache=str(tmp / "aot_cache"))
+    want_tiled, shapes_seen, plans = 0, set(), []
+    for s in range(TILE_SLICES):  # seam_stats "first": probes for the first clip of each (H, W)
+        h, w = (v // SCALE for v in TILE_HR[s % len(TILE_HR)])
+        plan_h, plan_w = (tiling.plan_1d(n, TILE, TILE_OVERLAP) for n in (h, w))
+        probes = ([] if (h, w) in shapes_seen else
+                  tiling.seam_probe_plan(plan_h, plan_w, (TILE, TILE), TILE_OVERLAP, h, w))
+        shapes_seen.add((h, w))
+        plans.append(f"LR {h}x{w}: {len(plan_h)}x{len(plan_w)} windows + {len(probes)} probes")
+        want_tiled += (len(plan_h) * len(plan_w) + len(probes)) * LAUNCHES_PER_CLIP
+    reset_launches(lstm_gates)
+    t0 = time.perf_counter()
+    pred_t = port_main.test_from_config(Cfg(cfg))
+    wall_t = time.perf_counter() - t0
+    tiled_launches = launches(lstm_gates)
+    n_tiled = tiled_launches[2]
+    log("tiled", f"plan per clip: {'; '.join(plans)}")
+    log("tiled", f"bf16 lstm_gates launches {n_tiled} (expected {want_tiled}: the windows and "
+                 f"probes x {LAUNCHES_PER_CLIP}); all launches {tiled_launches}")
+    if tiled_launches != (want_tiled, 0, want_tiled, 0):
+        raise AssertionError(f"the tiled path launched (forward, backward, bf16 forward, bf16 "
+                             f"backward) {tiled_launches}")
+    log("tiled", f"Test log: {pred_t.log}")
+    log("tiled", f"seam stats (run max, gray levels): {pred_t.seam_summary}")
+    if (pred_t.throughput["frames"] != CYCLE * TILE_SLICES or pred_t.seam_summary.get("items") != 2
+            or not all(math.isfinite(v) for v in [*pred_t.log.values(),
+                                                   pred_t.seam_summary["max_rms"],
+                                                   pred_t.seam_summary["max_abs"]])):
+        raise AssertionError(f"tiled serving: {pred_t.throughput}, {pred_t.seam_summary}, {pred_t.log}")
+    log("tiled", f"frames/s {pred_t.throughput['frames_per_sec']:.2f}; per-clip latency "
+                 f"{', '.join(f'{x * 1e3:.1f}' for x in pred_t.item_seconds)} ms; "
+                 f"test_from_config wall {wall_t:.2f} s")
+    item = pred_t.test_dataloader.dataset[0]
+    lr_t = torch.from_numpy(item["lr_imgs"][None]).to(dev)
+    pos_t = torch.from_numpy(item["pos_code"][None]).to(dev)
+    with torch.inference_mode():
+        whole = common.denorm_uint8(pred_t._forward(lr_t, pos_t), pred_t.mean, pred_t.std)
+        tiled = common.denorm_uint8(
+            tiling.tiled_apply(pred_t._forward, [lr_t, pos_t], (TILE, TILE), TILE_OVERLAP),
+            pred_t.mean, pred_t.std)
+        diff = (tiled - whole).abs()
+        tile_gap = {"max": diff.max().item(), "mean": diff.mean().item(),
+                    "share_over_1": (diff > 1).float().mean().item()}
+    log("tiled", f"clip 1 (LR {tuple(lr_t.shape[2:4])}), tiled vs untiled output in gray levels: "
+                 f"max {tile_gap['max']:.0f}, mean {tile_gap['mean']:.4f}, share of pixels more "
+                 f"than 1 apart {tile_gap['share_over_1']:.4%}")
+    if tuple(whole.shape) != (1, CYCLE, *TILE_HR[0], 1) or not math.isfinite(tile_gap["mean"]):
+        raise AssertionError(f"tiled output {tuple(tiled.shape)} vs untiled {tuple(whole.shape)}")
+    print(json.dumps({"eval_tiled": {"frames_per_sec": pred_t.throughput["frames_per_sec"],
+                                     "clip_ms": [x * 1e3 for x in pred_t.item_seconds],
+                                     "seam": pred_t.seam_summary, "tiled_vs_untiled": tile_gap,
+                                     "log": pred_t.log, "card": card_line}}), flush=True)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
+    fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
+                 "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled}
+    bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
+                 "train_bf16_remat": train16_launches[3], "eval_tiled": 0}
     record = {"kernels": [{
         "name": "lstm_gates",
         "route": "cuda",
         "source": f"{PKG}/csrc/lstm_gates.cu",
         "replaces": f"{replaces}:31",
-        "launches": launches + train_fwd,
-        "launches_by_path": {"eval": launches, "train": train_fwd},
+        "launches": sum(fwd_paths.values()),
+        "launches_by_path": fwd_paths,
         "max_abs_err": errors[str(torch.float32)],
+        "max_abs_err_bf16": errors[str(torch.bfloat16)],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": fwd_bound_ms,
@@ -531,17 +918,26 @@ def main() -> int:
         "library_ms": None,
         "shape": list(shape_g),
         "dtype": "float32",
+        "max_abs_err_train_shape": fwd_train_errors[str(torch.float32)],
+        "max_abs_err_bf16_train_shape": fwd_train_errors[str(torch.bfloat16)],
         "ms_train_shape": fwd_train_ms,
         "plain_ms_train_shape": fwd_train_plain_ms,
         "bound_ms_train_shape": fwd_train_bound_ms,
+        "ms_bf16": kernel_ms16,
+        "plain_ms_bf16": plain_ms16,
+        "bound_ms_bf16": fwd_bound_ms16,
+        "ms_bf16_train_shape": fwd_train_ms16,
+        "plain_ms_bf16_train_shape": fwd_train_plain_ms16,
+        "bound_ms_bf16_train_shape": fwd_train_bound_ms16,
     }, {
         "name": "lstm_gates_bwd",
         "route": "cuda",
         "source": f"{PKG}/csrc/lstm_gates.cu",
         "replaces": f"{replaces}:103",
-        "launches": train_bwd,
-        "launches_by_path": {"eval": 0, "train": train_bwd},
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
         "max_abs_err": bwd_errors[str(torch.float32)],
+        "max_abs_err_bf16": bwd_errors[str(torch.bfloat16)],
         "ms": bwd_kernel_ms,
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
@@ -549,6 +945,9 @@ def main() -> int:
         "library_ms": None,
         "shape": list(shape_tg),
         "dtype": "float32",
+        "ms_bf16": bwd_kernel_ms16,
+        "plain_ms_bf16": bwd_plain_ms16,
+        "bound_ms_bf16": bwd_bound_ms16,
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

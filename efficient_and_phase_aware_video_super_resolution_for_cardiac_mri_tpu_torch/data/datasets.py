@@ -18,7 +18,7 @@ import numpy as np
 
 from ..config import DATASETS
 from ..utils import nifti
-from .transforms import compose
+from .transforms import Normalize, compose
 
 
 class _VolumeCache:
@@ -97,6 +97,33 @@ class _SRDatasetBase(BaseDataset):
         )
         hr_paths = sorted((self.data_dir / self.type / "HR").glob(self.glob_pattern))
         return list(zip(lr_paths, hr_paths))
+
+    def _explicit_normalize(self) -> int | None:
+        """Index of the pipeline's explicit-stats ``Normalize``, or ``None``:
+        image-level-stats normalization (``means: null``) depends on each
+        item and cannot move to the device."""
+        return next((i for i, t in enumerate(self.transforms.transforms)
+                     if isinstance(t, Normalize) and t.means is not None), None)
+
+    def deferrable_normalize(self):
+        """(means, stds) of the pipeline's explicit-stats ``Normalize``, or
+        ``None``."""
+        i = self._explicit_normalize()
+        if i is None:
+            return None
+        t = self.transforms.transforms[i]
+        return list(t.means), list(t.stds)
+
+    def defer_normalize(self):
+        """Pop the explicit-stats ``Normalize`` off the host pipeline and
+        return its (means, stds), so the trainer's ``int_feed`` applies the
+        same per-channel ``(x - mean) / (std + 1e-10)`` on the device.
+        Items then leave ``__getitem__`` in the source intensity scale."""
+        i = self._explicit_normalize()
+        if i is None:
+            return None
+        t = self.transforms.transforms.pop(i)
+        return list(t.means), list(t.stds)
 
     def _apply(self, imgs: list[np.ndarray], rng: np.random.Generator | None) -> list[np.ndarray]:
         """Augment (train only) then transform a tuple of images."""

@@ -10,6 +10,11 @@ falls back to the CPU.  On the card the fp32 path keeps TF32 off for
 convolutions and matrix products: the JAX package computes the SSIM filter
 at full precision, and the recurrent spine would accumulate TF32 rounding
 over its 42 steps (and, in training, over its backward).
+
+A ``parallel:`` section runs on the one device when it asks for one
+(``num_devices: 1``, no spatial, model or multi-host axis); more CUDA
+devices than are visible raise ``ValueError`` as the JAX package's mesh
+does, and a multi-device mesh is still to port.
 """
 from __future__ import annotations
 
@@ -71,24 +76,38 @@ def _build_metrics(cfg: Cfg):
     return [METRICS.build(c) for c in cfg.get("metrics", [])]
 
 
-def _check_parallel(cfg: Cfg):
-    if cfg.get("parallel"):
+#: the keys of a ``parallel:`` section that a one-device run may carry, at
+#: the value that leaves it one device
+_ONE_DEVICE = {"spatial_parallel": 1, "model_parallel": 1, "multi_host": False, "pad_h": False}
+
+
+def _check_parallel(cfg: Cfg, device: torch.device):
+    """The config's ``parallel:`` section if it asks for one device (then
+    the run is the single-device one), else raise: ``ValueError`` for more
+    CUDA devices than are visible (the JAX package's ``make_mesh``),
+    ``NotImplementedError`` for a mesh of several devices or any axis (on
+    the CPU the JAX package provisions a virtual mesh of any size, which the
+    port does not have)."""
+    parallel = cfg.get("parallel")
+    if not parallel:
+        return None
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = parallel.get("num_devices") or visible
+    if device.type == "cuda" and n > visible:
+        raise ValueError(
+            f"parallel.num_devices={n} but only {visible} device(s) are visible "
+            f"({device.type}). Lower num_devices."
+        )
+    others = {k: v for k, v in parallel.items()
+              if k != "num_devices" and (k not in _ONE_DEVICE or v != _ONE_DEVICE[k])}
+    if n != 1 or others:
         raise NotImplementedError(
-            "the `parallel:` section is not implemented in the PyTorch port yet "
+            f"the PyTorch port runs a `parallel:` section on one device only (num_devices: 1, "
+            f"no spatial, model or multi-host axis); got {dict(parallel)} "
             "(ROADMAP queue 1, item 10)"
         )
-
-
-def _net_config(cfg: Cfg) -> Cfg:
-    """``cfg.net`` without the JAX package's ``remat`` knob, which raises when
-    it is on: the port does not checkpoint the ConvLSTM steps yet."""
-    net_cfg = cfg.net.copy()
-    kwargs = net_cfg.get("kwargs") or {}
-    if kwargs.pop("remat", False):
-        raise NotImplementedError(
-            "net knob remat=True is not implemented in the PyTorch port yet (ROADMAP queue 1, item 7)"
-        )
-    return net_cfg
+    logger.info("parallel: num_devices 1, run on the one device %s.", device)
+    return parallel
 
 
 def train_from_config(cfg: Cfg):
@@ -96,10 +115,9 @@ def train_from_config(cfg: Cfg):
     from .runner.checkpoint import find_latest_checkpoint
     from .runner.optim import build_lr_scheduler, build_optimizer
 
-    _check_parallel(cfg)
     trainer_kwargs = dict(cfg.trainer.get("kwargs") or {})
     device = resolve_device(trainer_kwargs.pop("device", None))
-    net_cfg = _net_config(cfg)
+    _check_parallel(cfg, device)
 
     saved_dir = Path(cfg.main.saved_dir)
     saved_dir.mkdir(parents=True, exist_ok=True)
@@ -125,7 +143,7 @@ def train_from_config(cfg: Cfg):
     valid_loader = dl_cls(valid_ds, batch_size=valid_bs, **dl_kwargs)
 
     logger.info("Create the network architecture.")
-    net = NETS.build(net_cfg, generator=seed_state.torch_generator())
+    net = NETS.build(cfg.net, generator=seed_state.torch_generator())
 
     logger.info("Create the loss and metric functions.")
     loss_fns, loss_weights = _build_losses(cfg)
@@ -178,9 +196,9 @@ def train_from_config(cfg: Cfg):
 
 def test_from_config(cfg: Cfg):
     _import_components()
-    _check_parallel(cfg)
     pred_kwargs = dict(cfg.predictor.get("kwargs") or {})
     device = resolve_device(pred_kwargs.pop("device", None))
+    parallel = _check_parallel(cfg, device)
 
     saved_dir = Path(cfg.main.saved_dir)
     saved_dir.mkdir(parents=True, exist_ok=True)
@@ -193,7 +211,7 @@ def test_from_config(cfg: Cfg):
     test_loader = DATALOADERS.get(cfg.dataloader.name)(test_ds, **dl_kwargs)
 
     logger.info("Create the network architecture.")
-    net = NETS.build(_net_config(cfg))
+    net = NETS.build(cfg.net)
 
     loss_fns, loss_weights = _build_losses(cfg)
     metric_fns = _build_metrics(cfg)
@@ -206,6 +224,7 @@ def test_from_config(cfg: Cfg):
         loss_fns=loss_fns,
         loss_weights=loss_weights,
         metric_fns=metric_fns,
+        parallel=parallel,
         **pred_kwargs,
     )
 

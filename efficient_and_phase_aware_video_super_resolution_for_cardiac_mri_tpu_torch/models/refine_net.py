@@ -10,6 +10,11 @@ features run NCHW for cuDNN, with time as the axis after batch:
 * The recurrence over time is a Python loop of :meth:`ConvLSTM.step` (the
   JAX ``ConvLSTMStep`` scan body).  Its gate tail is the fused CUDA kernel
   (``ops/lstm_gates.py``) on the card and the plain version on the CPU.
+* ``remat=True`` (the JAX package's per-step ``nn.remat``) checkpoints each
+  core step (``torch.utils.checkpoint``, non-reentrant): the backward
+  recomputes a step from its carry instead of keeping its gate-conv
+  activations, so activation memory stops growing with T · stages.  The
+  values and gradients do not move.
 * The warm-up frames, which the JAX package cuts with ``stop_gradient``,
   run under ``torch.no_grad()`` as in the reference (``refine_net.py:86-93``):
   the same values and gradients, and no autograd graph is recorded for
@@ -29,6 +34,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.lstm_gates import fused_lstm_gates
 from .common import InBlock, PReLU, UpsampleBlock, conv2d, init_uniform_, per_frame
@@ -49,9 +55,14 @@ class ConvLSTMCell(nn.Module):
         #: kernel with its plain version through the whole net
         self.gate_tail = fused_lstm_gates
 
-    def forward(self, x, h, c):
+    def forward(self, x, h, c, weight, bias):
+        """The step with the gate conv's ``weight`` and ``bias`` passed in:
+        :class:`ConvLSTM` looks them up once per sequence, so a checkpointed
+        step recomputes with the tensors its forward used (the compute-dtype
+        copies, which exist only while the forward runs)."""
         combined = torch.cat([x, h] if self.memory else [x, x], dim=1)
-        return self.gate_tail(self.conv(combined), c, dim=1)
+        gates = F.conv2d(combined, weight, bias, padding=self.conv.padding)
+        return self.gate_tail(gates, c, dim=1)
 
 
 class ConvLSTM(nn.Module):
@@ -60,30 +71,39 @@ class ConvLSTM(nn.Module):
     ``num_updated_frames`` leading and trailing frames advance the state but
     pass no gradient: they run under ``torch.no_grad()``, the reference's
     blocks at ``refine_net.py:86-93`` (``stop_gradient`` in the JAX package).
+    With ``remat`` each core step that records a graph is checkpointed.
     """
 
     def __init__(self, input_dim: int, hidden_dims: Sequence[int], memory: bool,
-                 generator: torch.Generator):
+                 generator: torch.Generator, remat: bool = False):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
+        self.remat = remat
         dims = [input_dim, *self.hidden_dims[:-1]]
         self.cell_list = nn.ModuleList(
             ConvLSTMCell(d, hd, memory, generator) for d, hd in zip(dims, self.hidden_dims)
         )
 
-    def step(self, carry, x):
-        """One timestep through every layer (the JAX ``ConvLSTMStep``)."""
+    def step(self, carry, x, weights):
+        """One timestep through every layer (the JAX ``ConvLSTMStep``);
+        ``weights`` holds each layer's gate-conv (weight, bias)."""
         new_carry = []
-        for cell, (h, c) in zip(self.cell_list, carry):
-            h, c = cell(x, h, c)
+        for cell, (w, b), (h, c) in zip(self.cell_list, weights, carry):
+            h, c = cell(x, h, c, w, b)
             new_carry.append((h, c))
             x = h
         return new_carry, x
 
-    def _run(self, carry, xs):
+    def _run(self, carry, xs, weights):
+        remat = self.remat and torch.is_grad_enabled()
         hs = []
         for t in range(xs.shape[1]):
-            carry, h = self.step(carry, xs[:, t])
+            if remat:
+                # the step is deterministic: no RNG state to stash and restore
+                carry, h = checkpoint(self.step, carry, xs[:, t], weights,
+                                      use_reentrant=False, preserve_rng_state=False)
+            else:
+                carry, h = self.step(carry, xs[:, t], weights)
             hs.append(h)
         return carry, torch.stack(hs, dim=1)
 
@@ -91,16 +111,17 @@ class ConvLSTM(nn.Module):
         """xs (B, T, C, H, W) → hidden states of the last layer (B, T, F, H, W)."""
         B, T, _, H, W = xs.shape
         U = num_updated_frames
+        weights = [(cell.conv.weight, cell.conv.bias) for cell in self.cell_list]
         carry = [
             (xs.new_zeros(B, hd, H, W), xs.new_zeros(B, hd, H, W)) for hd in self.hidden_dims
         ]
         if U == 0:
-            return self._run(carry, xs)[1]
+            return self._run(carry, xs, weights)[1]
         with torch.no_grad():
-            carry, h_pre = self._run(carry, xs[:, :U])
-        carry, h_core = self._run(carry, xs[:, U : T - U])
+            carry, h_pre = self._run(carry, xs[:, :U], weights)
+        carry, h_core = self._run(carry, xs[:, U : T - U], weights)
         with torch.no_grad():
-            _, h_suf = self._run(carry, xs[:, T - U :])
+            _, h_suf = self._run(carry, xs[:, T - U :], weights)
         return torch.cat([h_pre, h_core, h_suf], dim=1)
 
 
@@ -198,7 +219,8 @@ class RefineNet(nn.Module):
             reference's branch order per stage: forward, backward, fused.
 
     Weights are drawn from ``generator`` (a fixed-seed one when None), never
-    from torch's global RNG.
+    from torch's global RNG.  ``remat`` checkpoints the ConvLSTMs' core steps
+    (the JAX package's ``RefineNet.remat``).
     """
 
     def __init__(
@@ -213,6 +235,7 @@ class RefineNet(nn.Module):
         num_updated_frames: int = 0,
         memory: bool = True,
         positional_encoding: bool = False,
+        remat: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -227,8 +250,8 @@ class RefineNet(nn.Module):
         self.refine_window_size = refine_window_size
         self.num_updated_frames = num_updated_frames
         self.in_block = InBlock(in_channels, F_, generator)
-        self.forward_lstm_block = ConvLSTM(F_, num_features, memory, generator)
-        self.backward_lstm_block = ConvLSTM(F_, num_features, memory, generator)
+        self.forward_lstm_block = ConvLSTM(F_, num_features, memory, generator, remat)
+        self.backward_lstm_block = ConvLSTM(F_, num_features, memory, generator, remat)
         self.refine_block = RefineBlock(
             num_features[-1], refine_window_size, num_updated_frames, positional_encoding,
             generator,

@@ -16,7 +16,9 @@ same source (one pass: reads gates, c, dh, dc' once, writes dgates and dc
 once), on the CPU by its plain version :func:`lstm_gates_backward_reference`.
 
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward kernel
-launches, so a run can show that it went through the kernels.
+launches, so a run can show that it went through the kernels;
+``BF16_LAUNCHES`` and ``BF16_BWD_LAUNCHES`` count those of them on bfloat16
+operands.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from . import _build
 LAUNCHES = 0
 #: number of times the backward CUDA kernel was launched in this process
 BWD_LAUNCHES = 0
+#: of those launches, the ones on bfloat16 operands
+BF16_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: "lstm_gates_f32", torch.bfloat16: "lstm_gates_bf16"}
 _BWD_DTYPES = {torch.float32: "lstm_gates_bwd_f32", torch.bfloat16: "lstm_gates_bwd_bf16"}
@@ -99,7 +104,7 @@ def _layout(gates: torch.Tensor, c: torch.Tensor, dim: int) -> tuple[int, int, i
 
 
 def _launch(gates: torch.Tensor, c: torch.Tensor, dim: int):
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     outer, F, inner = _layout(gates, c, dim)
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
@@ -111,12 +116,13 @@ def _launch(gates: torch.Tensor, c: torch.Tensor, dim: int):
     if err != 0:
         raise RuntimeError(f"lstm_gates kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    BF16_LAUNCHES += c.dtype == torch.bfloat16
     return h_out, c_out
 
 
 def _launch_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc_next: torch.Tensor,
                 dim: int):
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BF16_BWD_LAUNCHES
     outer, F, inner = _layout(gates, c, dim)
     for name, grad in (("dh", dh), ("dc'", dc_next)):
         if grad.shape != c.shape or grad.dtype != c.dtype or grad.device != c.device:
@@ -134,6 +140,7 @@ def _launch_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor, dc_next:
     if err != 0:
         raise RuntimeError(f"lstm_gates backward kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
+    BF16_BWD_LAUNCHES += c.dtype == torch.bfloat16
     return d_gates, d_c
 
 

@@ -15,9 +15,23 @@ The epoch's loss and metric sums stay on the device and come to the host
 once, at the end of the epoch (``.item()`` per step would stall the card
 every step), as the JAX package's accumulators do.
 
-The JAX package's TPU extensions are not ported yet: a trainer kwarg that
-sets one of them to anything but its default raises ``NotImplementedError``
-naming the ROADMAP item.
+The JAX package's trainer knobs, each computing what it computes there:
+
+* ``compute_dtype`` (``bfloat16``): the forward and backward run on bf16
+  copies of the fp32 parameters made inside the autograd graph
+  (``utils/casting.forward_in``); parameters, Adam state, losses and
+  metrics stay fp32.
+* ``grad_accum_steps`` A: the batch splits into A equal microbatches whose
+  gradients are summed, then scaled by 1/A before one optimizer step; the
+  logged values are the microbatches' mean, the display outputs the whole
+  batch.
+* ``int_feed``: the datasets' explicit-stats ``Normalize`` moves to the
+  device; image arrays travel as uint8/int16 where that is lossless (as
+  bf16 for a fractional LR under bf16 compute) and are normalized there.
+* ``aot_cache``: accepted and logged; the port compiles nothing per shape.
+
+The knobs still to port raise ``NotImplementedError`` naming their ROADMAP
+item when set to anything but their default.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import TRAINERS
+from ..utils import casting
 from ..utils.seeding import SeedState, seed_everything
 from ..utils.stats import get_stats
 from . import checkpoint as ckpt_io
@@ -39,10 +54,6 @@ LOG = logging.getLogger(__name__)
 #: trainer knobs of the JAX package that this port does not implement yet:
 #: their default, and the ROADMAP queue-1 item that ports them
 DEFERRED_KNOBS = {
-    "compute_dtype": (None, 7),
-    "grad_accum_steps": (1, 7),
-    "aot_cache": (None, 7),
-    "int_feed": (False, 7),
     "checkpoint_backend": ("pickle", 10),
     "telemetry_warn_frac": (0.0, 12),
 }
@@ -73,6 +84,10 @@ class BaseTrainer:
         telemetry: bool = True,
         preempt_after_epochs: int = 0,
         preempt_after_seconds: float = 0.0,
+        compute_dtype: str | None = None,
+        grad_accum_steps: int = 1,
+        aot_cache: str | None = None,
+        int_feed: bool = False,
         **knobs,
     ):
         for knob, value in knobs.items():
@@ -121,6 +136,14 @@ class BaseTrainer:
         self.preempt_after_epochs = int(preempt_after_epochs)
         self.preempt_after_seconds = float(preempt_after_seconds)
         self._preempt_requested = False
+        self.compute_dtype = casting.resolve_dtype(compute_dtype)
+        self.grad_accum_steps = max(1, int(grad_accum_steps))
+        common.accept_aot_cache(aot_cache)
+        #: int_feed's on-device (means, std + 1e-10), or None
+        self._feed_norm = None
+        self.int_feed = bool(int_feed)
+        if self.int_feed:
+            self._resolve_int_feed()
 
     # ------------------------------------------------------------- workload
     def _model_inputs(self, batch) -> tuple:
@@ -147,28 +170,122 @@ class BaseTrainer:
     def _denorm(self, x):
         return common.denorm_uint8(x, self.mean, self.std)
 
-    # --------------------------------------------------------------- engine
-    def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    # ------------------------------------------------------------- int_feed
+    def _resolve_int_feed(self):
+        """Move the datasets' explicit-stats Normalize to the device, if every
+        dataset has one (the JAX package's ``_resolve_int_feed``)."""
+        datasets = [
+            getattr(loader, "dataset", None)
+            for loader in (self.train_dataloader, self.valid_dataloader)
+            if loader is not None
+        ]
+        probes = [
+            ds.deferrable_normalize() if hasattr(ds, "deferrable_normalize") else None
+            for ds in datasets
+        ]
+        if not probes or any(p is None for p in probes):
+            LOG.warning(
+                "int_feed disabled: every dataset needs an explicit-stats "
+                "Normalize transform to defer to the device."
+            )
+            self.int_feed = False
+            return
+        if any(p != probes[0] for p in probes):
+            raise ValueError(f"int_feed: train/valid Normalize stats differ ({probes}).")
+        means, stds = probes[0]
+        for ds in datasets:
+            ds.defer_normalize()
+        # the host op's arithmetic: numpy adds 1e-10 to the std in float64,
+        # then divides the float32 image by it as a float32 scalar
+        self._feed_norm = (
+            torch.tensor(np.asarray(means, np.float32), device=self.device),
+            torch.tensor(np.asarray([np.float64(s) + 1e-10 for s in stds], np.float32),
+                         device=self.device),
+        )
 
-    def _forward(self, batch, training: bool):
-        """Forward and the weighted losses → (total, losses, outputs, target)."""
-        inputs = [self._to_device(x) for x in self._model_inputs(batch)]
-        target = self._to_device(self._targets(batch))
-        outputs = self.net(*inputs)
+    # --------------------------------------------------------------- engine
+    def _wire(self, batch) -> dict:
+        """The host side of the feed: each floating array as the tensor that
+        travels to the device; other entries pass through.  With
+        ``int_feed`` an image array (key with ``img``) travels as uint8/int16
+        when that is lossless, and a fractional LR array as bf16 under bf16
+        compute (the forward casts it to bf16 anyway); targets never travel
+        as bf16."""
+        out = {}
+        bf16_wire = self.compute_dtype == torch.bfloat16
+        for key, value in batch.items():
+            if not (isinstance(value, np.ndarray) and value.dtype.kind == "f"):
+                out[key] = value
+                continue
+            image = self._feed_norm is not None and "img" in key
+            if image:
+                value = common.compact_lossless(value)
+            t = torch.from_numpy(np.ascontiguousarray(value))
+            if image and bf16_wire and "lr" in key and t.dtype == torch.float32:
+                t = t.to(torch.bfloat16)
+            out[key] = t
+        return out
+
+    def _feed(self, batch) -> dict:
+        """The batch on the device; with ``int_feed`` its image arrays are
+        normalized there, in fp32."""
+        out = {}
+        for key, value in self._wire(batch).items():
+            if isinstance(value, torch.Tensor):
+                value = value.to(self.device)
+                if self._feed_norm is not None and "img" in key:
+                    means, divs = self._feed_norm
+                    value = (value.float() - means) / divs
+            out[key] = value
+        return out
+
+    def _forward(self, batch, training: bool, state=None):
+        """Forward and the weighted losses → (total, losses, outputs, target);
+        ``state`` is the step's cast weights (``casting.cast_state``)."""
+        batch = self._feed(batch)
+        outputs = casting.forward_in(self.net, self.compute_dtype, *self._model_inputs(batch),
+                                     state=state)
+        target = self._targets(batch)
         losses = self._compute_losses(outputs, target, training)
         total = torch.sum(torch.stack(losses) * self.loss_weights)
         return total, losses, outputs, target
 
     def _train_step(self, batch):
-        total, losses, outputs, target = self._forward(batch, True)
+        """One optimizer step over the batch, as ``grad_accum_steps``
+        microbatches → (total, losses, metrics, display outputs)."""
+        accum = self.grad_accum_steps
+        b = next(v for v in batch.values() if isinstance(v, np.ndarray)).shape[0]
+        if b % accum:
+            raise ValueError(
+                f"grad_accum_steps={accum} must divide the batch size; got batch {b}. "
+                "Adjust train_batch_size or drop_last."
+            )
+        m = b // accum
         self.opt.zero_grad(set_to_none=True)
-        total.backward()
+        state = casting.cast_state(self.net, self.compute_dtype)  # shared by the microbatches
+        sums, displays = None, []
+        for i in range(accum):
+            micro = batch if accum == 1 else {
+                k: v[i * m:(i + 1) * m] if isinstance(v, np.ndarray) else v
+                for k, v in batch.items()
+            }
+            total, losses, outputs, target = self._forward(micro, True, state)
+            total.backward()  # sums the microbatches' gradients into .grad
+            with torch.no_grad():
+                metrics = self._compute_metrics(outputs, target)
+                displays.append(self._display_outputs(outputs).detach())
+            values = torch.stack([total.detach(), *[l.detach() for l in losses], *metrics])
+            sums = values if sums is None else sums + values
+        if accum > 1:
+            inv = 1.0 / accum
+            for p in self.net.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            sums = sums * inv
         self.optimizer.step(self.opt)
-        with torch.no_grad():
-            metrics = self._compute_metrics(outputs, target)
-            display = self._display_outputs(outputs).detach()
-        return total.detach(), [l.detach() for l in losses], metrics, display
+        n = len(self.loss_fns)
+        display = displays[0] if accum == 1 else torch.cat(displays)
+        return sums[0], list(sums[1:1 + n]), list(sums[1 + n:]), display
 
     @torch.inference_mode()
     def _eval_step(self, batch):

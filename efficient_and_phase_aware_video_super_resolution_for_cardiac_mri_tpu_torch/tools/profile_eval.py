@@ -1,10 +1,14 @@
 """Where the flagship eval forward spends its time on the card.
 
-    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_eval
+    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_eval \
+        [--compute-dtype bfloat16] [--frames 44]
 
 Runs the flagship RefineNet ×4 (``configs/test/refine_net/exp1_x4.yaml``
 widths, seeded random weights) on one serving clip, (1, 42, 64, 64, 1),
-under ``torch.inference_mode()`` in fp32 with TF32 off, and prints:
+under ``torch.inference_mode()`` in fp32 with TF32 off, and prints what
+follows.  ``--compute-dtype bfloat16`` runs the forward as the predictor's
+``compute_dtype`` knob does (bf16 copies of the weights and inputs);
+``--frames 44`` is the clip ``t_bucket: 8`` makes of a 30-frame cycle.
 
 * the forward's wall time per clip (host clock around a synchronised run);
 * per top-level block (in-block, forward / backward ConvLSTM, refine block,
@@ -18,6 +22,7 @@ The last line is one JSON object with these numbers.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -28,6 +33,7 @@ import torch
 
 from ..models.refine_net import RefineNet
 from ..ops import lstm_gates
+from ..utils.casting import forward_in, resolve_dtype
 
 NET_KWARGS = {  # configs/test/refine_net/exp1_x4.yaml:26-40
     "in_channels": 1, "out_channels": 1, "num_features": [64, 64, 64], "upscale_factor": 4,
@@ -81,7 +87,15 @@ def _host_us_per_gate_call(dev, requires_grad: bool, calls: int = 756) -> float:
     return host_us
 
 
+def _parse_args():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compute-dtype", default=None, help="e.g. bfloat16; default fp32")
+    parser.add_argument("--frames", type=int, default=CLIP[1], help="frames of the clip")
+    return parser.parse_args()
+
+
 def main() -> None:
+    args = _parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_eval needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -91,24 +105,32 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
 
+    dtype = resolve_dtype(args.compute_dtype)
+    clip = (CLIP[0], args.frames, *CLIP[2:])
     net = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0)).to(dev).eval()
     rng = np.random.default_rng(0)
-    lr = torch.from_numpy(rng.standard_normal(CLIP).astype(np.float32)).to(dev)
-    pos = torch.from_numpy(rng.uniform(-1, 1, (1, CLIP[1], 1)).astype(np.float32)).to(dev)
+    lr = torch.from_numpy(rng.standard_normal(clip).astype(np.float32)).to(dev)
+    pos = torch.from_numpy(rng.uniform(-1, 1, (1, clip[1], 1)).astype(np.float32)).to(dev)
+
+    def forward():
+        return forward_in(net, dtype, lr, pos)
 
     with torch.inference_mode():
         for _ in range(2):
-            net(lr, pos)
+            forward()
         torch.cuda.synchronize()
         walls = []
         for _ in range(REPEATS):
             t0 = time.perf_counter()
-            net(lr, pos)
+            forward()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats(dev)
+        forward()
+        peak = torch.cuda.max_memory_allocated(dev)
 
         events, handles = _block_timers(net)
-        net(lr, pos)
+        forward()
         torch.cuda.synchronize()
         for h in handles:
             h.remove()
@@ -118,7 +140,7 @@ def main() -> None:
         launches = lstm_gates.LAUNCHES
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            net(lr, pos)
+            forward()
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
         launches = lstm_gates.LAUNCHES - launches
@@ -134,7 +156,7 @@ def main() -> None:
     device_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
 
-    print(f"forward wall per clip {CLIP}: "
+    print(f"forward wall per clip {clip} in {dtype or torch.float32}: "
           f"{', '.join(f'{w:.1f}' for w in walls)} ms", flush=True)
     for name in BLOCKS:
         print(f"  {name:22s} {blocks_ms[name]:9.2f} ms (CUDA events, entry to exit)")
@@ -145,8 +167,10 @@ def main() -> None:
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:110]}")
     print(f"gate wrapper host time per call: serving {host_us['serving']:.2f} us, "
           f"autograd {host_us['autograd']:.2f} us")
+    print(f"peak device memory of a forward: {peak / 2**30:.2f} GiB")
     print(json.dumps({
-        "card": card, "clip": list(CLIP),
+        "card": card, "clip": list(clip), "compute_dtype": str(dtype or torch.float32),
+        "peak_gib": peak / 2**30,
         "wall_ms": walls, "blocks_ms": blocks_ms, "profiled_wall_ms": prof_wall,
         "kernel_ms": device_ms, "kernel_launches": len(kernels), "lstm_gates_launches": launches,
         "gate_wrapper_host_us": host_us,

@@ -1,6 +1,7 @@
 """Where one full-width training step of the flagship spends its time on the card.
 
-    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_train
+    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_train \
+        [--compute-dtype bfloat16] [--remat]
 
 Builds the training path of ``configs/train/refine_net/exp1_x4.yaml`` at
 full width (features [64, 64, 64], 3 stages, U = 6, window 5, phase code on;
@@ -23,10 +24,14 @@ its ``VSRRefineNetTrainer`` with seeded random weights, and prints:
   device time, from ``torch.profiler``, and the gate kernels' launches;
 * the peak device memory of a step.
 
-The last line is one JSON object with these numbers.  Needs a CUDA card.
+``--compute-dtype bfloat16`` and ``--remat`` run the step as the trainer's
+``compute_dtype`` and the net's ``remat`` knobs do
+(``configs/train/refine_net/exp1_x4_tpu.yaml``).  The last line is one JSON
+object with these numbers.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import tempfile
@@ -81,7 +86,15 @@ def _timed_step(trainer, batch) -> dict:
     return {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(PHASES)}
 
 
+def _parse_args():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compute-dtype", default=None, help="e.g. bfloat16; default fp32")
+    parser.add_argument("--remat", action="store_true", help="checkpoint the ConvLSTM core steps")
+    return parser.parse_args()
+
+
 def main() -> None:
+    args = _parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -102,11 +115,12 @@ def main() -> None:
         batches = list(loader)
         loader_warm_s = (time.perf_counter() - t0) / len(batches)
 
-        net = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0))
+        net = RefineNet(**NET_KWARGS, remat=args.remat, generator=torch.Generator().manual_seed(0))
         trainer = VSRRefineNetTrainer(
             device=dev, train_dataloader=loader, valid_dataloader=loader, net=net,
             loss_fns=[L1Loss()], loss_weights=[1.0], metric_fns=[PSNR(), SSIM()],
             optimizer=Optimizer("Adam", lr=1e-4, weight_decay=0), num_epochs=1,
+            compute_dtype=args.compute_dtype,
         )
         net.train()
 
@@ -170,6 +184,7 @@ def main() -> None:
     print(f"peak device memory of a step: {peak / 2**30:.2f} GiB")
     print(json.dumps({
         "card": card, "batch": [BATCH, CORE + 2 * U, PATCH, PATCH, 1],
+        "compute_dtype": args.compute_dtype or "float32", "remat": args.remat,
         "steps_ms": steps, "mean_ms": mean, "loader_ms_per_batch": [loader_s * 1e3, loader_warm_s * 1e3],
         "forward_blocks_ms": blocks_ms, "profiled_steps": PROFILED, "profiled_wall_ms": prof_wall,
         "kernel_ms": device_ms, "kernel_launches": len(kernels), "gate_launches_per_step": launches,

@@ -160,3 +160,51 @@ def test_training_step_through_the_kernels_matches_the_plain_tail(cuda):
     assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
     for name, g in grads_p.items():
         assert (grads_k[name] - g).abs().max().item() <= 1e-4 * g.abs().max().item(), name
+
+
+def test_bf16_remat_training_step_through_the_kernels(cuda):
+    """``compute_dtype: bfloat16`` with ``remat``: the bf16 gate kernels run
+    forward and backward, the core steps rerun in the backward (the saved
+    (gates, c) pass through checkpoint's saved-tensor hooks), and the fp32
+    masters get fp32 gradients.  Held against the same step without remat
+    (1e-3 of each gradient's maximum: the same values, summed in another
+    order by cuDNN's wgrad) and through the plain gate tail (ATen rounds to
+    bf16 after every op, the kernel once: 1e-2 on the loss, 5e-2 of each
+    gradient's maximum)."""
+    kwargs = dict(in_channels=1, out_channels=1, num_features=[8, 8], num_stages=2,
+                  refine_window_size=5, upscale_factor=4, update_memory=True,
+                  num_updated_frames=3, positional_encoding=True)
+    gen = torch.Generator().manual_seed(4)
+    batch = {"lr_imgs": torch.randn(2, 11, 8, 8, 1, generator=gen).numpy(),
+             "hr_imgs": torch.randn(2, 5, 32, 32, 1, generator=gen).numpy(),
+             "pos_code": (torch.rand(2, 11, 1, generator=gen) * 2 - 1).numpy()}
+    results = []
+    for remat, tail in ((True, lstm_gates.fused_lstm_gates), (False, lstm_gates.fused_lstm_gates),
+                        (True, lstm_gates.lstm_gates_reference)):
+        net = RefineNet(**kwargs, remat=remat)  # the same seeded weights each time
+        set_gate_tail(net, tail)
+        trainer = VSRRefineNetTrainer(device=cuda, net=net, loss_fns=[L1Loss()], num_epochs=1,
+                                      compute_dtype="bfloat16")
+        before = (lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES, lstm_gates.BF16_LAUNCHES,
+                  lstm_gates.BF16_BWD_LAUNCHES)
+        total, *_ = trainer._forward(batch, True)
+        total.backward()
+        after = (lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES, lstm_gates.BF16_LAUNCHES,
+                 lstm_gates.BF16_BWD_LAUNCHES)
+        grads = {n: p.grad for n, p in net.named_parameters() if p.grad is not None}
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        assert all(g.dtype == torch.float32 for g in grads.values())
+        results.append((total.item(), grads, tuple(a - b for a, b in zip(after, before))))
+    (loss_r, grads_r, n_r), (loss_n, grads_n, n_n), (loss_p, grads_p, n_p) = results
+    layer_steps = 2 * 2 * 2  # layers × directions × stages
+    fwd, bwd = layer_steps * (11 + 5), layer_steps * 5  # the 5 core frames rerun
+    assert n_r == (fwd, bwd, fwd, bwd)
+    assert n_n == (layer_steps * 11, bwd, layer_steps * 11, bwd)
+    assert n_p == (0, 0, 0, 0)
+    assert grads_r.keys() == grads_n.keys() == grads_p.keys()
+    assert loss_r == loss_n
+    assert abs(loss_r - loss_p) <= 1e-2 * abs(loss_p)
+    for name, g in grads_r.items():
+        scale = g.abs().max().item()
+        assert (grads_n[name] - g).abs().max().item() <= 1e-3 * scale, name
+        assert (grads_p[name] - g).abs().max().item() <= 5e-2 * scale, name

@@ -40,7 +40,8 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("runner.predictors", "runner.trainers", "runner.optim", "runner.monitor",
-                 "runner.loggers", "runner.checkpoint", "tools.profile_train"):
+                 "runner.loggers", "runner.checkpoint", "tools.profile_train", "ops.tiling",
+                 "utils.casting"):
         assert f"{port.__name__}.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -90,8 +91,7 @@ def test_resolve_device_cpu_and_unknown():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("knob,value", [("t_bucket", 8), ("tile", 16), ("compute_dtype", "bfloat16"),
-                                        ("export_nifti", True), ("pad_h", True)])
+@pytest.mark.parametrize("knob,value", [("export_nifti", True), ("pad_h", True)])
 def test_deferred_predictor_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         VSRRefineNetPredictor(device="cpu", **{knob: value})
@@ -122,9 +122,7 @@ def test_training_on_cuda_without_a_card_raises(monkeypatch, tmp_path, device):
     assert not (tmp_path / "config.yaml").exists()  # raised before any work
 
 
-@pytest.mark.parametrize("knob,value", [("compute_dtype", "bfloat16"), ("grad_accum_steps", 2),
-                                        ("aot_cache", "cache"), ("int_feed", True),
-                                        ("checkpoint_backend", "orbax"),
+@pytest.mark.parametrize("knob,value", [("checkpoint_backend", "orbax"),
                                         ("telemetry_warn_frac", 0.1)])
 def test_deferred_trainer_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
@@ -140,7 +138,7 @@ def test_deferred_trainer_knobs_at_their_defaults_are_accepted():
 
 @pytest.mark.parametrize("section,match", [
     ({"parallel": {"num_devices": 2}}, "parallel"),
-    ({"net": {"name": "RefineNet", "kwargs": {"remat": True}}}, "remat"),
+    ({"parallel": {"num_devices": 1, "spatial_parallel": 2}}, "parallel"),
 ])
 def test_training_sections_not_ported_raise(tmp_path, section, match):
     cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "net": {"name": "RefineNet", "kwargs": {}},
@@ -148,3 +146,55 @@ def test_training_sections_not_ported_raise(tmp_path, section, match):
                **section})
     with pytest.raises(NotImplementedError, match=match):
         run_port_train(cfg)
+
+
+@pytest.mark.parametrize("knob,value", [("t_bucket", 8), ("compute_dtype", "bfloat16"),
+                                        ("aot_cache", "cache"), ("seam_stats", False)])
+def test_ported_predictor_knobs_are_accepted(knob, value):
+    predictor = VSRRefineNetPredictor(device="cpu", **{knob: value})
+    assert predictor.t_bucket == (8 if knob == "t_bucket" else 0)
+    assert predictor.compute_dtype == (torch.bfloat16 if knob == "compute_dtype" else None)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"tile": 16}, "tile_overlap"),
+    ({"tile": 16, "tile_overlap": 8}, "exceed"),
+    ({"tile": (16, 16, 16), "tile_overlap": 2}, "int or"),
+    ({"tile": 16, "tile_overlap": 2, "parallel": {"num_devices": 1}}, "single-device"),
+    ({"tile": 16, "tile_overlap": 2, "pad_h": True}, "replaces pad_h"),
+    ({"seam_stats": "all"}, "seam_stats"),
+])
+def test_tile_knob_validation_errors(kwargs, match):
+    """The JAX predictor's validation of ``tile`` (``runner/predictors.py:97-120``)."""
+    with pytest.raises(ValueError, match=match):
+        VSRRefineNetPredictor(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("knob,value", [("compute_dtype", "bfloat16"), ("grad_accum_steps", 2),
+                                        ("aot_cache", "cache")])
+def test_ported_trainer_knobs_are_accepted(knob, value):
+    trainer = trainers.VSRRefineNetTrainer(device="cpu", **{knob: value})
+    assert trainer.grad_accum_steps == (2 if knob == "grad_accum_steps" else 1)
+    assert trainer.compute_dtype == (torch.bfloat16 if knob == "compute_dtype" else None)
+
+
+@pytest.mark.parametrize("visible,parallel,error", [
+    (1, {"num_devices": 1}, None),
+    (1, {"num_devices": 8}, ValueError),
+    (4, {"num_devices": 4}, NotImplementedError),
+    (1, {"num_devices": 1, "model_parallel": 2}, NotImplementedError),
+])
+def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
+    """On the card: one device runs, more than are visible raise the JAX
+    package's ``ValueError``, a mesh of several raises ``NotImplementedError``."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
+        _check_parallel,
+    )
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    cfg = Cfg({"parallel": parallel})
+    if error is None:
+        assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
+    else:
+        with pytest.raises(error, match="num_devices"):
+            _check_parallel(cfg, torch.device("cuda:0"))
