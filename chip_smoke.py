@@ -15,8 +15,11 @@ non-zero and no result is printed:
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    TF32 off for convolutions and matrix products.
 2. build: every kernel of the path from ``csrc/`` with ``nvcc`` (sm_90a).
-3. kernel vs plain: the ConvLSTM gate tail at the main path's shape, in
-   fp32 and bf16, at an unaligned channels-last shape, and its gradient.
+3. kernel vs plain: the ConvLSTM gate tail with the gate conv's bias at
+   the main path's shape, in fp32 and bf16, in the layout the recurrence
+   hands it (``recurrence_format``: fp32 NCHW, bf16 channels-last) and in
+   the other; on rows of an unaligned count (16-byte path) and one element
+   off an aligned allocation (scalar path); its gradient, d_bias included.
 4. eval main path: a synthetic ACDC tree (test: 1 patient, 2 slices;
    train: 2 patients × 2 slices; valid: 1 patient × 1 slice; a 30-frame
    cycle, HR 256×256, LR 64×64) written with the port's NIfTI writer, a
@@ -25,8 +28,10 @@ non-zero and no result is printed:
    must be exactly 756 per clip and every metric finite.
 5. whole forward: one clip through the net with the kernel and with the
    plain gate tail, and a small clip on the card against the CPU.
-6. times: the kernel's and the plain version's time per launch (CUDA
-   graphs of 100 launches over buffers larger than L2), beside the bound.
+6. times: the kernel's, the plain version's and the PyTorch yardstick's
+   (``aten::_thnn_fused_lstm_cell``) time per launch in the main path's
+   layout with the bias (CUDA graphs of 100 launches over buffers larger
+   than L2), beside the bound and a ``copy_`` of as many bytes.
 7. training main path: ``main.train_from_config`` on ``cuda:0`` for 2
    epochs of 8 steps (120 items at batch 16), one valid clip an epoch; the
    forward kernel launches exactly 342 per step + 756 per valid clip, the
@@ -37,16 +42,18 @@ non-zero and no result is printed:
    stage-discounted L1 + backward through the kernels and through the plain
    gate tail (autograd of the plain version): the loss and every gradient.
 9. forward and backward kernel vs plain at the training shape in fp32 and
-   bf16, the backward also at an unaligned channels-last shape; the
-   backward's time beside its bound and beside the forward's time at the
-   training shape.
+   bf16 with the bias, in the main path's layout, the backward also on
+   unaligned rows and on the scalar path; both kernels' times at the
+   training shape as in phase 6, the backward's yardstick
+   ``aten::_thnn_fused_lstm_cell_backward_impl``.
 10. bf16 serving: phase 4's run with the predictor knobs of
     ``configs/test/refine_net/exp1_x4_tpu.yaml`` (``compute_dtype:
     bfloat16``, ``t_bucket: 8``, ``aot_cache``): exactly 792 bf16 gate
     launches a clip (the 30-frame cycle extended to 32, plus 2×6 warm-up),
     every metric finite, PSNR/SSIM within ~5x the measured gap of phase 4's
     fp32 run; clip latency and frames/s; the device's busy share in the
-    predictor's step on a warm clip.
+    predictor's step on a warm clip, with the launches of ATen's adds and
+    cuDNN's NCHW↔NHWC transposes in its trace.
 11. bf16 + remat training: phase 7's run with the knobs of
     ``configs/train/refine_net/exp1_x4_tpu.yaml`` (``remat``,
     ``compute_dtype: bfloat16``, ``int_feed``, ``aot_cache``, ``parallel:
@@ -57,7 +64,7 @@ non-zero and no result is printed:
     frames/s and peak memory beside phase 7's.  Then, as phase 8 in fp32,
     one bf16 + remat step through the kernels against the plain gate tail;
     one step with ``grad_accum_steps: 2`` against the same step with 1;
-    the device's busy share in the trainer's step.
+    the device's busy share in the trainer's step, with the same counts.
 12. tiled serving: ``configs/test/refine_net/exp1_x4_dsb15_tile_tpu.yaml``'s
     knobs (``Dsb15VSRRefineNetDataset``, ``tile: 64``, ``tile_overlap: 12``,
     bf16) on a tree of LR 96×80 and 80×96 frames: the bf16 launch count of
@@ -136,6 +143,9 @@ TOL_FP32 = 2e-6  # expf/tanhf against ATen's: an ulp or two
 TOL_BF16 = 1e-2  # one rounding to bf16 of values below 4, against the fp32 plain version
 TOL_BF16_REL = 1e-2  # the backward's values reach ~5: error / max(1, |value|)
 TOL_GRAD = 2e-6  # the backward kernel against autograd of the plain version
+# d_bias: the same reduction over N, H, W of the kernel's and of autograd's
+# d_gates (4096 rows, each within TOL_GRAD), relative to its largest element
+TOL_DBIAS_REL = 1e-5
 TOL_FORWARD = 1e-4  # 42 recurrent steps × 3 stages in fp32
 # one training step, kernels vs plain tail: the loss and each parameter's
 # gradient, relative to that parameter's largest gradient (fp32 recurrences
@@ -148,6 +158,11 @@ CARDS = [("PCIe", 2.0e12, 51e12), ("NVL", 3.9e12, 60e12), ("", 3.35e12, 67e12)]
 GATE_OPS_PER_ELEMENT = 19  # 3 sigmoids (3 each) + 2 tanh (3 each) + 4 for c' and h'
 # 3 sigmoids + 2 tanh (15), c' (3), dct (5), dgi, dgf, dgo, dgg (4 each), dc (1)
 GATE_BWD_OPS_PER_ELEMENT = 40
+# kernels counted by name in the traced warm clip and step (phases 10, 11):
+# ATen's broadcast add (once the gate convs' bias add) and cuDNN's layout
+# transposes around a conv whose operands are not in its NHWC layout
+TRACE_COUNTS = {"aten_add": "CUDAFunctor_add", "nchw_to_nhwc": "nchwToNhwc",
+                "nhwc_to_nchw": "nhwcToNchw"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -178,10 +193,11 @@ def time_graph_ms(fns) -> float:
     return start.elapsed_time(end) / (reps * len(fns))
 
 
-def device_busy(fn, reps: int = 3) -> tuple[float, float, int]:
+def device_busy(fn, reps: int = 3) -> tuple[float, float, int, dict]:
     """(median host wall ms of ``fn()`` to the device's drain over ``reps``
     warm calls without a profiler; device ms of the kernels of one more call
-    from a ``torch.profiler`` trace; their number).  The kernels run on one
+    from a ``torch.profiler`` trace; their number; the launches of the
+    kernels named in ``TRACE_COUNTS`` in that trace).  The kernels run on one
     stream, so their sum is the busy time; host tracing slows the host, not
     the kernels, so the wall is taken untraced."""
     import torch
@@ -200,8 +216,39 @@ def device_busy(fn, reps: int = 3) -> tuple[float, float, int]:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiler traced no device activity")
+    counts = {key: sum(part in e.name for e in kernels) for key, part in TRACE_COUNTS.items()}
     return (sorted(walls)[reps // 2], sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-            len(kernels))
+            len(kernels), counts)
+
+
+def gate_operands(shape_c, fmt, dtype, dev, gen):
+    """Gate-conv output (no bias), c and the conv's bias for c of
+    ``shape_c`` (N, F, H, W), in memory layout ``fmt``, as the recurrence
+    hands them to the gate tail."""
+    import torch
+
+    N, F_, H, W = shape_c
+    g = (torch.randn(N, 4 * F_, H, W, device=dev, generator=gen) * 2).to(dtype)
+    c = (torch.randn(shape_c, device=dev, generator=gen) * 0.5).to(dtype)
+    b = (torch.randn(4 * F_, device=dev, generator=gen) * 0.5).to(dtype)
+    return g.contiguous(memory_format=fmt), c.contiguous(memory_format=fmt), b
+
+
+def fmt_name(fmt) -> str:
+    import torch
+
+    return "channels-last" if fmt == torch.channels_last else "NCHW"
+
+
+def library_time(calls, what: str):
+    """(ms, None) for the PyTorch yardstick ``calls``, or (None, the error)
+    where it refuses the operands."""
+    try:
+        return time_graph_ms(calls), None
+    except Exception as exc:  # noqa: BLE001 - the yardstick is optional per dtype
+        reason = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        log("times", f"{what} refused: {reason}")
+        return None, reason
 
 
 def rel_diffs(grads_a: dict, grads_b: dict) -> dict:
@@ -237,6 +284,112 @@ def bound_ms(nbytes: int, ops: int, mem_rate: float, fp32_peak: float) -> tuple[
     over the fp32 rate, whichever is larger, and which one it is."""
     bytes_ms, ops_ms = nbytes / mem_rate * 1e3, ops / fp32_peak * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _cycled(sets, n: int = 100) -> list:
+    return (sets * (n // len(sets) + 1))[:n]
+
+
+def _n_sets(set_bytes: int) -> int:
+    """Operand sets to cycle through so that every launch reads cold
+    inputs: more than twice the 50 MB L2 in all."""
+    return max(4, math.ceil(120e6 / set_bytes))
+
+
+def time_gate_forward(lstm_gates, shape_c, fmt, dtype, dev, gen, rates) -> dict:
+    """The forward kernel, its plain version and the PyTorch yardstick per
+    launch on (gates, c, bias) of c's ``shape_c`` in layout ``fmt``, over
+    operand sets larger than L2, beside the bound.  The yardstick,
+    ``aten::_thnn_fused_lstm_cell`` (gate order i, f, g, o), computes the
+    same tail with the bias add fused in on (M, 4F) rows; it also reads a
+    hidden-gates operand and a hidden bias (zeros here) and writes a 4F
+    workspace: 13F elements a row against the kernel's 7F."""
+    import torch
+
+    N, F_, H, W = shape_c
+    M, el = N * H * W, torch.empty((), dtype=dtype).element_size()
+    nbytes = (M * 7 * F_ + 4 * F_) * el  # read gates, c, bias; write h', c'
+    sets = [gate_operands(shape_c, fmt, dtype, dev, gen) for _ in range(_n_sets(nbytes))]
+    cyc = _cycled(sets)
+    out = {"layout": fmt_name(fmt), "bytes": nbytes, "sets": len(sets)}
+    out["ms"] = time_graph_ms([lambda a=a: lstm_gates.fused_lstm_gates(a[0], a[1], dim=1, bias=a[2])
+                               for a in cyc])
+    out["plain_ms"] = time_graph_ms(
+        [lambda a=a: lstm_gates.lstm_gates_reference(a[0], a[1], dim=1, bias=a[2]) for a in cyc])
+    del sets, cyc
+    lib_sets = []
+    for _ in range(_n_sets(M * 13 * F_ * el)):
+        ig = torch.randn(M, 4 * F_, device=dev, generator=gen).to(dtype)
+        cx = torch.randn(M, F_, device=dev, generator=gen).to(dtype)
+        ib = torch.randn(4 * F_, device=dev, generator=gen).to(dtype)
+        lib_sets.append((ig, torch.zeros_like(ig), cx, ib, torch.zeros_like(ib)))
+    out["library_ms"], out["library_error"] = library_time(
+        [lambda a=a: torch.ops.aten._thnn_fused_lstm_cell(*a) for a in _cycled(lib_sets)],
+        f"aten::_thnn_fused_lstm_cell on {dtype} ({M}, {4 * F_})")
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, GATE_OPS_PER_ELEMENT * M * F_, *rates)
+    # what one launch that only moves as many bytes costs at this size: a
+    # copy_ of nbytes / 2 into another buffer, timed the same way
+    n = nbytes // (2 * el)
+    copies = [(torch.empty(n, device=dev, dtype=dtype), torch.randn(n, device=dev, generator=gen)
+               .to(dtype)) for _ in range(_n_sets(nbytes))]
+    out["copy_ms"] = time_graph_ms([lambda a=a: a[0].copy_(a[1]) for a in _cycled(copies)])
+    return out
+
+
+def time_gate_backward(lstm_gates, shape_c, fmt, dtype, dev, gen, rates) -> dict:
+    """As :func:`time_gate_forward` for the backward kernel, beside
+    ``aten::_thnn_fused_lstm_cell_backward_impl`` (reads dh', dc', c, c'
+    and the forward's 4F workspace; writes d_gates, d_c and d_bias)."""
+    import torch
+
+    N, F_, H, W = shape_c
+    M, el = N * H * W, torch.empty((), dtype=dtype).element_size()
+    nbytes = (M * 12 * F_ + 4 * F_) * el  # read gates, c, dh, dc', bias; write dgates, dc
+    sets = []
+    for _ in range(_n_sets(nbytes)):
+        g, c, b = gate_operands(shape_c, fmt, dtype, dev, gen)
+        dh, dc = (torch.randn(shape_c, device=dev, generator=gen).to(dtype).contiguous(
+            memory_format=fmt) for _ in range(2))
+        sets.append((g, c, dh, dc, b))
+    cyc = _cycled(sets)
+    out = {"layout": fmt_name(fmt), "bytes": nbytes, "sets": len(sets)}
+    out["ms"] = time_graph_ms([lambda a=a: lstm_gates._launch_bwd(*a[:4], 1, a[4]) for a in cyc])
+    out["plain_ms"] = time_graph_ms(
+        [lambda a=a: lstm_gates.lstm_gates_backward_reference(*a[:4], dim=1, bias=a[4])
+         for a in cyc])
+    del sets, cyc
+    lib_sets, lib_error = [], None
+    try:
+        for _ in range(_n_sets(M * 12 * F_ * el)):
+            ig = torch.randn(M, 4 * F_, device=dev, generator=gen).to(dtype)
+            cx = torch.randn(M, F_, device=dev, generator=gen).to(dtype)
+            ib = torch.randn(4 * F_, device=dev, generator=gen).to(dtype)
+            _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(
+                ig, torch.zeros_like(ig), cx, ib, torch.zeros_like(ib))
+            dhy, dcy = (torch.randn(M, F_, device=dev, generator=gen).to(dtype) for _ in range(2))
+            lib_sets.append((dhy, dcy, cx, cy, ws))
+    except Exception as exc:  # noqa: BLE001 - the forward refused the dtype
+        lib_error = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        log("times", f"aten::_thnn_fused_lstm_cell on {dtype} refused: {lib_error}")
+    if lib_error is None:
+        out["library_ms"], out["library_error"] = library_time(
+            [lambda a=a: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(*a, True)
+             for a in _cycled(lib_sets)],
+            f"aten::_thnn_fused_lstm_cell_backward_impl on {dtype} ({M}, {4 * F_})")
+    else:
+        out["library_ms"], out["library_error"] = None, lib_error
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, GATE_BWD_OPS_PER_ELEMENT * M * F_, *rates)
+    return out
+
+
+def times_line(name: str, shape, dtype, t: dict) -> str:
+    lib = (f"{t['library_ms'] * 1e3:.2f} us" if t["library_ms"] is not None
+           else f"refused ({t['library_error']})")
+    copy = (f"; a copy_ of as many bytes {t['copy_ms'] * 1e3:.2f} us" if "copy_ms" in t else "")
+    return (f"{name} {dtype} {t['layout']} c {tuple(shape)} with bias: kernel {t['ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, library {lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}: {t['bytes']} bytes), {t['bound_ms'] / t['ms']:.0%} of the bound; "
+            f"{t['sets']} operand sets{copy}")
 
 
 def eval_config(tree: dict, ckpt: Path, saved_dir: Path) -> dict:
@@ -322,6 +475,7 @@ def main() -> int:
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import Cfg
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import (
         RefineNet,
+        recurrence_format,
         set_gate_tail,
     )
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates, tiling
@@ -355,43 +509,60 @@ def main() -> int:
             log("build", line.strip())
 
     # ------------------------------------------------------- 3 kernel vs plain
+    # the gate conv's raw output, c and its bias, in the layout the recurrence
+    # hands the tail (recurrence_format) and in NCHW, against the fp32 plain
+    # version on the same (upcast) inputs
     gen = torch.Generator(device=dev).manual_seed(0)
     F_ = NET_KWARGS["num_features"][0]
     h_lr = HR // SCALE
-    shape_g, shape_c = (1, 4 * F_, h_lr, h_lr), (1, F_, h_lr, h_lr)  # NCHW, M = 4096 rows
+    shape_c = (1, F_, h_lr, h_lr)  # M = 4096 rows
+    shape_g = (1, 4 * F_, h_lr, h_lr)
     errors = {}
-    for dtype, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
-        g = (torch.randn(shape_g, device=dev, generator=gen) * 2).to(dtype)
-        c = (torch.randn(shape_c, device=dev, generator=gen) * 0.5).to(dtype)
-        h_k, c_k = lstm_gates.fused_lstm_gates(g, c, dim=1)
-        h_p, c_p = lstm_gates.lstm_gates_reference(g.float(), c.float(), dim=1)
+
+    def check_fwd(g, c, b, dim, dtype, tol, what):
+        width = lstm_gates.vector_width(g, c, dim=dim)
+        h_k, c_k = lstm_gates.fused_lstm_gates(g, c, dim=dim, bias=b)
+        h_p, c_p = lstm_gates.lstm_gates_reference(g.float(), c.float(), dim=dim, bias=b.float())
         torch.cuda.synchronize()
         err = max((h_k.float() - h_p).abs().max().item(), (c_k.float() - c_p).abs().max().item())
-        errors[str(dtype)] = err
-        log("kernel", f"NCHW {shape_g} {dtype}: max abs err {err:.3e} (tol {tol})")
+        log("kernel", f"{what} {dtype} with bias ({'16-byte vectors of ' + str(width) if width > 1 else 'scalar'}"
+                      f" path): max abs err {err:.3e} (tol {tol})")
         if not err <= tol:
-            raise AssertionError(f"gate kernel disagrees with its plain version in {dtype}: {err}")
+            raise AssertionError(f"gate kernel disagrees with its plain version: {what} {dtype}: {err}")
+        return err
+
+    for dtype, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+        fmt = recurrence_format(dtype)
+        for layout in dict.fromkeys((fmt, torch.channels_last, torch.contiguous_format)):
+            g, c, b = gate_operands(shape_c, layout, dtype, dev, gen)
+            err = check_fwd(g, c, b, 1, dtype, tol, f"{fmt_name(layout)} {shape_g}")
+            if layout == fmt:
+                errors[str(dtype)] = err
     M = 3 * 11 * 7
     g = torch.randn(M, 4 * F_, device=dev, generator=gen) * 2
     c = torch.randn(M, F_, device=dev, generator=gen)
-    h_k, c_k = lstm_gates.fused_lstm_gates(g, c)
-    h_p, c_p = lstm_gates.lstm_gates_reference(g, c)
-    err = max((h_k - h_p).abs().max().item(), (c_k - c_p).abs().max().item())
-    log("kernel", f"channels-last ({M}, {4 * F_}) float32: max abs err {err:.3e} (tol {TOL_FP32})")
-    if not err <= TOL_FP32:
-        raise AssertionError(f"gate kernel disagrees on the unaligned channels-last shape: {err}")
-    g1, c1 = (torch.randn(s, device=dev, generator=gen) for s in (shape_g, shape_c))
+    b = torch.randn(4 * F_, device=dev, generator=gen) * 0.5
+    check_fwd(g, c, b, -1, torch.float32, TOL_FP32, f"rows ({M}, {4 * F_})")
+    for dtype, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+        # one element past an aligned allocation: the scalar path
+        g1 = torch.randn(M * 4 * F_ + 1, device=dev, generator=gen).to(dtype)[1:].view(M, 4 * F_)
+        c1 = torch.randn(M * F_ + 1, device=dev, generator=gen).to(dtype)[1:].view(M, F_)
+        check_fwd(g1, c1, b.to(dtype), -1, dtype, tol, f"rows ({M}, {4 * F_}) offset by one element")
+    g, c, b = gate_operands(shape_c, recurrence_format(torch.float32), torch.float32, dev, gen)
     dh, dc = (torch.randn(shape_c, device=dev, generator=gen) for _ in range(2))
     grads = []
     for fn in (lstm_gates.fused_lstm_gates, lstm_gates.lstm_gates_reference):
-        gg, cc = g1.clone().requires_grad_(), c1.clone().requires_grad_()
-        torch.autograd.backward(fn(gg, cc, dim=1), (dh, dc))
-        grads.append((gg.grad, cc.grad))
-    err = max((a - b).abs().max().item() for a, b in zip(*grads))
-    log("kernel", f"gradient through the autograd.Function (backward kernel) vs plain autograd: "
-                  f"max abs err {err:.3e} (tol {TOL_GRAD})")
-    if not err <= TOL_GRAD:
-        raise AssertionError(f"gate kernel gradient disagrees: {err}")
+        leaves = [t.clone().requires_grad_() for t in (g, c, b)]
+        torch.autograd.backward(fn(leaves[0], leaves[1], dim=1, bias=leaves[2]), (dh, dc))
+        grads.append([t.grad for t in leaves])
+    err = max((a - p).abs().max().item() for a, p in zip(grads[0][:2], grads[1][:2]))
+    db_rel = ((grads[0][2] - grads[1][2]).abs().max() / grads[1][2].abs().max()).item()
+    log("kernel", f"gradient through the autograd.Function (backward kernel) vs plain autograd, "
+                  f"{fmt_name(recurrence_format(torch.float32))} with bias: d_gates, d_c max abs err "
+                  f"{err:.3e} (tol {TOL_GRAD}); d_bias {db_rel:.3e} of its largest element (tol "
+                  f"{TOL_DBIAS_REL})")
+    if not (err <= TOL_GRAD and db_rel <= TOL_DBIAS_REL):
+        raise AssertionError(f"gate kernel gradient disagrees: {err}, d_bias {db_rel}")
 
     # ---------------------------------------------------------- 4 eval main path
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -470,40 +641,16 @@ def main() -> int:
         raise AssertionError(f"the card's forward disagrees with the CPU's: {err}")
 
     # ----------------------------------------------------------------- 6 times
-    n_sets = 16  # 16 × 7.3 MB in fp32 > the 50 MB L2: each launch reads cold inputs
-    sets = [((torch.randn(shape_g, device=dev, generator=gen) * 2),
-             torch.randn(shape_c, device=dev, generator=gen)) for _ in range(n_sets)]
-    kernel_calls = [lambda g=g, c=c: lstm_gates.fused_lstm_gates(g, c, dim=1)
-                    for g, c in sets * (100 // n_sets + 1)][:100]
-    plain_calls = [lambda g=g, c=c: lstm_gates.lstm_gates_reference(g, c, dim=1)
-                   for g, c in sets * (100 // n_sets + 1)][:100]
-    kernel_ms = time_graph_ms(kernel_calls)
-    plain_ms = time_graph_ms(plain_calls)
-    g0, c0 = sets[0]
-    nbytes = (g0.numel() + 3 * c0.numel()) * g0.element_size()  # read gates, c; write h', c'
-    ops = GATE_OPS_PER_ELEMENT * c0.numel()
-    fwd_bound_ms, fwd_bound_by = bound_ms(nbytes, ops, mem_rate, fp32_peak)
-    log("times", f"lstm_gates fp32 NCHW {shape_g}: kernel {kernel_ms * 1e3:.2f} us, plain "
-                 f"{plain_ms * 1e3:.2f} us, bound {fwd_bound_ms * 1e3:.2f} us ({nbytes} bytes at "
-                 f"{mem_rate / 1e12} TB/s; {ops} ops at {fp32_peak / 1e12} TFLOP/s); per clip "
-                 f"{LAUNCHES_PER_CLIP} launches = {kernel_ms * LAUNCHES_PER_CLIP:.2f} ms")
-    del sets, kernel_calls, plain_calls
-    n_sets = 32  # 32 × 3.7 MB in bf16 > the 50 MB L2
-    sets = [((torch.randn(shape_g, device=dev, generator=gen) * 2).to(torch.bfloat16),
-             torch.randn(shape_c, device=dev, generator=gen).to(torch.bfloat16))
-            for _ in range(n_sets)]
-    cycle_sets = (sets * (100 // n_sets + 1))[:100]
-    kernel_ms16 = time_graph_ms([lambda g=g, c=c: lstm_gates.fused_lstm_gates(g, c, dim=1)
-                                 for g, c in cycle_sets])
-    plain_ms16 = time_graph_ms([lambda g=g, c=c: lstm_gates.lstm_gates_reference(g, c, dim=1)
-                                for g, c in cycle_sets])
-    nbytes16 = (g0.numel() + 3 * c0.numel()) * 2  # the same traffic at 2-byte elements
-    fwd_bound_ms16, _ = bound_ms(nbytes16, ops, mem_rate, fp32_peak)
-    log("times", f"lstm_gates bf16 NCHW {shape_g}: kernel {kernel_ms16 * 1e3:.2f} us, plain "
-                 f"{plain_ms16 * 1e3:.2f} us, bound {fwd_bound_ms16 * 1e3:.2f} us ({nbytes16} bytes); "
-                 f"per t_bucket clip {BUCKET_LAUNCHES_PER_CLIP} launches = "
-                 f"{kernel_ms16 * BUCKET_LAUNCHES_PER_CLIP:.2f} ms")
-    del sets, cycle_sets
+    # per launch in the recurrence's layout with the bias, CUDA graphs of 100
+    # launches over operand sets larger than L2
+    rates = (mem_rate, fp32_peak)
+    fwd_eval = {}
+    for dtype, per_clip, clip_name in ((torch.float32, LAUNCHES_PER_CLIP, "clip"),
+                                       (torch.bfloat16, BUCKET_LAUNCHES_PER_CLIP, "t_bucket clip")):
+        t = time_gate_forward(lstm_gates, shape_c, recurrence_format(dtype), dtype, dev, gen, rates)
+        fwd_eval[dtype] = t
+        log("times", times_line("lstm_gates", shape_c, dtype, t) + f"; per {clip_name} {per_clip} "
+                     f"launches = {t['ms'] * per_clip:.2f} ms")
 
     # ------------------------------------------------------ 7 train main path
     cfg = Cfg(train_config(tree, tmp / "train"))
@@ -586,93 +733,58 @@ def main() -> int:
     del trainer, grads_k, grads_p
 
     # ---------------------------------------------- 9 backward kernel vs plain
-    shape_tg = (TRAIN_BATCH, 4 * F_, PATCH, PATCH)  # NCHW, M = 16 384 rows
-    shape_tc = (TRAIN_BATCH, F_, PATCH, PATCH)
+    shape_tc = (TRAIN_BATCH, F_, PATCH, PATCH)  # M = 16 384 rows
+    shape_tg = (TRAIN_BATCH, 4 * F_, PATCH, PATCH)
     bwd_errors, fwd_train_errors = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        g = (torch.randn(shape_tg, device=dev, generator=gen) * 2).to(dtype)
-        c, dh, dc = ((torch.randn(shape_tc, device=dev, generator=gen) * s).to(dtype)
-                     for s in (0.5, 1.0, 1.0))
-        # the forward at the training shape, against the fp32 plain version
-        h_k, c_k = lstm_gates.fused_lstm_gates(g, c, dim=1)
-        h_p, c_p = lstm_gates.lstm_gates_reference(g.float(), c.float(), dim=1)
-        torch.cuda.synchronize()
-        err = max((h_k.float() - h_p).abs().max().item(), (c_k.float() - c_p).abs().max().item())
-        fwd_train_errors[str(dtype)] = err
+        fmt = recurrence_format(dtype)
+        g, c, b = gate_operands(shape_tc, fmt, dtype, dev, gen)
+        dh, dc = (torch.randn(shape_tc, device=dev, generator=gen).to(dtype).contiguous(
+            memory_format=fmt) for _ in range(2))
         tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
-        log("fwd", f"NCHW {shape_tg} {dtype}: max abs err {err:.3e} (tol {tol})")
-        if not err <= tol:
-            raise AssertionError(f"gate kernel disagrees at the training shape in {dtype}: {err}")
-        dg_k, dc_k = lstm_gates._launch_bwd(g, c, dh, dc, 1)
-        dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(g.float(), c.float(), dh.float(),
-                                                              dc.float(), dim=1)
+        fwd_train_errors[str(dtype)] = check_fwd(g, c, b, 1, dtype, tol,
+                                                 f"{fmt_name(fmt)} {shape_tg}")
+        width = lstm_gates.vector_width(g, c, dh, dc, dim=1)
+        dg_k, dc_k = lstm_gates._launch_bwd(g, c, dh, dc, 1, b)
+        dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(
+            g.float(), c.float(), dh.float(), dc.float(), dim=1, bias=b.float())
         torch.cuda.synchronize()
         err = max((dg_k.float() - dg_p).abs().max().item(), (dc_k.float() - dc_p).abs().max().item())
         rel = max(((k.float() - p).abs() / p.abs().clamp_min(1)).max().item()
                   for k, p in ((dg_k, dg_p), (dc_k, dc_p)))
         bwd_errors[str(dtype)] = err
         tol_ok = err <= TOL_FP32 if dtype == torch.float32 else rel <= TOL_BF16_REL
-        log("bwd", f"NCHW {shape_tg} {dtype}: max abs err {err:.3e}, err / max(1, |value|) "
-                   f"{rel:.3e} (tol {TOL_FP32} abs in fp32, {TOL_BF16_REL} relative in bf16)")
+        log("bwd", f"{fmt_name(fmt)} {shape_tg} {dtype} with bias (vectors of {width}): max abs err "
+                   f"{err:.3e}, err / max(1, |value|) {rel:.3e} (tol {TOL_FP32} abs in fp32, "
+                   f"{TOL_BF16_REL} relative in bf16)")
         if not tol_ok:
             raise AssertionError(f"backward kernel disagrees with its plain version in {dtype}")
     g = torch.randn(M, 4 * F_, device=dev, generator=gen) * 2
     c, dh, dc = (torch.randn(M, F_, device=dev, generator=gen) for _ in range(3))
-    dg_k, dc_k = lstm_gates._launch_bwd(g, c, dh, dc, -1)
-    dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(g, c, dh, dc)
-    err = max((dg_k - dg_p).abs().max().item(), (dc_k - dc_p).abs().max().item())
-    log("bwd", f"channels-last ({M}, {4 * F_}) float32: max abs err {err:.3e} (tol {TOL_FP32})")
-    if not err <= TOL_FP32:
-        raise AssertionError(f"backward kernel disagrees on the unaligned channels-last shape: {err}")
+    b = torch.randn(4 * F_, device=dev, generator=gen) * 0.5
+    for what, args in (("", (g, c, dh, dc)),  # and one element past aligned allocations:
+                       (" offset by one element", tuple(
+                           torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+                           for t in (g, c, dh, dc)))):
+        width = lstm_gates.vector_width(*args)
+        dg_k, dc_k = lstm_gates._launch_bwd(*args, -1, b)
+        dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(*args, bias=b)
+        err = max((dg_k - dg_p).abs().max().item(), (dc_k - dc_p).abs().max().item())
+        log("bwd", f"rows ({M}, {4 * F_}){what} float32 with bias (vectors of {width}): max abs "
+                   f"err {err:.3e} (tol {TOL_FP32})")
+        if not err <= TOL_FP32:
+            raise AssertionError(f"backward kernel disagrees on rows ({M}, {4 * F_}){what}: {err}")
 
-    n_sets = 8  # 8 × 29.4 MB of inputs > the 50 MB L2
-    sets = [tuple(torch.randn(s, device=dev, generator=gen) for s in (shape_tg, shape_tc,
-                                                                      shape_tc, shape_tc))
-            for _ in range(n_sets)]
-    cycle_sets = (sets * (100 // n_sets + 1))[:100]
-    bwd_kernel_ms = time_graph_ms([lambda a=a: lstm_gates._launch_bwd(*a, 1) for a in cycle_sets])
-    bwd_plain_ms = time_graph_ms(
-        [lambda a=a: lstm_gates.lstm_gates_backward_reference(*a, dim=1) for a in cycle_sets])
-    fwd_train_ms = time_graph_ms([lambda a=a: lstm_gates.fused_lstm_gates(a[0], a[1], dim=1)
-                                  for a in cycle_sets])
-    fwd_train_plain_ms = time_graph_ms(
-        [lambda a=a: lstm_gates.lstm_gates_reference(a[0], a[1], dim=1) for a in cycle_sets])
-    g0, c0 = sets[0][:2]
-    bwd_bytes = (2 * g0.numel() + 4 * c0.numel()) * g0.element_size()  # read 7F, write 5F
-    bwd_bound_ms, bwd_bound_by = bound_ms(bwd_bytes, GATE_BWD_OPS_PER_ELEMENT * c0.numel(),
-                                          mem_rate, fp32_peak)
-    fwd_train_bound_ms, _ = bound_ms((g0.numel() + 3 * c0.numel()) * g0.element_size(),
-                                     GATE_OPS_PER_ELEMENT * c0.numel(), mem_rate, fp32_peak)
-    log("times", f"lstm_gates_bwd fp32 NCHW {shape_tg}: kernel {bwd_kernel_ms * 1e3:.2f} us, plain "
-                 f"{bwd_plain_ms * 1e3:.2f} us, bound {bwd_bound_ms * 1e3:.2f} us ({bwd_bytes} bytes); "
-                 f"forward at the same shape: kernel {fwd_train_ms * 1e3:.2f} us, plain "
-                 f"{fwd_train_plain_ms * 1e3:.2f} us, bound {fwd_train_bound_ms * 1e3:.2f} us; per step "
-                 f"{FWD_PER_STEP} + {BWD_PER_STEP} launches = "
-                 f"{fwd_train_ms * FWD_PER_STEP + bwd_kernel_ms * BWD_PER_STEP:.2f} ms")
-    del sets, cycle_sets
-    sets = [tuple(torch.randn(s, device=dev, generator=gen).to(torch.bfloat16)
-                  for s in (shape_tg, shape_tc, shape_tc, shape_tc))
-            for _ in range(n_sets)]  # 8 × 14.7 MB > the 50 MB L2
-    cycle_sets = (sets * (100 // n_sets + 1))[:100]
-    bwd_kernel_ms16 = time_graph_ms([lambda a=a: lstm_gates._launch_bwd(*a, 1) for a in cycle_sets])
-    bwd_plain_ms16 = time_graph_ms(
-        [lambda a=a: lstm_gates.lstm_gates_backward_reference(*a, dim=1) for a in cycle_sets])
-    fwd_train_ms16 = time_graph_ms([lambda a=a: lstm_gates.fused_lstm_gates(a[0], a[1], dim=1)
-                                    for a in cycle_sets])
-    fwd_train_plain_ms16 = time_graph_ms(
-        [lambda a=a: lstm_gates.lstm_gates_reference(a[0], a[1], dim=1) for a in cycle_sets])
-    bwd_bound_ms16, _ = bound_ms(bwd_bytes // 2, GATE_BWD_OPS_PER_ELEMENT * c0.numel(),
-                                 mem_rate, fp32_peak)
-    fwd_train_bound_ms16, _ = bound_ms((g0.numel() + 3 * c0.numel()) * 2,
-                                       GATE_OPS_PER_ELEMENT * c0.numel(), mem_rate, fp32_peak)
-    log("times", f"lstm_gates_bwd bf16 NCHW {shape_tg}: kernel {bwd_kernel_ms16 * 1e3:.2f} us, plain "
-                 f"{bwd_plain_ms16 * 1e3:.2f} us, bound {bwd_bound_ms16 * 1e3:.2f} us "
-                 f"({bwd_bytes // 2} bytes); forward at the same shape: kernel "
-                 f"{fwd_train_ms16 * 1e3:.2f} us, plain {fwd_train_plain_ms16 * 1e3:.2f} us, bound "
-                 f"{fwd_train_bound_ms16 * 1e3:.2f} us; per bf16 + remat step {REMAT_FWD_PER_STEP} + "
-                 f"{BWD_PER_STEP} launches = "
-                 f"{fwd_train_ms16 * REMAT_FWD_PER_STEP + bwd_kernel_ms16 * BWD_PER_STEP:.2f} ms")
-    del sets, cycle_sets
+    fwd_train, bwd_train = {}, {}
+    for dtype, fwd_per_step, step_name in ((torch.float32, FWD_PER_STEP, "step"),
+                                           (torch.bfloat16, REMAT_FWD_PER_STEP, "bf16 + remat step")):
+        fmt = recurrence_format(dtype)
+        fwd_train[dtype] = t = time_gate_forward(lstm_gates, shape_tc, fmt, dtype, dev, gen, rates)
+        log("times", times_line("lstm_gates", shape_tc, dtype, t))
+        bwd_train[dtype] = tb = time_gate_backward(lstm_gates, shape_tc, fmt, dtype, dev, gen, rates)
+        log("times", times_line("lstm_gates_bwd", shape_tc, dtype, tb) + f"; per {step_name} "
+                     f"{fwd_per_step} + {BWD_PER_STEP} launches = "
+                     f"{t['ms'] * fwd_per_step + tb['ms'] * BWD_PER_STEP:.2f} ms")
 
     # ------------------------------------------------------- 10 bf16 serving
     cfg = eval_config(tree, ckpt, tmp / "test_bf16")
@@ -716,13 +828,16 @@ def main() -> int:
     eval16_busy = device_busy(lambda: pred16._step(item16, masks16))
     log("bf16 eval", f"predictor step on a warm {BUCKET_CLIP}-frame clip: wall {eval16_busy[0]:.2f} ms "
                      f"(median of 3, untraced), kernels {eval16_busy[1]:.2f} ms ({eval16_busy[2]} on "
-                     f"the device, traced), device busy {eval16_busy[1] / eval16_busy[0]:.1%}")
+                     f"the device, traced), device busy {eval16_busy[1] / eval16_busy[0]:.1%}; "
+                     f"launches by name in the trace: {eval16_busy[3]}")
     print(json.dumps({"eval_bf16": {"frames_per_sec": pred16.throughput["frames_per_sec"],
                                     "clip_ms": [x * 1e3 for x in clip16_s], "wall_s": wall16,
                                     "peak_gib": eval16_peak / 2**30, "log": pred16.log,
                                     "fp32_log": fp32_log, "step_wall_ms": eval16_busy[0],
                                     "step_kernel_ms": eval16_busy[1],
-                                    "step_kernels": eval16_busy[2], "card": card_line}}), flush=True)
+                                    "step_kernels": eval16_busy[2],
+                                    "step_kernels_by_name": eval16_busy[3], "card": card_line}}),
+          flush=True)
 
     # ----------------------------------------------- 11 bf16 + remat training
     cfg = train_config(tree, tmp / "train_bf16")
@@ -830,11 +945,13 @@ def main() -> int:
     log("bf16 train", f"trainer step on batch ({TRAIN_BATCH}, {T_TRAIN}, {PATCH}, {PATCH}, 1): wall "
                       f"{train16_busy[0]:.2f} ms (median of 3, untraced), kernels "
                       f"{train16_busy[1]:.2f} ms ({train16_busy[2]} on the device, traced), device "
-                      f"busy {train16_busy[1] / train16_busy[0]:.1%}")
+                      f"busy {train16_busy[1] / train16_busy[0]:.1%}; launches by name in the trace: "
+                      f"{train16_busy[3]}")
     print(json.dumps({"train_bf16_remat_step": {
         "kernels_vs_plain_loss_rel": step16_loss_rel, "kernels_vs_plain_grad_rel": step16_grad_rel,
         "step_wall_ms": train16_busy[0], "step_kernel_ms": train16_busy[1],
-        "step_kernels": train16_busy[2], "card": card_line}}), flush=True)
+        "step_kernels": train16_busy[2], "step_kernels_by_name": train16_busy[3],
+        "card": card_line}}), flush=True)
     del trainer16
 
     # --------------------------------------------------------- 12 tiled serving
@@ -902,6 +1019,7 @@ def main() -> int:
                  "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0}
+    f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
         "route": "cuda",
@@ -909,26 +1027,36 @@ def main() -> int:
         "replaces": f"{replaces}:31",
         "launches": sum(fwd_paths.values()),
         "launches_by_path": fwd_paths,
-        "max_abs_err": errors[str(torch.float32)],
-        "max_abs_err_bf16": errors[str(torch.bfloat16)],
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": fwd_bound_ms,
-        "bound_by": fwd_bound_by,
-        "library_ms": None,
+        "max_abs_err": errors[str(f32)],
+        "max_abs_err_bf16": errors[str(b16)],
+        "ms": fwd_eval[f32]["ms"],
+        "plain_ms": fwd_eval[f32]["plain_ms"],
+        "bound_ms": fwd_eval[f32]["bound_ms"],
+        "bound_by": fwd_eval[f32]["bound_by"],
+        "library_ms": fwd_eval[f32]["library_ms"],
+        "library": "aten::_thnn_fused_lstm_cell",
+        "library_error": fwd_eval[f32]["library_error"],
+        "copy_ms": fwd_eval[f32]["copy_ms"],
+        "copy_ms_bf16": fwd_eval[b16]["copy_ms"],
         "shape": list(shape_g),
         "dtype": "float32",
-        "max_abs_err_train_shape": fwd_train_errors[str(torch.float32)],
-        "max_abs_err_bf16_train_shape": fwd_train_errors[str(torch.bfloat16)],
-        "ms_train_shape": fwd_train_ms,
-        "plain_ms_train_shape": fwd_train_plain_ms,
-        "bound_ms_train_shape": fwd_train_bound_ms,
-        "ms_bf16": kernel_ms16,
-        "plain_ms_bf16": plain_ms16,
-        "bound_ms_bf16": fwd_bound_ms16,
-        "ms_bf16_train_shape": fwd_train_ms16,
-        "plain_ms_bf16_train_shape": fwd_train_plain_ms16,
-        "bound_ms_bf16_train_shape": fwd_train_bound_ms16,
+        "layout": fwd_eval[f32]["layout"],
+        "layout_bf16": fwd_eval[b16]["layout"],
+        "max_abs_err_train_shape": fwd_train_errors[str(f32)],
+        "max_abs_err_bf16_train_shape": fwd_train_errors[str(b16)],
+        "ms_train_shape": fwd_train[f32]["ms"],
+        "plain_ms_train_shape": fwd_train[f32]["plain_ms"],
+        "bound_ms_train_shape": fwd_train[f32]["bound_ms"],
+        "library_ms_train_shape": fwd_train[f32]["library_ms"],
+        "ms_bf16": fwd_eval[b16]["ms"],
+        "plain_ms_bf16": fwd_eval[b16]["plain_ms"],
+        "bound_ms_bf16": fwd_eval[b16]["bound_ms"],
+        "library_ms_bf16": fwd_eval[b16]["library_ms"],
+        "library_error_bf16": fwd_eval[b16]["library_error"],
+        "ms_bf16_train_shape": fwd_train[b16]["ms"],
+        "plain_ms_bf16_train_shape": fwd_train[b16]["plain_ms"],
+        "bound_ms_bf16_train_shape": fwd_train[b16]["bound_ms"],
+        "library_ms_bf16_train_shape": fwd_train[b16]["library_ms"],
     }, {
         "name": "lstm_gates_bwd",
         "route": "cuda",
@@ -936,18 +1064,24 @@ def main() -> int:
         "replaces": f"{replaces}:103",
         "launches": sum(bwd_paths.values()),
         "launches_by_path": bwd_paths,
-        "max_abs_err": bwd_errors[str(torch.float32)],
-        "max_abs_err_bf16": bwd_errors[str(torch.bfloat16)],
-        "ms": bwd_kernel_ms,
-        "plain_ms": bwd_plain_ms,
-        "bound_ms": bwd_bound_ms,
-        "bound_by": bwd_bound_by,
-        "library_ms": None,
+        "max_abs_err": bwd_errors[str(f32)],
+        "max_abs_err_bf16": bwd_errors[str(b16)],
+        "ms": bwd_train[f32]["ms"],
+        "plain_ms": bwd_train[f32]["plain_ms"],
+        "bound_ms": bwd_train[f32]["bound_ms"],
+        "bound_by": bwd_train[f32]["bound_by"],
+        "library_ms": bwd_train[f32]["library_ms"],
+        "library": "aten::_thnn_fused_lstm_cell_backward_impl",
+        "library_error": bwd_train[f32]["library_error"],
         "shape": list(shape_tg),
         "dtype": "float32",
-        "ms_bf16": bwd_kernel_ms16,
-        "plain_ms_bf16": bwd_plain_ms16,
-        "bound_ms_bf16": bwd_bound_ms16,
+        "layout": bwd_train[f32]["layout"],
+        "layout_bf16": bwd_train[b16]["layout"],
+        "ms_bf16": bwd_train[b16]["ms"],
+        "plain_ms_bf16": bwd_train[b16]["plain_ms"],
+        "bound_ms_bf16": bwd_train[b16]["bound_ms"],
+        "library_ms_bf16": bwd_train[b16]["library_ms"],
+        "library_error_bf16": bwd_train[b16]["library_error"],
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

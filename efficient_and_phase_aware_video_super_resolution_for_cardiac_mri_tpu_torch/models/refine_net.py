@@ -3,13 +3,19 @@
 The port's counterpart of the JAX package's ``models/refine_net.py`` (itself
 a rebuild of reference ``src/model/nets/refine_net.py:10-344``).  The public
 layout is the JAX package's: ``forward(lr (B, T, h, w, C), pos_codes
-(B, T, 1))`` returns 3·num_stages tensors (B, Tc, h·r, w·r, C).  Inside,
-features run NCHW for cuDNN, with time as the axis after batch:
-(B, T, C, H, W).
+(B, T, 1))`` returns 3·num_stages tensors (B, Tc, h·r, w·r, C).  Between
+the blocks, features are contiguous (B, T, C, H, W) tensors, time after
+batch.
 
 * The recurrence over time is a Python loop of :meth:`ConvLSTM.step` (the
-  JAX ``ConvLSTMStep`` scan body).  Its gate tail is the fused CUDA kernel
-  (``ops/lstm_gates.py``) on the card and the plain version on the CPU.
+  JAX ``ConvLSTMStep`` scan body).  Its gate conv runs without a bias; the
+  bias goes to the gate tail, the fused CUDA kernel (``ops/lstm_gates.py``)
+  on the card and the plain version on the CPU.  Inside the loop, frames,
+  carries and gate-conv weights are in the layout of
+  :func:`recurrence_format`: channels-last in bf16 (the JAX package's layout
+  and the one cuDNN's tensor-core convs compute in, so no gate conv
+  transposes its operands and the kernel reads the gates as rows of
+  (M, 4F)), NCHW in fp32.
 * ``remat=True`` (the JAX package's per-step ``nn.remat``) checkpoints each
   core step (``torch.utils.checkpoint``, non-reentrant): the backward
   recomputes a step from its carry instead of keeping its gate-conv
@@ -59,10 +65,24 @@ class ConvLSTMCell(nn.Module):
         """The step with the gate conv's ``weight`` and ``bias`` passed in:
         :class:`ConvLSTM` looks them up once per sequence, so a checkpointed
         step recomputes with the tensors its forward used (the compute-dtype
-        copies, which exist only while the forward runs)."""
+        copies, which exist only while the forward runs).  The conv runs
+        without its bias, which the gate tail adds."""
         combined = torch.cat([x, h] if self.memory else [x, x], dim=1)
-        gates = F.conv2d(combined, weight, bias, padding=self.conv.padding)
-        return self.gate_tail(gates, c, dim=1)
+        gates = F.conv2d(combined, weight, None, padding=self.conv.padding)
+        return self.gate_tail(gates, c, dim=1, bias=bias)
+
+
+def recurrence_format(dtype: torch.dtype) -> torch.memory_format:
+    """The memory layout of the ConvLSTM recurrence for ``dtype``.
+
+    bf16 (and any half type): channels-last, the layout of cuDNN's
+    tensor-core implicit-GEMM convs, which otherwise transpose their input,
+    weight and output around every gate conv.  fp32: NCHW, in which cuDNN
+    runs its fp32 convs (FFT or implicit GEMM on the CUDA cores); in
+    channels-last it transposes around them instead, and the fp32 clip and
+    step take longer (``tools/profile_layout.py`` measures both).
+    """
+    return torch.contiguous_format if dtype == torch.float32 else torch.channels_last
 
 
 class ConvLSTM(nn.Module):
@@ -94,7 +114,9 @@ class ConvLSTM(nn.Module):
             x = h
         return new_carry, x
 
-    def _run(self, carry, xs, weights):
+    def _run(self, carry, xs, weights, perm):
+        """The steps over xs[:, t]; the last layer's states stacked as
+        (B, T, ·) rows in their storage order (``perm`` of (B, F, H, W))."""
         remat = self.remat and torch.is_grad_enabled()
         hs = []
         for t in range(xs.shape[1]):
@@ -104,25 +126,37 @@ class ConvLSTM(nn.Module):
                                       use_reentrant=False, preserve_rng_state=False)
             else:
                 carry, h = self.step(carry, xs[:, t], weights)
-            hs.append(h)
+            hs.append(h.permute(perm).reshape(h.shape[0], -1))  # a view: h is dense in perm
         return carry, torch.stack(hs, dim=1)
 
     def forward(self, xs: torch.Tensor, num_updated_frames: int = 0) -> torch.Tensor:
-        """xs (B, T, C, H, W) → hidden states of the last layer (B, T, F, H, W)."""
+        """xs (B, T, C, H, W) → hidden states of the last layer (B, T, F, H, W),
+        contiguous."""
         B, T, _, H, W = xs.shape
         U = num_updated_frames
-        weights = [(cell.conv.weight, cell.conv.bias) for cell in self.cell_list]
-        carry = [
-            (xs.new_zeros(B, hd, H, W), xs.new_zeros(B, hd, H, W)) for hd in self.hidden_dims
-        ]
+        fmt = recurrence_format(xs.dtype)
+        perm = (0, 2, 3, 1) if fmt == torch.channels_last else (0, 1, 2, 3)  # storage order
+        # one copy a call: each frame xs[:, t] is then a view in the layout
+        xs = xs.permute(0, 1, *(d + 1 for d in perm[1:])).contiguous()
+        xs = xs.permute(0, 1, *(perm.index(d) + 1 for d in range(1, 4)))
+        weights = [(cell.conv.weight.contiguous(memory_format=fmt), cell.conv.bias)
+                   for cell in self.cell_list]
+        carry = [tuple(torch.empty(B, hd, H, W, dtype=xs.dtype, device=xs.device,
+                                   memory_format=fmt).zero_() for _ in range(2))
+                 for hd in self.hidden_dims]
         if U == 0:
-            return self._run(carry, xs, weights)[1]
-        with torch.no_grad():
-            carry, h_pre = self._run(carry, xs[:, :U], weights)
-        carry, h_core = self._run(carry, xs[:, U : T - U], weights)
-        with torch.no_grad():
-            _, h_suf = self._run(carry, xs[:, T - U :], weights)
-        return torch.cat([h_pre, h_core, h_suf], dim=1)
+            out = self._run(carry, xs, weights, perm)[1]
+        else:
+            with torch.no_grad():
+                carry, h_pre = self._run(carry, xs[:, :U], weights, perm)
+            carry, h_core = self._run(carry, xs[:, U : T - U], weights, perm)
+            with torch.no_grad():
+                _, h_suf = self._run(carry, xs[:, T - U :], weights, perm)
+            out = torch.cat([h_pre, h_core, h_suf], dim=1)
+        F_ = self.hidden_dims[-1]
+        out = out.view(B, T, *(((B, F_, H, W)[d]) for d in perm[1:]))
+        # back to (B, T, F, H, W): one copy a call (none in NCHW)
+        return out.permute(0, 1, *(perm.index(d) + 1 for d in range(1, 4))).contiguous()
 
 
 class _WindowConv(nn.Module):
@@ -317,8 +351,10 @@ class RefineNet(nn.Module):
 
 
 def set_gate_tail(net: nn.Module, fn) -> None:
-    """Route every ConvLSTM gate tail of ``net`` through ``fn`` (for example
-    ``lstm_gates_reference``, to hold the whole forward against the kernel)."""
+    """Route every ConvLSTM gate tail of ``net`` through ``fn``, called as
+    ``fn(gates, c, dim=1, bias=bias)`` on the bias-free conv output in the
+    recurrence's layout (for example ``lstm_gates_reference``, to hold the
+    whole forward against the kernel)."""
     for m in net.modules():
         if isinstance(m, ConvLSTMCell):
             m.gate_tail = fn

@@ -16,7 +16,7 @@ follows.  ``--compute-dtype bfloat16`` runs the forward as the predictor's
 * the device's busy share and the top kernels by device time, from
   ``torch.profiler``;
 * the gate wrapper's host time per call, on the serving path (no autograd)
-  and on the autograd path, at the main path's shape.
+  and on the autograd path, at the main path's shape, layout and bias.
 
 The last line is one JSON object with these numbers.  Needs a CUDA card.
 """
@@ -31,7 +31,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ..models.refine_net import RefineNet
+from ..models.refine_net import RefineNet, recurrence_format
 from ..ops import lstm_gates
 from ..utils.casting import forward_in, resolve_dtype
 
@@ -42,6 +42,8 @@ NET_KWARGS = {  # configs/test/refine_net/exp1_x4.yaml:26-40
 }
 CLIP = (1, 30 + 2 * 6, 64, 64, 1)  # one serving clip: 30 core + 2×6 warm-up frames, LR 64×64
 REPEATS, TOP = 5, 15
+#: kernels counted by name: ATen's broadcast add and cuDNN's layout transposes
+NAMED = ("CUDAFunctor_add", "nchwToNhwc", "nhwcToNchw")
 BLOCKS = ("in_block", "forward_lstm_block", "backward_lstm_block", "refine_block", "out_block")
 
 
@@ -72,16 +74,20 @@ def _block_timers(net):
 
 
 def _host_us_per_gate_call(dev, requires_grad: bool, calls: int = 756) -> float:
-    """Host time to enqueue one clip's worth of gate-tail calls."""
+    """Host time to enqueue one clip's worth of gate-tail calls, as the
+    recurrence makes them: fp32 operands in its layout, with the bias."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    g = torch.randn(1, 256, 64, 64, device=dev, generator=gen).requires_grad_(requires_grad)
-    c = torch.randn(1, 64, 64, 64, device=dev, generator=gen)
+    fmt = recurrence_format(torch.float32)
+    g = torch.randn(1, 256, 64, 64, device=dev, generator=gen).contiguous(memory_format=fmt)
+    g.requires_grad_(requires_grad)
+    c = torch.randn(1, 64, 64, 64, device=dev, generator=gen).contiguous(memory_format=fmt)
+    b = torch.randn(256, device=dev, generator=gen)
     for _ in range(10):
-        lstm_gates.fused_lstm_gates(g, c, dim=1)
+        lstm_gates.fused_lstm_gates(g, c, dim=1, bias=b)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        lstm_gates.fused_lstm_gates(g, c, dim=1)
+        lstm_gates.fused_lstm_gates(g, c, dim=1, bias=b)
     host_us = (time.perf_counter() - t0) * 1e6 / calls
     torch.cuda.synchronize()
     return host_us
@@ -138,7 +144,7 @@ def main() -> None:
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         launches = lstm_gates.LAUNCHES
-        with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
             t0 = time.perf_counter()
             forward()
             torch.cuda.synchronize()
@@ -155,6 +161,13 @@ def main() -> None:
         by_name[e.name][1] += 1
     device_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    named = {part: sum(n for name, (_, n) in by_name.items() if part in name) for part in NAMED}
+    # the ATen ops that launched the kernels: device time of each op's own
+    # kernels, by op and input shapes
+    ops = sorted(prof.key_averages(group_by_input_shape=True),
+                 key=lambda e: -e.self_device_time_total)[:TOP]
+    top_ops = [{"op": e.key, "shapes": str(e.input_shapes), "ms": e.self_device_time_total / 1e3,
+                "count": e.count} for e in ops if e.self_device_time_total > 0]
 
     print(f"forward wall per clip {clip} in {dtype or torch.float32}: "
           f"{', '.join(f'{w:.1f}' for w in walls)} ms", flush=True)
@@ -165,6 +178,10 @@ def main() -> None:
           f"lstm_gates launches {launches}")
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:110]}")
+    print(f"launches by name: {named}")
+    print("top ATen ops by the device time of their own kernels:")
+    for o in top_ops:
+        print(f"  {o['ms']:9.2f} ms {o['count']:6d}x  {o['op']} {o['shapes'][:90]}")
     print(f"gate wrapper host time per call: serving {host_us['serving']:.2f} us, "
           f"autograd {host_us['autograd']:.2f} us")
     print(f"peak device memory of a forward: {peak / 2**30:.2f} GiB")
@@ -175,6 +192,7 @@ def main() -> None:
         "kernel_ms": device_ms, "kernel_launches": len(kernels), "lstm_gates_launches": launches,
         "gate_wrapper_host_us": host_us,
         "top_kernels": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top],
+        "launches_by_name": named, "top_ops": top_ops,
     }), flush=True)
 
 

@@ -48,7 +48,7 @@ from ..models.refine_net import RefineNet
 from ..ops import lstm_gates
 from ..runner.optim import Optimizer
 from ..runner.trainers import VSRRefineNetTrainer
-from .profile_eval import BLOCKS, NET_KWARGS, TOP, _block_timers
+from .profile_eval import BLOCKS, NAMED, NET_KWARGS, TOP, _block_timers
 from .synthetic_tree import write_acdc_tree
 
 BATCH, PATCH, CORE, U, SCALE = 16, 32, 7, 6, 4
@@ -165,6 +165,7 @@ def main() -> None:
         by_name[e.name][1] += 1
     device_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    named = {part: sum(n for name, (_, n) in by_name.items() if part in name) for part in NAMED}
 
     timed = steps[WARMUP:]
     mean = {k: sum(s[k] for s in timed) / len(timed) for k in timed[0]}
@@ -181,6 +182,7 @@ def main() -> None:
           f"gate launches per step {launches}")
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms {n:6d}x  {name[:110]}")
+    print(f"launches by name: {named}")
     print(f"peak device memory of a step: {peak / 2**30:.2f} GiB")
     print(json.dumps({
         "card": card, "batch": [BATCH, CORE + 2 * U, PATCH, PATCH, 1],
@@ -190,6 +192,7 @@ def main() -> None:
         "kernel_ms": device_ms, "kernel_launches": len(kernels), "gate_launches_per_step": launches,
         "peak_gib": peak / 2**30,
         "top_kernels": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in top],
+        "launches_by_name": named,
     }), flush=True)
 
 

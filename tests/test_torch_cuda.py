@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions: the
-gate tail forward and backward, a small net's forward, and one training
-step through the kernels against one through the plain gate tail.
+gate tail forward and backward, with and without the gate conv's bias, on
+each of their paths (16-byte vectors over rows, channels-last or NCHW
+planes; one element a vector for other widths and unaligned pointers), a
+small net's forward, and one training step through the kernels against one
+through the plain gate tail.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -208,3 +211,114 @@ def test_bf16_remat_training_step_through_the_kernels(cuda):
         scale = g.abs().max().item()
         assert (grads_n[name] - g).abs().max().item() <= 1e-3 * scale, name
         assert (grads_p[name] - g).abs().max().item() <= 5e-2 * scale, name
+
+
+# The kernels' paths: (c's shape, layout, path).  "vector" moves 16 bytes a
+# load along the contiguous axis (F in rows and channels-last, H*W in NCHW);
+# "scalar" one element, for widths that are not a multiple of the vector
+# (8 bf16, 4 fp32) and for base pointers that are not 16-byte aligned.
+PATH_CASES = {
+    "rows_eval": ((4096, 64), "rows", "vector"),
+    "rows_3x11x7": ((3 * 11 * 7, 64), "rows", "vector"),
+    "rows_F10": ((3 * 11 * 7, 10), "rows", "scalar"),
+    "nchw_eval": ((1, 64, 64, 64), "nchw", "vector"),
+    "nchw_train": ((16, 64, 32, 32), "nchw", "vector"),
+    "nchw_11x7": ((2, 64, 11, 7), "nchw", "scalar"),
+    "channels_last_eval": ((1, 64, 64, 64), "channels_last", "vector"),
+    "channels_last_train": ((16, 64, 32, 32), "channels_last", "vector"),
+    "channels_last_F10": ((3, 10, 11, 7), "channels_last", "scalar"),
+    "offset_by_one": ((3 * 11 * 7, 64), "offset", "scalar"),
+}
+
+
+def _operand(shape, layout, dev, gen, scale, dtype):
+    """A random tensor of ``shape`` (channel axis 1, or last for rows) in ``layout``."""
+    if layout == "offset":  # one element past an aligned allocation
+        n = 1
+        for s in shape:
+            n *= s
+        buf = torch.randn(n + 1, device=dev, generator=gen) * scale
+        return buf.to(dtype)[1:].view(shape)
+    t = (torch.randn(shape, device=dev, generator=gen) * scale).to(dtype)
+    return t.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else t
+
+
+def _path_operands(case, dtype, dev, with_bias, seed):
+    shape, layout, path = PATH_CASES[case]
+    dim = -1 if layout in ("rows", "offset") else 1
+    g_shape = list(shape)
+    g_shape[dim] *= 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = _operand(g_shape, layout, dev, gen, 2.0, dtype)
+    c, dh, dc = (_operand(shape, layout, dev, gen, s, dtype) for s in (0.5, 1.0, 1.0))
+    bias = (torch.randn(g_shape[dim], device=dev, generator=gen) * 0.5).to(dtype) if with_bias else None
+    width = 16 // g.element_size() if path == "vector" else 1
+    assert lstm_gates.vector_width(g, c, dh, dc, dim=dim) == width
+    return g, c, dh, dc, bias, dim
+
+
+def _upcast(*ts):
+    return [None if t is None else t.float() for t in ts]
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(PATH_CASES))
+def test_gate_kernels_on_every_path_match_plain_versions(cuda, case, dtype, with_bias):
+    """Forward and backward kernel on the path the case names, against the
+    fp32 plain versions on the same (upcast) inputs: fp32 2e-6 absolute;
+    bf16 1e-2 absolute forward (|c'| < 4: half a bf16 ulp is below it) and
+    1e-2 of max(1, |value|) backward."""
+    g, c, dh, dc, bias, dim = _path_operands(case, dtype, cuda, with_bias, seed=5)
+    fwd, bwd = lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES
+    h_got, c_got = lstm_gates.fused_lstm_gates(g, c, dim=dim, bias=bias)
+    dg_got, dc_got = lstm_gates._launch_bwd(g, c, dh, dc, dim, bias)
+    torch.cuda.synchronize()
+    assert (lstm_gates.LAUNCHES - fwd, lstm_gates.BWD_LAUNCHES - bwd) == (1, 1)
+    assert h_got.stride() == c.stride() and dg_got.stride() == g.stride()
+    gf, cf, dhf, dcf, bf = _upcast(g, c, dh, dc, bias)
+    h_want, c_want = lstm_gates.lstm_gates_reference(gf, cf, dim, bf)
+    dg_want, dc_want = lstm_gates.lstm_gates_backward_reference(gf, cf, dhf, dcf, dim, bf)
+    tol = 2e-6 if dtype == torch.float32 else 1e-2
+    for got, want in ((h_got, h_want), (c_got, c_want)):
+        assert (got.float() - want).abs().max().item() <= tol
+    for got, want in ((dg_got, dg_want), (dc_got, dc_want)):
+        err = (got.float() - want).abs()
+        if dtype == torch.bfloat16:
+            err = err / want.abs().clamp_min(1)
+        assert err.max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gate_function_with_bias_matches_plain_autograd(cuda, dtype):
+    """Through the ``autograd.Function`` in the recurrence's channels-last
+    layout: d_gates, d_c and d_bias (the kernel's d_gates summed over N, H,
+    W) against autograd of the plain version, from strided grads of h'."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    g = (torch.randn(2, 256, 12, 9, device=cuda, generator=gen) * 2).to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    c = torch.randn(2, 64, 12, 9, device=cuda, generator=gen).to(dtype)
+    c = c.contiguous(memory_format=torch.channels_last)
+    b = (torch.randn(256, device=cuda, generator=gen) * 0.5).to(dtype)
+    weights = torch.randn(2, 3, 64, 12, 9, device=cuda, generator=gen)
+    grads = []
+    for fn, cast in ((lstm_gates.fused_lstm_gates, dtype), (lstm_gates.lstm_gates_reference,
+                                                            torch.float32)):
+        leaves = [t.to(cast).detach().requires_grad_() for t in (g, c, b)]
+        h, _ = fn(leaves[0], leaves[1], dim=1, bias=leaves[2])
+        (torch.stack([h, 2 * h, h * h], dim=1).float() * weights).sum().backward()
+        grads.append([t.grad.float() for t in leaves])
+    for got, want in zip(*grads):
+        scale = 1.0 if dtype == torch.float32 else want.abs().max().item()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        assert (got - want).abs().max().item() <= tol * scale
+
+
+def test_gate_kernel_raises_on_layouts_it_does_not_take(cuda):
+    g = torch.zeros(2, 32, 3, 5, device=cuda).contiguous(memory_format=torch.channels_last)
+    c = torch.zeros(2, 8, 3, 5, device=cuda)
+    with pytest.raises(ValueError):  # channels-last gates beside an NCHW c
+        lstm_gates.fused_lstm_gates(g, c, dim=1)
+    with pytest.raises(ValueError):  # a bias of another dtype
+        lstm_gates.fused_lstm_gates(g, c.contiguous(memory_format=torch.channels_last), dim=1,
+                                    bias=torch.zeros(32, device=cuda, dtype=torch.bfloat16))

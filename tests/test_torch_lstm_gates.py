@@ -144,3 +144,112 @@ def test_gradient_through_the_function_takes_strided_and_missing_grads():
         grads.append((g.grad, cc.grad))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------- the bias
+def _bias(F, seed):
+    return np.random.default_rng(seed).standard_normal(4 * F).astype(np.float32)
+
+
+def _jax_biased(gates, c, bias):
+    """The JAX tail on gates that carry the bias, as the JAX gate conv's are."""
+    return jax_reference(gates + bias, c)
+
+
+LAYOUTS = ["rows", "nchw", "channels_last"]
+
+
+def _to_layout(x, layout):
+    """A channels-last (N, H, W, C) array → the port's operand and its channel dim."""
+    t = torch.from_numpy(x)
+    if layout == "rows":
+        return t.reshape(-1, t.shape[-1]), -1
+    nchw = t.permute(0, 3, 1, 2)
+    if layout == "nchw":
+        return nchw.contiguous(), 1
+    return nchw.contiguous(memory_format=torch.channels_last), 1
+
+
+def _from_layout(t, layout, shape):
+    return (t.reshape(shape) if layout == "rows" else t.permute(0, 2, 3, 1)).numpy()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape,F", [((2, 8, 8), 64), ((3, 11, 7), 64), ((1, 5, 6), 12)])
+def test_gates_with_bias_match_jax_on_biased_gates(shape, F, layout):
+    gates, c = _inputs(shape, F, seed=8)
+    bias = _bias(F, seed=9)
+    h_want, c_want = _jax_biased(jnp.asarray(gates), jnp.asarray(c), jnp.asarray(bias))
+    g_t, dim = _to_layout(gates, layout)
+    c_t, _ = _to_layout(c, layout)
+    if layout == "channels_last":
+        assert lstm_gates._layout(g_t, c_t, dim, torch.from_numpy(bias)) == (
+            shape[0] * shape[1] * shape[2], F, 1)
+    before = lstm_gates.LAUNCHES
+    for fn in (lstm_gates.lstm_gates_reference, lstm_gates.fused_lstm_gates):
+        h_got, c_got = fn(g_t, c_t, dim=dim, bias=torch.from_numpy(bias))
+        assert h_got.shape == c_t.shape
+        for got, want in ((h_got, h_want), (c_got, c_want)):
+            np.testing.assert_allclose(_from_layout(got, layout, c.shape), np.asarray(want),
+                                       atol=1e-6, rtol=0)
+    assert lstm_gates.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_gradient_with_bias_matches_jax_vjp(layout):
+    """(d_gates, d_c, d_bias) through the wrapper's ``autograd.Function``
+    against ``jax.vjp`` of the JAX tail on ``gates + bias``; 2e-6 as for the
+    bias-free backward (1 - g² cancels where |tanh(g)| nears 1), and d_bias
+    sums 3·11·7 of those elements."""
+    shape, F = (3, 11, 7), 16
+    gates, c = _inputs(shape, F, seed=10)
+    bias = _bias(F, seed=11)
+    rng = np.random.default_rng(12)
+    dh = rng.standard_normal(c.shape).astype(np.float32)
+    dc = rng.standard_normal(c.shape).astype(np.float32)
+    _, vjp = jax.vjp(_jax_biased, jnp.asarray(gates), jnp.asarray(c), jnp.asarray(bias))
+    dg_want, dc_want, db_want = (np.asarray(x) for x in vjp((jnp.asarray(dh), jnp.asarray(dc))))
+
+    g_t, dim = _to_layout(gates, layout)
+    c_t, _ = _to_layout(c, layout)
+    g_t, c_t = g_t.clone().requires_grad_(), c_t.clone().requires_grad_()
+    b_t = torch.from_numpy(bias).requires_grad_()
+    h_next, c_next = lstm_gates.fused_lstm_gates(g_t, c_t, dim=dim, bias=b_t)
+    assert "FusedGates" in type(h_next.grad_fn).__name__
+    torch.autograd.backward((h_next, c_next), (_to_layout(dh, layout)[0],
+                                               _to_layout(dc, layout)[0]))
+    np.testing.assert_allclose(_from_layout(g_t.grad, layout, gates.shape), dg_want,
+                               atol=2e-6, rtol=0)
+    np.testing.assert_allclose(_from_layout(c_t.grad, layout, c.shape), dc_want, atol=2e-6, rtol=0)
+    np.testing.assert_allclose(b_t.grad.numpy(), db_want, atol=2e-5, rtol=0)
+
+
+def test_bias_gradient_flows_when_only_the_bias_needs_it():
+    gates, c = _inputs((2, 3, 4), 8, seed=13)
+    b = torch.from_numpy(_bias(8, seed=14)).requires_grad_()
+    h, c_next = lstm_gates.fused_lstm_gates(torch.from_numpy(gates), torch.from_numpy(c), bias=b)
+    (h.sum() + c_next.sum()).backward()
+    b_ref = b.detach().clone().requires_grad_()
+    h, c_next = lstm_gates.lstm_gates_reference(torch.from_numpy(gates), torch.from_numpy(c),
+                                                bias=b_ref)
+    (h.sum() + c_next.sum()).backward()
+    torch.testing.assert_close(b.grad, b_ref.grad, atol=1e-5, rtol=0)
+
+
+def test_layout_takes_channels_last_and_refuses_other_strides():
+    g = torch.zeros(2, 32, 3, 5).contiguous(memory_format=torch.channels_last)
+    c = torch.zeros(2, 8, 3, 5).contiguous(memory_format=torch.channels_last)
+    assert lstm_gates._layout(g, c, 1) == (30, 8, 1)
+    assert lstm_gates._layout(g, c, -3) == (30, 8, 1)
+    with pytest.raises(ValueError):  # channels-last gates beside an NCHW c
+        lstm_gates._layout(g, c.contiguous(), 1)
+    with pytest.raises(ValueError):  # the channel axis is not dim 1
+        lstm_gates._layout(torch.zeros(2, 8, 3, 20).contiguous(memory_format=torch.channels_last),
+                           torch.zeros(2, 8, 3, 5).contiguous(memory_format=torch.channels_last), 3)
+    with pytest.raises(ValueError):  # a strided slice
+        lstm_gates._layout(torch.zeros(2, 64, 3, 5)[:, ::2], c.contiguous(), 1)
+    with pytest.raises(ValueError):  # a bias of the wrong length
+        lstm_gates._layout(g, c, 1, torch.zeros(31))
+    with pytest.raises(ValueError):  # a bias of another dtype
+        lstm_gates._layout(g, c, 1, torch.zeros(32, dtype=torch.bfloat16))
+    assert lstm_gates._layout(g, c, 1, torch.zeros(32)) == (30, 8, 1)

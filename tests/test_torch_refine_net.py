@@ -114,3 +114,79 @@ def test_init_is_drawn_from_the_generator_only():
     b = RefineNet(**_cfg(0, True, True), generator=torch.Generator().manual_seed(5))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, atol=0, rtol=0, msg=k)
+
+
+def test_gate_conv_runs_without_its_bias_and_the_tail_adds_it(monkeypatch):
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        refine_net,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        lstm_gates,
+    )
+
+    _, _, net = _pair(1, True, True)
+    gate_weights = {id(cell.conv.weight) for cell in net.modules()
+                    if isinstance(cell, refine_net.ConvLSTMCell)}
+    biases = {id(cell.conv.bias) for cell in net.modules()
+              if isinstance(cell, refine_net.ConvLSTMCell)}
+    conv_biases, tail_biases = [], []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy_conv(x, weight, bias=None, *args, **kwargs):
+        if weight.shape[0] == 4 * 8 and weight.shape[1] == 2 * 8:  # a gate conv
+            conv_biases.append(bias)
+        return conv2d(x, weight, bias, *args, **kwargs)
+
+    def spy_tail(gates, c, dim=-1, bias=None):
+        tail_biases.append(id(bias))
+        return lstm_gates.lstm_gates_reference(gates, c, dim, bias)
+
+    monkeypatch.setattr(refine_net.F, "conv2d", spy_conv)
+    refine_net.set_gate_tail(net, spy_tail)
+    lr, pos = _inputs(1)
+    with torch.inference_mode():
+        net(torch.from_numpy(lr), torch.from_numpy(pos))
+    assert len(gate_weights) == len(biases) == 4  # 2 layers × 2 directions
+    layer_steps = 2 * 2 * 2 * (TC + 2)  # layers × directions × stages × frames
+    assert conv_biases == [None] * layer_steps
+    assert len(tail_biases) == layer_steps and set(tail_biases) == biases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_recurrence_runs_in_the_chosen_layout(dtype):
+    """Every gate tail sees gates, c and its bias in the layout
+    ``recurrence_format`` names for the compute dtype (channels-last for
+    bf16, NCHW for fp32), and the ConvLSTM still hands back contiguous
+    (B, T, F, H, W) states."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        refine_net,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        lstm_gates,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils.casting import (
+        forward_in,
+    )
+
+    _, _, net = _pair(1, True, True)
+    fmt = refine_net.recurrence_format(dtype)
+    seen = []
+
+    def spy_tail(gates, c, dim=-1, bias=None):
+        seen.append((gates.dtype, gates.is_contiguous(memory_format=fmt),
+                     c.is_contiguous(memory_format=fmt), bias.dtype))
+        return lstm_gates.lstm_gates_reference(gates, c, dim, bias)
+
+    refine_net.set_gate_tail(net, spy_tail)
+    states = []
+    net.forward_lstm_block.register_forward_hook(lambda m, a, out: states.append(out))
+    lr, pos = _inputs(1)
+    with torch.inference_mode():
+        forward_in(net, None if dtype == torch.float32 else dtype, torch.from_numpy(lr),
+                   torch.from_numpy(pos))
+    assert seen and set(seen) == {(dtype, True, True, dtype)}
+    # bf16 in cuDNN's tensor-core layout; fp32 in NCHW, where cuDNN's fp32
+    # convs need no transposes (PERF.md: tools/profile_layout.py on the card)
+    assert fmt == (torch.contiguous_format if dtype == torch.float32 else torch.channels_last)
+    assert [tuple(s.shape) for s in states] == [(B, TC + 2, 8, H, W)] * 2
+    assert all(s.is_contiguous() for s in states)

@@ -124,12 +124,15 @@ NET = dict(in_channels=1, out_channels=1, num_features=[6, 6], num_stages=2,
 NORM = [{"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}},
         {"name": "ToTensor"}]
 # bf16 port vs bf16 JAX on these inputs, relative, held at ~2.5x the measured
-# deviation.  Test log: Loss 3.9e-5, PSNR 2.0e-5, SSIM 8.2e-4, CardiacPSNR
-# 4.1e-5, CardiacSSIM 1.6e-3.  The 12-step trainer's logs: Loss 3.1e-6, PSNR
-# 2.1e-5, SSIM 3.1e-3 (SSIM of noise is ~0.01-0.03).
-BF16_LOG_RTOL = {"Loss": 1e-4, "L1Loss": 1e-4, "PSNR": 5e-5, "SSIM": 2e-3,
-                 "CardiacPSNR": 1e-4, "CardiacSSIM": 4e-3}
-BF16_TRAIN_RTOL = {"Loss": 8e-6, "PSNR": 5e-5, "SSIM": 8e-3}
+# deviation.  With the gate conv's bias added by the gate tail (in bf16, as
+# XLA adds it after the bf16 conv) rather than inside the conv: Test log Loss
+# 3.9e-5, PSNR 1.8e-5, SSIM 4.6e-4, CardiacPSNR 3.8e-6, CardiacSSIM 2.8e-4
+# (with the bias inside the conv: 3.9e-5, 2.0e-5, 8.2e-4, 4.1e-5, 1.6e-3).
+# The 12-step trainer's logs: Loss 3.4e-6, PSNR 1.5e-5, SSIM 2.4e-3 (bias in
+# the conv: 3.1e-6, 2.1e-5, 3.1e-3; SSIM of noise is ~0.01-0.03).
+BF16_LOG_RTOL = {"Loss": 1e-4, "L1Loss": 1e-4, "PSNR": 5e-5, "SSIM": 1.2e-3,
+                 "CardiacPSNR": 1e-5, "CardiacSSIM": 7e-4}
+BF16_TRAIN_RTOL = {"Loss": 8e-6, "PSNR": 4e-5, "SSIM": 6e-3}
 # The raw outputs of a bf16 forward: the port's bf16 differs from JAX's bf16
 # about as much as either differs from fp32 (rms 0.0041-0.0043 of the output
 # against 0.0042-0.0044: each rounds at other points), so no limit on
@@ -204,9 +207,9 @@ def test_remat_is_bit_identical_and_recomputes_the_core_steps(jax_params, dtype)
         net = _port_net(jax_params, remat=remat)
         calls = [0]
 
-        def counting(gates, c, dim=-1):
+        def counting(gates, c, dim=-1, bias=None):
             calls[0] += 1
-            return lstm_gates.fused_lstm_gates(gates, c, dim)
+            return lstm_gates.fused_lstm_gates(gates, c, dim, bias)
 
         set_gate_tail(net, counting)
         outputs = forward_in(net, dtype, torch.from_numpy(lr), torch.from_numpy(pos))
@@ -431,8 +434,10 @@ def _param_dev(port, ref) -> float:
 # steps.  The limits are ~3x the deviations measured on these inputs:
 # int_feed Loss 6.4e-6, PSNR 3.2e-6, SSIM 4.7e-4, parameters 1.0e-5 (what
 # the port and JAX give without the knob); bf16 + int_feed on the fractional
-# tree Loss 2.2e-4, PSNR 6.2e-5, SSIM 8.9e-3, parameters 4.3e-2 (Adam turns
-# bf16's gradient noise into steps of +-lr); grad_accum 2 Loss 1.2e-6, PSNR
+# tree Loss 2.1e-4, PSNR 5.6e-5, SSIM 1.7e-2, parameters 3.7e-2 (Adam turns
+# bf16's gradient noise into steps of +-lr; with the bias inside the gate conv
+# 2.2e-4, 6.2e-5, 8.9e-3, 4.3e-2, against which the limits were set);
+# grad_accum 2 Loss 1.2e-6, PSNR
 # 9.6e-7, SSIM 1.7e-4, parameters 3.1e-5.  SSIM of noise is ~0.01-0.03, so
 # its relative deviation is the largest.
 TRAINER_KNOBS_VS_JAX = {
