@@ -9,7 +9,8 @@ Drives the port's two main paths, the flagship RefineNet ×4 eval
 (``configs/train/refine_net/exp1_x4.yaml``: the same net, batch 16, LR
 patches 32×32, 7 core frames + 2×6 warm-up, Adam at 1e-4), at full width
 on the card, and holds every hand-written kernel of those paths against its
-plain PyTorch version.  Phases, one or more lines each; any failure exits
+plain PyTorch version; then the single-image family's serving and training
+(EDSR, SRFB, Bicubic ×4), whose paths run no hand-written kernel.  Phases, one or more lines each; any failure exits
 non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -71,6 +72,21 @@ non-zero and no result is printed:
     the window and seam-probe plan, the seam statistics, and tiled against
     untiled output on one clip in gray levels.
 
+13. single-image serving: ``configs/test/{edsr_net,srfb_net,bicubic}/exp1_x4.yaml``
+    (EDSR 32 blocks × 256 features, SRFB 4 steps × 6 groups × 32 features,
+    Bicubic) through ``main.test_from_config`` on ``cuda:0`` over the
+    tree's ``imgs/`` frames (60 LR 64×64 frames), EDSR and SRFB from seeded
+    random weights saved as ``{'net': state_dict}``, Bicubic from none: every
+    metric finite, no gate kernel launched, one frame on the card against
+    the CPU within 1e-4 of its largest value; frames/s, the warm ms a frame,
+    peak memory and the arithmetic bound of a frame.
+14. single-image training: ``configs/train/{edsr_net,srfb_net}/exp1_x4.yaml``
+    (batch 16, LR patches 32×32, Adam at 1e-4) through
+    ``main.train_from_config`` on ``cuda:0`` for 2 epochs of 8 steps, one
+    30-frame valid slice an epoch: every logged value finite, no gate kernel
+    launched, ``model_best.pth`` written and reloaded; ms a step, LR
+    frames/s, peak memory and the arithmetic bound of a step.
+
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last is ``{"ok": true, "device": {...}}``.  Needs only torch
@@ -109,7 +125,7 @@ FWD_PER_STEP = LAYER_STEPS * T_TRAIN  # 342: every frame runs the gate tail
 BWD_PER_STEP = LAYER_STEPS * CORE  # 126: the warm-up frames carry no gradient
 TREE_SPLITS = {"test": (1, SLICES), "train": (2, 2), "valid": (1, 1)}  # (patients, slices)
 EPOCHS = 2
-STEPS_PER_EPOCH = math.ceil(2 * 2 * CYCLE / TRAIN_BATCH)  # 120 items → 8 steps
+STEPS_PER_EPOCH = math.ceil(2 * 2 * CYCLE / TRAIN_BATCH)  # 120 items (windows or frames) → 8 steps
 VALID_CLIPS = 1
 
 # the _tpu configurations' knobs (configs/{test,train}/refine_net/exp1_x4_tpu.yaml)
@@ -138,6 +154,19 @@ TOL_ACCUM_LOSS, TOL_ACCUM_GRAD = 1e-2, 5e-2
 # to its largest element; ~3x the gaps measured on an H100 (loss 5.97e-5,
 # gradients 1.79e-2 at most, 6.9e-3 the median)
 TOL_BF16_STEP_LOSS, TOL_BF16_STEP_GRAD = 2e-4, 5e-2
+
+# the single-image family's x4 configs (phases 13-14)
+SISR_NETS = {
+    "EDSRNet": {"in_channels": 1, "out_channels": 1, "num_resblocks": 32,  # configs/*/edsr_net/exp1_x4.yaml
+                "num_features": 256, "upscale_factor": SCALE, "res_scale": 0.1},
+    "SRFBNet": {"in_channels": 1, "out_channels": 1, "num_steps": 4,  # configs/*/srfb_net/exp1_x4.yaml
+                "num_features": 32, "num_groups": 6, "upscale_factor": SCALE},
+    "Bicubic": {"upscale_factor": SCALE},  # configs/test/bicubic/exp1_x4.yaml
+}
+SISR_WORKLOAD = {"EDSRNet": "SISR", "SRFBNet": "SISRSRFB", "Bicubic": "SISR"}
+# one frame on the card against the CPU, relative to its largest value
+# (fp32 without TF32 on both sides; the sums run in another order)
+TOL_SISR_CARD_CPU = 1e-4
 
 TOL_FP32 = 2e-6  # expf/tanhf against ATen's: an ulp or two
 TOL_BF16 = 1e-2  # one rounding to bf16 of values below 4, against the fp32 plain version
@@ -457,6 +486,249 @@ def train_config(tree: dict, saved_dir: Path) -> dict:
         "trainer": {"name": "AcdcVSRRefineNetTrainer",
                     "kwargs": {"device": "cuda:0", "num_epochs": EPOCHS}},
     }
+
+
+def sisr_eval_config(tree: dict, name: str, ckpt: Path, saved_dir: Path) -> dict:
+    """configs/test/{edsr_net,srfb_net,bicubic}/exp1_x4.yaml with paths into
+    the synthetic tree's frames, on cuda:0, without the GIF/PNG export."""
+    coords = str(tree["coordinates"])
+    return {
+        "main": {"saved_dir": str(saved_dir), "loaded_path": str(ckpt)},
+        "dataset": {"name": "AcdcSISRDataset",
+                    "kwargs": {"data_dir": str(tree["imgs"]), "downscale_factor": SCALE,
+                               "transforms": [{"name": "Normalize",
+                                               "kwargs": {"means": [54.089], "stds": [48.084]}},
+                                              {"name": "ToTensor"}]}},
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"batch_size": 1, "shuffle": False, "num_workers": 8}},
+        "net": {"name": name, "kwargs": SISR_NETS[name]},
+        "losses": [{"name": "L1Loss", "weight": 1.0}],
+        "metrics": [
+            {"name": "PSNR"}, {"name": "SSIM"},
+            {"name": "CardiacPSNR", "kwargs": {"coordinates_path": coords}},
+            {"name": "CardiacSSIM", "kwargs": {"coordinates_path": coords}},
+        ],
+        "predictor": {"name": f"Acdc{SISR_WORKLOAD[name]}Predictor",
+                      "kwargs": {"device": "cuda:0", "saved_dir": str(saved_dir), "exported": False}},
+    }
+
+
+def sisr_train_config(tree: dict, name: str, saved_dir: Path) -> dict:
+    """configs/train/{edsr_net,srfb_net}/exp1_x4.yaml with paths into the
+    synthetic tree's frames, on cuda:0, for EPOCHS epochs with a checkpoint
+    every epoch, and without the ``logger:`` section."""
+    return {
+        "main": {"random_seed": "vsr", "saved_dir": str(saved_dir), "loaded_path": None},
+        "dataset": {
+            "name": "AcdcSISRDataset",
+            "kwargs": {
+                "data_dir": str(tree["imgs"]), "downscale_factor": SCALE,
+                "transforms": [
+                    {"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}},
+                    {"name": "ToTensor"},
+                ],
+                "augments": [
+                    {"name": "RandomHorizontalFlip"}, {"name": "RandomVerticalFlip"},
+                    {"name": "RandomCropPatch", "kwargs": {"size": [PATCH, PATCH], "ratio": SCALE}},
+                ],
+            },
+        },
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"train_batch_size": TRAIN_BATCH, "valid_batch_size": 1,
+                                  "shuffle": True, "num_workers": 8}},
+        "net": {"name": name, "kwargs": SISR_NETS[name]},
+        "losses": [{"name": "L1Loss", "weight": 1.0}],
+        "metrics": [{"name": "PSNR"}, {"name": "SSIM"}],
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-4, "weight_decay": 0}},
+        "monitor": {"name": "Monitor",
+                    "kwargs": {"mode": "min", "target": "Loss", "saved_freq": 1, "early_stop": 0}},
+        "trainer": {"name": f"Acdc{SISR_WORKLOAD[name]}Trainer",
+                    "kwargs": {"device": "cuda:0", "num_epochs": EPOCHS}},
+    }
+
+
+def forward_flops(net, x) -> int:
+    """Operations (a multiply-add is 2) of one forward of ``net`` on ``x``
+    (B, h, w, C): every conv and transposed conv, counted from its shapes
+    by a forward hook, plus the dense resize products of ``ops/resize.py``
+    (Bicubic; SRFB's bilinear skip)."""
+    import torch
+
+    total = 0
+
+    def hook(mod, args, out):
+        nonlocal total
+        k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
+        # a conv: each output element sums in·kh·kw products; a transposed
+        # conv: each input element meets out·kh·kw weights
+        total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
+                          else out.numel())
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        for h in handles:
+            h.remove()
+    if type(net).__name__ in ("Bicubic", "SRFBNet"):
+        B, h, w, C = x.shape
+        r = SCALE
+        total += 2 * B * C * (r * h * h * w + r * h * r * w * w)  # rows, then columns
+    return total
+
+
+def sisr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line) -> dict:
+    """Phase 13: each single-image net serves the tree's test frames."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        Bicubic,
+        EDSRNet,
+        SRFBNet,
+    )
+
+    classes = {"EDSRNet": EDSRNet, "SRFBNet": SRFBNet, "Bicubic": Bicubic}
+    results = {}
+    for name, kwargs in SISR_NETS.items():
+        net = classes[name](**kwargs, generator=torch.Generator().manual_seed(0))
+        ckpt = tmp / f"{name}.pth"
+        if name == "Bicubic":
+            ckpt = tmp / "no_checkpoint.pth"  # Bicubic reads none
+        else:
+            torch.save({"net": net.state_dict()}, ckpt)
+        cfg = Cfg(sisr_eval_config(tree, name, ckpt, tmp / f"test_{name}"))
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pred = port_main.test_from_config(cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{name} serving launched the gate kernels {launches(lstm_gates)}")
+        frames = pred.throughput["frames"]
+        if frames != CYCLE * SLICES or not all(math.isfinite(v) for v in pred.log.values()):
+            raise AssertionError(f"{name} serving scored {frames} frames: {pred.log}")
+        warm_ms = float(np.median(pred.item_seconds[1:])) * 1e3
+        n_params = sum(p.numel() for p in pred.net.parameters())
+        log("sisr eval", f"{name} {kwargs}: {n_params:,} params; Test log {pred.log}")
+
+        # one frame on the card against the same weights on the CPU
+        item = pred.test_dataloader.dataset[0]
+        lr = torch.from_numpy(item["lr_img"][None])
+        with torch.inference_mode():
+            on_card = pred._forward(lr.to(dev)).cpu()
+            cpu_net = copy.deepcopy(pred.net).cpu()
+            on_cpu = pred._select_output(cpu_net(lr))
+        gap = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
+        if tuple(on_card.shape) != (1, HR, HR, 1) or not gap <= TOL_SISR_CARD_CPU:
+            raise AssertionError(f"{name}: card vs CPU {gap:.3e} of the largest value, "
+                                 f"shape {tuple(on_card.shape)}")
+        # the device's busy share in the predictor's own step on a warm item
+        batch = next(iter(pred.test_dataloader))
+        patient = pred._item_meta(int(batch["index"][0]))[0]
+        masks = pred._metric_masks(patient, (HR, HR))
+        busy = device_busy(lambda: pred._step(batch, masks))
+        flops = forward_flops(pred.net, lr.to(dev))
+        nbytes = 4 * (lr.numel() + HR * HR + n_params)  # input, output, weights once
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        log("sisr eval", f"{name}: frames/s {pred.throughput['frames_per_sec']:.2f} over {frames} "
+                         f"frames; warm {warm_ms:.3f} ms a frame (median of items 2-{frames}); "
+                         f"test_from_config wall {wall:.2f} s; peak device memory "
+                         f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+                         f"{held / 2**30:.3f} held before); {flops:.4g} operations a frame, bound "
+                         f"{bound:.3f} ms ({bound_by}), {bound / warm_ms:.1%} of it; card vs CPU "
+                         f"{gap:.3e} of the largest value (tol {TOL_SISR_CARD_CPU})")
+        log("sisr eval", f"{name}: predictor step on a warm item: wall {busy[0]:.3f} ms, "
+                         f"{busy[2]} kernels {busy[1]:.3f} ms, device busy {busy[1] / busy[0]:.1%}; "
+                         f"the bound is {bound / busy[1]:.1%} of the kernel time")
+        results[name] = {"frames_per_sec": pred.throughput["frames_per_sec"], "warm_ms": warm_ms,
+                         "item_ms": [x * 1e3 for x in pred.item_seconds], "peak_gib": peak / 2**30,
+                         "held_gib": held / 2**30,
+                         "flops_per_frame": flops, "bound_ms": bound, "bound_by": bound_by,
+                         "card_vs_cpu_rel": gap, "log": pred.log, "wall_s": wall,
+                         "step_wall_ms": busy[0], "step_kernel_ms": busy[1],
+                         "step_kernels": busy[2]}
+        del pred, cpu_net, net
+    print(json.dumps({"sisr_serving": results, "card": card_line}), flush=True)
+    return results
+
+
+def sisr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line) -> dict:
+    """Phase 14: EDSR and SRFB train on the tree's frames."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        EDSRNet,
+        SRFBNet,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+
+    results = {}
+    for name, cls in (("EDSRNet", EDSRNet), ("SRFBNet", SRFBNet)):
+        saved = tmp / f"train_{name}"
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = port_main.train_from_config(Cfg(sisr_train_config(tree, name, saved)))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{name} training launched the gate kernels {launches(lstm_gates)}")
+        history = trainer.history["train"] + trainer.history["valid"]
+        if len(trainer.history["train"]) != EPOCHS or not all(
+                math.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"{name} training logs incomplete or non-finite: {trainer.history}")
+        for epoch, (t_log, v_log) in enumerate(zip(trainer.history["train"],
+                                                   trainer.history["valid"]), 1):
+            log("sisr train", f"{name} epoch {epoch}: Train log {t_log}; Valid log {v_log}")
+        ckpts = saved / "checkpoints"
+        best = load_checkpoint(ckpts / "model_best.pth")
+        reloaded = cls(**SISR_NETS[name])
+        reloaded.load_state_dict(best["net"], strict=True)
+        same_epoch = load_checkpoint(ckpts / f"model_{best['epoch']}.pth")["net"]
+        final = load_checkpoint(ckpts / f"model_{EPOCHS}.pth")["net"]
+        reloaded_sd = reloaded.state_dict()
+        for key, value in trainer.net.state_dict().items():
+            if not (torch.equal(reloaded_sd[key], same_epoch[key])
+                    and torch.equal(final[key], value.cpu())):
+                raise AssertionError(f"{name}: checkpointed {key} differs from the trainer's")
+        tp = trainer.throughput  # of the last epoch: every step warm
+        step_ms = 1e3 / tp["train_steps_per_sec"]
+        # forward + backward ≈ 3 forwards (the backward's data and weight
+        # gradients each cost one), at the full batch's shape
+        x = torch.zeros(TRAIN_BATCH, PATCH, PATCH, 1, device=dev)
+        flops = 3 * forward_flops(trainer.net, x)
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        # batch in and out, weights read and written, Adam's two moments read and written
+        nbytes = 4 * (x.numel() * (1 + SCALE * SCALE) + 6 * n_params)
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        log("sisr train", f"{name}: model_best.pth (epoch {best['epoch']}) and model_{EPOCHS}.pth "
+                          f"reload equal to the trainer's weights")
+        print(f"sisr training {name}: {tp['train_steps_per_sec']:.4f} steps/s, "
+              f"{tp['frames_per_sec']:.2f} LR frames/s, {step_ms:.2f} ms a step (epoch {EPOCHS}: "
+              f"{STEPS_PER_EPOCH} warm steps, the last of "
+              f"{2 * 2 * CYCLE - (STEPS_PER_EPOCH - 1) * TRAIN_BATCH} frames, and the valid "
+              f"epoch not in it), peak device memory {peak / 2**30:.3f} GiB ("
+              f"{(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held before), train_from_config "
+              f"wall {wall:.1f} s; {flops:.4g} operations a step, bound {bound:.3f} ms "
+              f"({bound_by}), {bound / step_ms:.1%} of it", flush=True)
+        results[name] = {"steps_per_sec": tp["train_steps_per_sec"],
+                         "frames_per_sec": tp["frames_per_sec"], "step_ms": step_ms,
+                         "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                         "flops_per_step": flops, "bound_ms": bound,
+                         "bound_by": bound_by, "wall_s": wall, "best_epoch": best["epoch"]}
+        del trainer
+    print(json.dumps({"sisr_training": results, "card": card_line}), flush=True)
+    return results
 
 
 def main() -> int:
@@ -1012,13 +1284,21 @@ def main() -> int:
                                      "clip_ms": [x * 1e3 for x in pred_t.item_seconds],
                                      "seam": pred_t.seam_summary, "tiled_vs_untiled": tile_gap,
                                      "log": pred_t.log, "card": card_line}}), flush=True)
+    del pred_t
+
+    # --------------------------------------------- 13-14 the single-image family
+    sisr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
+    sisr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
+    # the single-image paths (phases 13-14) launch neither kernel: held there
     fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
-                 "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled}
+                 "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled,
+                 "sisr_eval": 0, "sisr_train": 0}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
-                 "train_bf16_remat": train16_launches[3], "eval_tiled": 0}
+                 "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
+                 "sisr_eval": 0, "sisr_train": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

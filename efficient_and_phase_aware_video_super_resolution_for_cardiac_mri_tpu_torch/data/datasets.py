@@ -1,10 +1,12 @@
-"""Datasets of the RefineNet path (ACDC / DSB15 cardiac cine-MRI).
+"""Datasets of the ported paths (ACDC / DSB15 cardiac cine-MRI).
 
-The port's copy of the JAX package's ``VSRRefineNetDataset``: items are dicts
-of channel-last numpy arrays with time as the leading axis, (T, H, W, C),
-exactly as the JAX package yields them.  Train items run the config's
-augments with the ``rng`` the loader hands each item (``item_rng``), then its
-transforms; valid and test items run the transforms only.  One
+The port's copies of the JAX package's ``SISRDataset`` (one 2D frame in,
+one out) and ``VSRRefineNetDataset``: items are dicts of channel-last numpy
+arrays, (H, W, C) frames for SISR and (T, H, W, C) with time as the leading
+axis for RefineNet, exactly as the JAX package yields them.  Train items run
+the config's augments with the ``rng`` the loader hands each item
+(``item_rng``), then its transforms; valid and test items run the
+transforms only.  One
 implementation is registered under both the Acdc and the Dsb15 name.
 """
 from __future__ import annotations
@@ -138,6 +140,25 @@ class _SRDatasetBase(BaseDataset):
         return list(out)
 
 
+class SISRDataset(_SRDatasetBase):
+    """Single-image SR over per-frame 2D NIfTIs (reference ``acdc_sisr_dataset.py``):
+    an item is ``{"lr_img", "hr_img", "index"}`` of (H, W, C) frames."""
+
+    glob_pattern = "**/*2d*.nii.gz"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.data = self._paired_paths()
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index, rng=None):
+        lr_path, hr_path = self.data[index]
+        lr_img, hr_img = self._apply([_VOLUMES.get(lr_path), _VOLUMES.get(hr_path)], rng)
+        return {"lr_img": lr_img, "hr_img": hr_img, "index": index}
+
+
 class VSRRefineNetDataset(_SRDatasetBase):
     """RefineNet VSR: phase codes + ×3 circular tiling + warm-up margins.
 
@@ -205,5 +226,7 @@ class VSRRefineNetDataset(_SRDatasetBase):
         }
 
 
-DATASETS.add("AcdcVSRRefineNetDataset", VSRRefineNetDataset)
-DATASETS.add("Dsb15VSRRefineNetDataset", VSRRefineNetDataset)
+for _workload, _cls in (("SISRDataset", SISRDataset),
+                       ("VSRRefineNetDataset", VSRRefineNetDataset)):
+    DATASETS.add(f"Acdc{_workload}", _cls)
+    DATASETS.add(f"Dsb15{_workload}", _cls)

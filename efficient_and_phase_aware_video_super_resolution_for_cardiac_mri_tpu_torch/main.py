@@ -2,10 +2,10 @@
 
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main CONFIG [--test]
 
-The reference's RefineNet ``configs/train|test/**.yaml`` files load
-unchanged.  The device is the trainer's or the predictor's ``device`` kwarg:
-``cuda:0`` (or any ``cuda``) is the card, ``cpu`` the CPU, and no device
-means ``cuda``.  A CUDA device on a machine without one raises; nothing
+The reference's RefineNet and single-image (Bicubic, EDSR, SRFB)
+``configs/train|test/**.yaml`` files load unchanged.  The device is the
+trainer's or the predictor's ``device`` kwarg: ``cuda:0`` (or any ``cuda``)
+is the card, ``cpu`` the CPU, and no device means ``cuda``.  A CUDA device on a machine without one raises; nothing
 falls back to the CPU.  On the card the fp32 path keeps TF32 off for
 convolutions and matrix products: the JAX package computes the SSIM filter
 at full precision, and the recurrent spine would accumulate TF32 rounding
@@ -228,8 +228,10 @@ def test_from_config(cfg: Cfg):
         **pred_kwargs,
     )
 
-    logger.info(f'Load the previous checkpoint from "{cfg.main.loaded_path}".')
-    predictor.load(Path(cfg.main.loaded_path))
+    # Bicubic has no weights: no checkpoint is read (reference ``src/main.py:154``)
+    if cfg.net.name != "Bicubic":
+        logger.info(f'Load the previous checkpoint from "{cfg.main.loaded_path}".')
+        predictor.load(Path(cfg.main.loaded_path))
     logger.info("Start testing.")
     predictor.predict()
     logger.info("End testing.")

@@ -43,7 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.lstm_gates import fused_lstm_gates
-from .common import InBlock, PReLU, UpsampleBlock, conv2d, init_uniform_, per_frame
+from .common import InBlock, PReLU, UpsampleBlock, conv2d, conv_format, init_uniform_, per_frame
 
 
 class ConvLSTMCell(nn.Module):
@@ -82,7 +82,7 @@ def recurrence_format(dtype: torch.dtype) -> torch.memory_format:
     channels-last it transposes around them instead, and the fp32 clip and
     step take longer (``tools/profile_layout.py`` measures both).
     """
-    return torch.contiguous_format if dtype == torch.float32 else torch.channels_last
+    return conv_format(dtype)
 
 
 class ConvLSTM(nn.Module):

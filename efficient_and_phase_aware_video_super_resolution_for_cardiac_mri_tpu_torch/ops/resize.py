@@ -1,0 +1,115 @@
+"""Bicubic and bilinear resize with the JAX package's dense matrices.
+
+The port's copy of the JAX package's ``ops/resize.py``.  Two kernels of the
+reference are reproduced exactly:
+
+* ``nn.Upsample(mode='bicubic', align_corners=True)``, the Bicubic baseline;
+* ``F.interpolate(mode='bilinear', align_corners=False)``, SRFB's global
+  skip.
+
+Both use a convolution kernel over source taps (Keys cubic with A = -0.75,
+or the triangle), and differ in the source-coordinate mapping:
+
+    align_corners=True:  src = dst * (in-1)/(out-1)
+    half-pixel:          src = (dst + 0.5) * in/out - 0.5
+
+Each 1-D resize is a dense (out, in) matrix built on the host with numpy, in
+which out-of-range taps are clamped to the border and their weights
+accumulated into the edge column; the 2-D resize is two matrix products.
+Those matrices are the oracle: ``F.interpolate`` rounds and treats the
+border on its own terms, and its last rows differ.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _cubic_kernel(x: np.ndarray, A: float = -0.75) -> np.ndarray:
+    x = np.abs(x)
+    x2, x3 = x * x, x * x * x
+    return np.where(
+        x <= 1,
+        (A + 2) * x3 - (A + 3) * x2 + 1,
+        np.where(x < 2, A * x3 - 5 * A * x2 + 8 * A * x - 4 * A, 0.0),
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def resize_matrix(
+    in_size: int, out_size: int, align_corners: bool = False, kind: str = "cubic"
+) -> np.ndarray:
+    """Dense (out_size, in_size) interpolation matrix (float32).
+
+    ``kind``: 'cubic' (Keys A=-0.75, 4 taps) or 'linear' (triangle, 2 taps).
+    Out-of-range taps are clamped to the border by accumulating the weights
+    of the clamped indices.  Cached: callers must not write to the result.
+    """
+    if in_size == out_size:
+        return np.eye(in_size, dtype=np.float32)
+    dst = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        src = dst * scale
+    else:
+        src = (dst + 0.5) * (in_size / out_size) - 0.5
+    base = np.floor(src).astype(np.int64)
+    frac = src - base
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    if kind == "cubic":
+        taps, kernel = range(-1, 3), _cubic_kernel
+    elif kind == "linear":
+        taps, kernel = range(0, 2), lambda x: np.maximum(0.0, 1.0 - np.abs(x))
+    else:
+        raise ValueError(f"Unknown resize kind {kind!r}.")
+    for tap in taps:
+        idx = np.clip(base + tap, 0, in_size - 1)
+        w = kernel(tap - frac)
+        np.add.at(mat, (np.arange(out_size), idx), w)
+    return mat.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_matrix(in_size: int, out_size: int, align_corners: bool, kind: str,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`resize_matrix` on ``device``, uploaded once per shape."""
+    return torch.from_numpy(resize_matrix(in_size, out_size, align_corners, kind)).to(device)
+
+
+def _resize(x: torch.Tensor, out_hw, align_corners: bool, kind: str) -> torch.Tensor:
+    H, W = x.shape[-3], x.shape[-2]
+    oh, ow = out_hw
+    # a float32 matrix against bf16 input computes in float32, as JAX
+    # promotes the einsum of its float32 matrix with a bf16 array
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    mh = _device_matrix(H, oh, align_corners, kind, x.device).to(dtype)
+    mw = _device_matrix(W, ow, align_corners, kind, x.device).to(dtype)
+    x = torch.einsum("oh,...hwc->...owc", mh, x.to(dtype))
+    return torch.einsum("pw,...hwc->...hpc", mw, x)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int],
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic-resize the (H, W) axes of a (..., H, W, C) tensor."""
+    return _resize(x, out_hw, align_corners, "cubic")
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """torch ``F.interpolate(mode='bilinear')`` over (..., H, W, C)."""
+    return _resize(x, out_hw, align_corners, "linear")
+
+
+def upsample_bicubic(x: torch.Tensor, scale_factor: int, align_corners: bool = True) -> torch.Tensor:
+    """torch ``nn.Upsample(mode='bicubic')`` over (..., H, W, C)."""
+    H, W = x.shape[-3], x.shape[-2]
+    return resize_bicubic(x, (H * scale_factor, W * scale_factor), align_corners)
+
+
+def upsample_bilinear(x: torch.Tensor, scale_factor: int,
+                      align_corners: bool = False) -> torch.Tensor:
+    """torch ``F.interpolate(mode='bilinear')`` with an integer scale factor."""
+    H, W = x.shape[-3], x.shape[-2]
+    return resize_bilinear(x, (H * scale_factor, W * scale_factor), align_corners)

@@ -7,7 +7,7 @@ The port writes a torch zip ``.pth`` in the reference's layout
      'epoch': int, 'seed_state': {...}}
 
 ``net`` has the reference's keys, so the JAX package's
-``load_net_variables(path, "RefineNet")`` reads the file as it reads a
+``load_net_variables(path, net_name)`` reads the file as it reads a
 reference checkpoint; every other entry is plain values and tensors, so the
 port reads it back with ``torch.load(weights_only=True)``.  Files keep the
 reference's ``model_{epoch}.pth`` / ``model_best.pth`` names.
@@ -81,20 +81,22 @@ def save_checkpoint(path, *, net_state: dict, optimizer_state=None, lr_scheduler
     os.replace(tmp, path)
 
 
-def load_checkpoint(path) -> dict:
+def load_checkpoint(path, net: str = "RefineNet") -> dict:
     """The checkpoint as a dict.  A port ``.pth`` comes back whole; a JAX
-    package pickle as ``{'net': state_dict}`` only."""
+    package pickle of the net named ``net`` as ``{'net': state_dict}``
+    only."""
     path = Path(path)
     if _is_torch_zipfile(path):
         return torch.load(path, map_location="cpu", weights_only=True)
     with open(path, "rb") as f:
         payload = _WeightsUnpickler(f).load()
-    return {"net": state_dict_from_jax_params(payload["net"])}
+    return {"net": state_dict_from_jax_params(payload["net"], net)}
 
 
-def load_net_state_dict(path) -> dict[str, torch.Tensor]:
-    """The net's state_dict from a ``.pth`` zip or a JAX pickle checkpoint."""
-    return load_checkpoint(path)["net"]
+def load_net_state_dict(path, net: str = "RefineNet") -> dict[str, torch.Tensor]:
+    """The state_dict of the net named ``net`` from a ``.pth`` zip or a JAX
+    pickle checkpoint."""
+    return load_checkpoint(path, net)["net"]
 
 
 def _peek_epoch(p: Path):

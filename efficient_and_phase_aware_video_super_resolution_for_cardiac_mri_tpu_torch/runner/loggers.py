@@ -1,12 +1,12 @@
-"""TensorBoard logger of the VSR trainers (reference ``src/callbacks/loggers/*``).
+"""TensorBoard loggers of the trainers (reference ``src/callbacks/loggers/*``).
 
-The port's copy of the JAX package's ``VSRLogger``: per-key train/valid
-scalar pairs and an HR|SR panel of the last frame of the last batch, written
-with tensorboardX, which is imported when a logger is built (a run whose
-config has no ``logger:`` section needs no tensorboardX).  Registered under
-both the Acdc and the Dsb15 name.  The ``dummy_input`` / ``net`` kwargs are
-accepted for config compatibility and ignored (graph plotting is disabled in
-the reference too, ``base_logger.py:13-18``).
+The port's copy of the JAX package's ``FrameLogger`` and ``VSRLogger``:
+per-key train/valid scalar pairs and an HR|SR panel of the last batch,
+written with tensorboardX, which is imported when a logger is built (a run
+whose config has no ``logger:`` section needs no tensorboardX).  Each is
+registered under both the Acdc and the Dsb15 name.  The ``dummy_input`` /
+``net`` kwargs are accepted for config compatibility and ignored (graph
+plotting is disabled in the reference too, ``base_logger.py:13-18``).
 """
 from __future__ import annotations
 
@@ -33,14 +33,17 @@ def make_grid(imgs: np.ndarray, pad: int = 2, pad_value: float = 1.0) -> np.ndar
     return grid
 
 
-class VSRLogger:
-    """Reference ``base_logger.py:5-59`` and ``acdc_vsr_logger.py:22-30``;
-    sequences are (B, T, H, W, C) arrays, so the last frame is ``[:, -1]``."""
+class _Logger:
+    """Reference ``base_logger.py:5-59``; a subclass picks the (HR, SR) frames
+    of the panel."""
 
     def __init__(self, log_dir, net=None, dummy_input=None):
         from tensorboardX import SummaryWriter
 
         self.writer = SummaryWriter(str(log_dir))
+
+    def _frames(self, batch, outputs) -> tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
 
     def write(self, epoch, train_log, train_batch, train_outputs, valid_log, valid_batch,
               valid_outputs):
@@ -52,8 +55,8 @@ class VSRLogger:
         # drop_last): skip the image panels, not the run
         if train_batch is None or valid_batch is None or train_outputs is None or valid_outputs is None:
             return
-        self.writer.add_image("train", self._panel(train_batch["hr_imgs"][:, -1], train_outputs[:, -1]))
-        self.writer.add_image("valid", self._panel(valid_batch["hr_imgs"][:, -1], valid_outputs[:, -1]))
+        self.writer.add_image("train", self._panel(*self._frames(train_batch, train_outputs)))
+        self.writer.add_image("valid", self._panel(*self._frames(valid_batch, valid_outputs)))
 
     def close(self):
         self.writer.close()
@@ -65,5 +68,24 @@ class VSRLogger:
         return np.clip(grid, 0, 1).transpose(2, 0, 1)
 
 
-LOGGERS.add("AcdcVSRLogger", VSRLogger)
-LOGGERS.add("Dsb15VSRLogger", VSRLogger)
+class FrameLogger(_Logger):
+    """HR vs SR of the last batch of (B, H, W, C) frames: the reference's
+    byte-identical single-frame loggers (``acdc_sisr_logger.py``,
+    ``acdc_sisr_srfb_logger.py:23-26``); the SRFB trainer's display hook has
+    already picked the last step."""
+
+    def _frames(self, batch, outputs):
+        return batch["hr_img"], outputs
+
+
+class VSRLogger(_Logger):
+    """Reference ``acdc_vsr_logger.py:22-30``; sequences are (B, T, H, W, C)
+    arrays, so the last frame is ``[:, -1]``."""
+
+    def _frames(self, batch, outputs):
+        return batch["hr_imgs"][:, -1], outputs[:, -1]
+
+
+for _workload, _cls in (("SISR", FrameLogger), ("SISRSRFB", FrameLogger), ("VSR", VSRLogger)):
+    LOGGERS.add(f"Acdc{_workload}Logger", _cls)
+    LOGGERS.add(f"Dsb15{_workload}Logger", _cls)

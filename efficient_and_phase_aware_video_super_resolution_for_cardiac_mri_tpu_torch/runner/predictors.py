@@ -1,10 +1,10 @@
 """Predictors: test-time evaluation and export.
 
 The port's counterpart of the JAX package's ``runner/predictors.py`` for the
-RefineNet eval path.  The contract is the reference's: batch size 1,
-per-frame loss/metric tables, Cardiac* metrics routed with the patient name
-parsed from the dataset path, CSV / GIF / PNG export, and the log weighted
-by sequence length.
+RefineNet eval path and the single-image family (SISR, SISRSRFB).  The
+contract is the reference's: batch size 1, per-frame loss/metric tables,
+Cardiac* metrics routed with the patient name parsed from the dataset path,
+CSV / GIF / PNG export, and the log weighted by sequence length.
 
 The forward runs eagerly under ``torch.inference_mode()`` on the predictor's
 device; each item's scores and display frames come back to the host once.
@@ -129,7 +129,7 @@ class BasePredictor:
                     f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet"
                 )
         # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset);
-        # RefineNet has none, so the knob is accepted and does nothing
+        # no ported net has one, so the knob is accepted and does nothing
         self.device = torch.device(device)
         #: 0 = off; else the time axis is padded to multiples of it
         self.t_bucket = int(t_bucket or 0)
@@ -336,7 +336,74 @@ class BasePredictor:
     def load(self, path):
         """Restore net weights only (reference ``base_predictor.py:130-136``)
         from a ``.pth`` or a JAX package checkpoint."""
-        self.net.load_state_dict(ckpt_io.load_net_state_dict(path), strict=True)
+        self.net.load_state_dict(ckpt_io.load_net_state_dict(path, type(self.net).__name__),
+                                 strict=True)
+
+
+class SISRPredictor(BasePredictor):
+    """One frame an item (reference ``acdc_sisr_predictor.py:15-157``): a CSV
+    row and a PNG per frame, a GIF per (patient, slice) assembled across
+    consecutive items.  The assembly relies on the loader yielding the
+    unshuffled items in order, which ``data/loader.py`` keeps with any
+    number of workers."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self._gif_buffer: list = []
+        self._gif_key = None
+
+    def _model_inputs(self, batch):
+        return (batch["lr_img"],)
+
+    def _targets(self, batch):
+        return batch["hr_img"]
+
+    def _item_meta(self, index):
+        """(patient, sid, filename) of ``<patient>_2d_sliceNN_frameMM``."""
+        filename = self.test_dataloader.dataset.data[index][0].parts[-1].split(".")[0]
+        patient, _, sid, _ = filename.split("_")
+        return patient, sid, filename
+
+    def _frame_losses(self, out, target):
+        # out/target: (1, H, W, C) → one row (1, n_loss)
+        return torch.stack([fn(out, target) for fn in self.loss_fns])[None]
+
+    def _frame_metrics(self, out, target, masks):
+        cols = [fn.per_sample(out, target, mask).mean()
+                for fn, mask in zip(self.metric_fns, masks)]
+        return torch.stack(cols)[None]
+
+    def _export_item(self, results, filename, patient, sid, losses, metrics, out_d):
+        results.append([filename, *metrics.mean(axis=0), *losses.mean(axis=0)])
+        sr = out_d[0, ..., 0]  # (H, W) uint8
+        key = (patient, sid)
+        if self._gif_buffer and key != self._gif_key:
+            self._flush_gif()
+        self._gif_buffer.append(sr)
+        self._gif_key = key
+        imgs_dir = self.saved_dir / "imgs" / patient
+        imgs_dir.mkdir(parents=True, exist_ok=True)
+        _dump_image(imgs_dir / f"{sid}_{filename.split('_')[-1]}.png", sr)
+
+    def _flush_gif(self):
+        patient, sid = self._gif_key
+        videos_dir = self.saved_dir / "videos" / patient
+        videos_dir.mkdir(parents=True, exist_ok=True)
+        _dump_video(videos_dir / f"{sid.replace('slice', 'sequence')}.gif", self._gif_buffer)
+        self._gif_buffer = []
+
+    def _finish_export(self, results):
+        if self._gif_buffer:
+            self._flush_gif()
+        super()._finish_export(results)
+
+
+class SISRSRFBPredictor(SISRPredictor):
+    """SRFB feedback nets: the last step's output is scored
+    (reference ``acdc_sisr_srfb_predictor.py``)."""
+
+    def _select_output(self, outputs):
+        return outputs[-1]
 
 
 class VSRPredictor(BasePredictor):
@@ -419,4 +486,6 @@ class VSRRefineNetPredictor(VSRPredictor):
         return outputs[-1]
 
 
-common.register_dataset_variants(PREDICTORS, "VSRRefineNet", "Predictor", VSRRefineNetPredictor)
+for _workload, _cls in (("SISR", SISRPredictor), ("SISRSRFB", SISRSRFBPredictor),
+                       ("VSRRefineNet", VSRRefineNetPredictor)):
+    common.register_dataset_variants(PREDICTORS, _workload, "Predictor", _cls)

@@ -1,8 +1,9 @@
 """Trainers: the epoch and step engine (reference ``src/runner/trainers/*``).
 
 The port's counterpart of the JAX package's ``runner/trainers.py`` for the
-RefineNet path.  The epoch protocol is the JAX package's, statement for
-statement (``base_trainer.py:46-97``): per-epoch numpy reseed and
+RefineNet path and the single-image family (SISR, SISRSRFB).  The epoch
+protocol is the JAX package's, statement for statement
+(``base_trainer.py:46-97``): per-epoch numpy reseed and
 ``loader.set_epoch``, train epoch → valid epoch → lr step → logger →
 monitor save / best / early stop, the log weighted by the configured batch
 size × T (quirk 8, kept for parity), SIGTERM preemption, and the epoch and
@@ -100,7 +101,7 @@ class BaseTrainer:
                     f"(ROADMAP queue 1, item {item})"
                 )
         # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset);
-        # RefineNet has none, so the knob is accepted and does nothing
+        # no ported net has one, so the knob is accepted and does nothing
         self.device = torch.device(device)
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
@@ -166,6 +167,11 @@ class BaseTrainer:
         """Reference weighting: configured batch_size (quirk 8)."""
         loader = self.train_dataloader if mode == "training" else self.valid_dataloader
         return loader.batch_size
+
+    def _frame_count(self, batch) -> int:
+        """LR frames the batch feeds the net: one an item (single-image
+        workloads); video workloads count B·T."""
+        return int(self._model_inputs(batch)[0].shape[0])
 
     def _denorm(self, x):
         return common.denorm_uint8(x, self.mean, self.std)
@@ -308,8 +314,7 @@ class BaseTrainer:
             acc = values if acc is None else acc + values
             count += w
             steps += 1
-            # LR frames consumed this step: (B, T, ...)
-            frames += int(batch["lr_imgs"].shape[0] * batch["lr_imgs"].shape[1])
+            frames += self._frame_count(batch)
         log = common.init_log(self.loss_fns, self.metric_fns)
         if acc is not None:
             for key, val in zip(log, acc.tolist()):  # the epoch's one fetch
@@ -430,7 +435,7 @@ class BaseTrainer:
         )
 
     def load(self, path):
-        ckpt = ckpt_io.load_checkpoint(path)
+        ckpt = ckpt_io.load_checkpoint(path, type(self.net).__name__)
         self.net.load_state_dict(ckpt["net"], strict=True)
         if self.opt is not None and ckpt.get("optimizer") is not None:
             self.opt.load_state_dict(ckpt["optimizer"])
@@ -459,6 +464,39 @@ def _per_frame_metric(fn, outputs, targets):
     return fn.per_sample(o, t).view(T, B).mean(dim=1).mean()
 
 
+class SISRTrainer(BaseTrainer):
+    """Single-image SR (reference ``acdc_sisr_trainer.py:8-49``): (B, h, w, C)
+    in, (B, rh, rw, C) out, metrics over the batch."""
+
+    def _model_inputs(self, batch):
+        return (batch["lr_img"],)
+
+    def _targets(self, batch):
+        return batch["hr_img"]
+
+    def _compute_losses(self, outputs, target, training):
+        return [fn(outputs, target) for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, target):
+        o, t = self._denorm(outputs), self._denorm(target)
+        return [fn(o, t) for fn in self.metric_fns]
+
+
+class SISRSRFBTrainer(SISRTrainer):
+    """SRFB feedback nets: a list of per-step outputs; each loss is its mean
+    over the steps, the metrics and the display use the last step
+    (reference ``acdc_sisr_srfb_trainer.py:6-39``)."""
+
+    def _compute_losses(self, outputs, target, training):
+        return [torch.mean(torch.stack([fn(o, target) for o in outputs])) for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, target):
+        return super()._compute_metrics(outputs[-1], target)
+
+    def _display_outputs(self, outputs):
+        return outputs[-1]
+
+
 class VSRTrainer(BaseTrainer):
     """Sequence in, sequence out; logs weighted by B·T and per-frame metrics
     (reference ``acdc_vsr_trainer.py:9-123``)."""
@@ -471,6 +509,9 @@ class VSRTrainer(BaseTrainer):
 
     def _log_weight(self, batch, mode):
         return super()._log_weight(batch, mode) * batch["lr_imgs"].shape[1]
+
+    def _frame_count(self, batch):
+        return int(batch["lr_imgs"].shape[0] * batch["lr_imgs"].shape[1])
 
     def _compute_losses(self, outputs, target, training):
         return [fn(outputs, target) for fn in self.loss_fns]
@@ -511,4 +552,6 @@ class VSRRefineNetTrainer(VSRTrainer):
         return outputs[-1]
 
 
-common.register_dataset_variants(TRAINERS, "VSRRefineNet", "Trainer", VSRRefineNetTrainer)
+for _workload, _cls in (("SISR", SISRTrainer), ("SISRSRFB", SISRSRFBTrainer),
+                       ("VSRRefineNet", VSRRefineNetTrainer)):
+    common.register_dataset_variants(TRAINERS, _workload, "Trainer", _cls)

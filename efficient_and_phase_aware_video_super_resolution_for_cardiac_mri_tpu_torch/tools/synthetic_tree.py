@@ -1,8 +1,10 @@
-"""A synthetic ACDC videos tree at full size, for runs on the card.
+"""A synthetic ACDC tree at full size, for runs on the card.
 
-The layout of ``tests/fixtures.py:make_acdc_tree`` (videos tree only):
-``videos/<split>/HR/<patient>/<patient>_2d+1d_sequenceNN.nii.gz`` and its
-``LR/X<scale>`` twin (every ``scale``-th pixel), plus ``position_code.pkl``
+The layout of ``tests/fixtures.py:make_acdc_tree``: the videos tree
+``videos/<split>/HR/<patient>/<patient>_2d+1d_sequenceNN.nii.gz``, the
+frames tree ``imgs/<split>/HR/<patient>/<patient>_2d_sliceNN_frameMM.nii.gz``
+(one 2D file a frame of each sequence), each with its ``LR/X<scale>`` twin
+(every ``scale``-th pixel), plus ``position_code.pkl``
 (a cosine phase code per patient) and ``coordinates.pkl`` (a centred bbox
 per patient, inside its smallest slice), written with the port's NIfTI
 writer from a numpy seed.  Patients are numbered from ``patient001`` across
@@ -49,11 +51,16 @@ def write_acdc_tree(root, splits: dict[str, tuple[int, int]], cycle: int = 30,
                 nifti.save(vol, root / "videos" / split / "HR" / patient / name)
                 nifti.save(vol[::scale, ::scale],
                            root / "videos" / split / "LR" / f"X{scale}" / patient / name)
+                for t in range(cycle):
+                    name = f"{patient}_2d_slice{s:0>2d}_frame{t + 1:0>2d}.nii.gz"
+                    nifti.save(vol[..., t], root / "imgs" / split / "HR" / patient / name)
+                    nifti.save(vol[::scale, ::scale, :, t],
+                               root / "imgs" / split / "LR" / f"X{scale}" / patient / name)
             pos_codes[patient] = code.astype(np.float32)
             coords[patient] = (min_h // 4, 3 * min_h // 4, min_w // 4, 3 * min_w // 4)
     with open(root / "position_code.pkl", "wb") as f:
         pickle.dump(pos_codes, f)
     with open(root / "coordinates.pkl", "wb") as f:
         pickle.dump(coords, f)
-    return {"videos": root / "videos", "pos_code": root / "position_code.pkl",
+    return {"videos": root / "videos", "imgs": root / "imgs", "pos_code": root / "position_code.pkl",
             "coordinates": root / "coordinates.pkl"}

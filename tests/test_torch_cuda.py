@@ -2,8 +2,9 @@
 gate tail forward and backward, with and without the gate conv's bias, on
 each of their paths (16-byte vectors over rows, channels-last or NCHW
 planes; one element a vector for other widths and unaligned pointers), a
-small net's forward, and one training step through the kernels against one
-through the plain gate tail.
+small net's forward, one training step through the kernels against one
+through the plain gate tail, and the single-image nets (no hand-written
+kernel) on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -322,3 +323,31 @@ def test_gate_kernel_raises_on_layouts_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # a bias of another dtype
         lstm_gates.fused_lstm_gates(g, c.contiguous(memory_format=torch.channels_last), dim=1,
                                     bias=torch.zeros(32, device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("EDSRNet", dict(in_channels=1, out_channels=1, num_resblocks=2, num_features=16)),
+    ("SRFBNet", dict(in_channels=1, out_channels=1, num_steps=2, num_features=8, num_groups=2)),
+    ("DRFSISRNet", dict(in_channels=1, out_channels=1, num_steps=2, num_features=8,
+                        num_groups=2)),
+    ("Bicubic", {}),
+])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_single_image_nets_on_the_card_match_the_cpu(cuda, name, kwargs, r):
+    """The single-image nets run no hand-written kernel: cuDNN's convs and
+    transposed convs, and the dense resize products, in fp32 without TF32,
+    against the CPU within 1e-4 of the largest value; no gate launch."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+
+    net = getattr(models, name)(upscale_factor=r, **kwargs,
+                                generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 16, 16, 1, generator=torch.Generator().manual_seed(1))
+    before = lstm_gates.LAUNCHES
+    with torch.inference_mode():
+        want = net(x)
+        got = net.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_gates.LAUNCHES == before
+    for g, w in zip(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]):
+        assert g.shape == w.shape == (2, 16 * r, 16 * r, 1)
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
