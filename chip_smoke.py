@@ -10,7 +10,8 @@ Drives the port's two main paths, the flagship RefineNet ×4 eval
 patches 32×32, 7 core frames + 2×6 warm-up, Adam at 1e-4), at full width
 on the card, and holds every hand-written kernel of those paths against its
 plain PyTorch version; then the single-image family's serving and training
-(EDSR, SRFB, Bicubic ×4), whose paths run no hand-written kernel.  Phases, one or more lines each; any failure exits
+(EDSR, SRFB, Bicubic ×4) and the multi-frame family's (DUF, RBPN, TOFlow ×4),
+whose paths run no hand-written kernel.  Phases, one or more lines each; any failure exits
 non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -86,6 +87,27 @@ non-zero and no result is printed:
     30-frame valid slice an epoch: every logged value finite, no gate kernel
     launched, ``model_best.pth`` written and reloaded; ms a step, LR
     frames/s, peak memory and the arithmetic bound of a step.
+15. multi-frame serving: ``configs/test/{duf_net,rbp_net,toflow_net}/exp1_x4.yaml``
+    (DUF ``_DenseLayer16`` with size_filter 5; RBPN base_filter 256, feat
+    64, 3 stages, 5 resblocks; TOFlow; 7 frames each) and then
+    ``toflow_net/exp1_x4_tpu.yaml`` (bf16, ``max_flow: 4``) through
+    ``main.test_from_config`` on ``cuda:0`` over the tree's ``videos/`` (60
+    windows of 7 LR 64×64 frames), from seeded random weights (running
+    statistics drawn off their init values) saved as ``{'net':
+    state_dict}``: every metric finite, no gate kernel launched, one window
+    on the card against the CPU within 1e-4 of its largest value, bf16
+    TOFlow's PSNR/SSIM within the stated bound of the fp32 run's; the warm
+    ms a window, frames/s, peak memory, the device's busy share and the
+    arithmetic bound of a window.
+16. multi-frame training: ``configs/train/{duf_net,rbp_net,toflow_net}/exp1_x4.yaml``
+    and ``rbp_net/exp1_x4_tpu.yaml`` (bf16, ``grad_accum_steps: 2``) at
+    their batch (12 for DUF, 16 otherwise) of 32×32 LR patches × 7 frames,
+    with their ``logger:`` sections, through ``main.train_from_config`` on
+    ``cuda:0`` for 2 epochs (120 windows an epoch), one 30-window valid
+    slice an epoch: every logged value finite, event files written, no gate
+    kernel launched, ``model_best.pth`` written and reloaded, running
+    statistics included (the final checkpoint's equal the trainer's); ms a
+    step, LR frames/s, peak memory and the arithmetic bound of a step.
 
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
@@ -168,6 +190,36 @@ SISR_WORKLOAD = {"EDSRNet": "SISR", "SRFBNet": "SISRSRFB", "Bicubic": "SISR"}
 # (fp32 without TF32 on both sides; the sums run in another order)
 TOL_SISR_CARD_CPU = 1e-4
 
+# the multi-frame family's x4 configs (phases 15-16), 7 frames a window
+MISR_T = 7
+MISR_NETS = {
+    "DUFNet": {"in_channels": 1, "out_channels": 1, "num_frames": MISR_T,  # configs/*/duf_net/exp1_x4.yaml
+               "size_filter": 5, "upscale_factor": SCALE, "backbone": "_DenseLayer16"},
+    "RBPNet": {"in_channels": 1, "out_channels": 1, "base_filter": 256,  # configs/*/rbp_net/exp1_x4.yaml
+               "feat": 64, "num_stages": 3, "num_resblocks": 5, "num_frames": MISR_T,
+               "upscale_factor": SCALE},
+    "TOFlowNet": {"in_channels": 1, "out_channels": 1, "num_frames": MISR_T,  # configs/*/toflow_net/exp1_x4.yaml
+                  "upscale_factor": SCALE},
+}
+# configs/test/toflow_net/exp1_x4_tpu.yaml
+TOFLOW_TPU_NET = {**MISR_NETS["TOFlowNet"], "max_flow": 4}
+# configs/train/*/exp1_x4.yaml (and rbp_net/exp1_x4_tpu.yaml): batch, loss,
+# Adam's lr and weight decay, the trainer's knobs
+MISR_TRAIN = {
+    "DUFNet": (12, {"name": "HuberLoss", "kwargs": {"delta": 0.01}, "weight": 1.0}, 1e-3, 0, {}),
+    "RBPNet": (16, {"name": "L1Loss", "weight": 1.0}, 1e-4, 0, {}),
+    "TOFlowNet": (16, {"name": "L1Loss", "weight": 1.0}, 1e-4, 1e-4, {}),
+    "RBPNet_tpu": (16, {"name": "L1Loss", "weight": 1.0}, 1e-4, 0,
+                   {"compute_dtype": "bfloat16", "grad_accum_steps": 2}),
+}
+# bf16 + max_flow TOFlow serving against the fp32 exact run on the same
+# windows: bf16 TOFlow computes in fp32 on bf16-rounded weights and frames
+# (the fp32 resize promotes), so its gap is that rounding's (and the window's,
+# exact while |flow| <= 4).  Measured on an H100: PSNR -7.5e-4 dB,
+# CardiacPSNR -6.8e-4 dB, SSIM -1.5e-6, CardiacSSIM -1.2e-5 (seeded data and
+# weights); the bounds are ~5x and ~8x the larger of each pair
+TOL_TOFLOW_BF16_DPSNR, TOL_TOFLOW_BF16_DSSIM = 4e-3, 1e-4
+
 TOL_FP32 = 2e-6  # expf/tanhf against ATen's: an ulp or two
 TOL_BF16 = 1e-2  # one rounding to bf16 of values below 4, against the fp32 plain version
 TOL_BF16_REL = 1e-2  # the backward's values reach ~5: error / max(1, |value|)
@@ -181,9 +233,10 @@ TOL_FORWARD = 1e-4  # 42 recurrent steps × 3 stages in fp32
 # of 19 steps, 3 stages and their backward, each side rounding differently)
 TOL_TRAIN_STEP = 1e-4
 
-# Memory rate and fp32 (non-tensor-core) peak by part, from NVIDIA's H100
-# data sheets (PCIe, NVL, SXM).
-CARDS = [("PCIe", 2.0e12, 51e12), ("NVL", 3.9e12, 60e12), ("", 3.35e12, 67e12)]
+# Memory rate, fp32 (non-tensor-core) peak and dense bf16 tensor-core peak
+# by part, from NVIDIA's H100 data sheets (PCIe, NVL, SXM).
+CARDS = [("PCIe", 2.0e12, 51e12, 756e12), ("NVL", 3.9e12, 60e12, 835e12),
+         ("", 3.35e12, 67e12, 989e12)]
 GATE_OPS_PER_ELEMENT = 19  # 3 sigmoids (3 each) + 2 tanh (3 each) + 4 for c' and h'
 # 3 sigmoids + 2 tanh (15), c' (3), dct (5), dgi, dgf, dgo, dgg (4 each), dc (1)
 GATE_BWD_OPS_PER_ELEMENT = 40
@@ -549,33 +602,40 @@ def sisr_train_config(tree: dict, name: str, saved_dir: Path) -> dict:
 
 def forward_flops(net, x) -> int:
     """Operations (a multiply-add is 2) of one forward of ``net`` on ``x``
-    (B, h, w, C): every conv and transposed conv, counted from its shapes
-    by a forward hook, plus the dense resize products of ``ops/resize.py``
-    (Bicubic; SRFB's bilinear skip)."""
+    ((B, h, w, C) frames or (B, T, h, w, C) windows): every conv, 3D conv
+    and transposed conv, counted from its shapes by a forward hook, plus the
+    dense resize products of ``ops/resize.py`` (Bicubic, SRFB's bilinear
+    skip, TOFlow's bicubic upscale of every frame) and DUF's filter product
+    (sf² taps × r² subpixels a pixel)."""
     import torch
 
     total = 0
 
     def hook(mod, args, out):
         nonlocal total
-        k = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
-        # a conv: each output element sums in·kh·kw products; a transposed
-        # conv: each input element meets out·kh·kw weights
+        k = math.prod(mod.weight.shape[1:])  # in·kh·kw, in·kd·kh·kw, or out·kh·kw
+        # a conv: each output element sums in·k products; a transposed conv:
+        # each input element meets out·kh·kw weights
         total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
                           else out.numel())
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
-               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d))]
     try:
         with torch.inference_mode():
             net(x)
     finally:
         for h in handles:
             h.remove()
-    if type(net).__name__ in ("Bicubic", "SRFBNet"):
-        B, h, w, C = x.shape
+    name = type(net).__name__
+    if name in ("Bicubic", "SRFBNet", "TOFlowNet"):
+        frames = x.shape[0] * (x.shape[1] if x.dim() == 5 else 1)
+        h, w, C = x.shape[-3:]
         r = SCALE
-        total += 2 * B * C * (r * h * h * w + r * h * r * w * w)  # rows, then columns
+        total += 2 * frames * C * (r * h * h * w + r * h * r * w * w)  # rows, then columns
+    if name == "DUFNet":
+        B, _, h, w, C = x.shape
+        total += 2 * B * C * net.size_filter ** 2 * net.upscale_factor ** 2 * h * w
     return total
 
 
@@ -731,6 +791,260 @@ def sisr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates,
     return results
 
 
+def misr_eval_config(tree: dict, name: str, net_kwargs: dict, ckpt: Path, saved_dir: Path,
+                     **pred_kwargs) -> dict:
+    """configs/test/{duf_net,rbp_net,toflow_net}/exp1_x4[_tpu].yaml with paths
+    into the synthetic tree's windows, on cuda:0, without the GIF/PNG export."""
+    coords = str(tree["coordinates"])
+    return {
+        "main": {"saved_dir": str(saved_dir), "loaded_path": str(ckpt)},
+        "dataset": {"name": "AcdcMISRDataset",
+                    "kwargs": {"data_dir": str(tree["videos"]), "downscale_factor": SCALE,
+                               "transforms": [{"name": "Normalize",
+                                               "kwargs": {"means": [54.089], "stds": [48.084]}},
+                                              {"name": "ToTensor"}],
+                               "num_frames": MISR_T}},
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"batch_size": 1, "shuffle": False, "num_workers": 8}},
+        "net": {"name": name, "kwargs": net_kwargs},
+        "losses": [{"name": "HuberLoss", "kwargs": {"delta": 0.01}, "weight": 1.0}
+                   if name == "DUFNet" else {"name": "L1Loss", "weight": 1.0}],
+        "metrics": [
+            {"name": "PSNR"}, {"name": "SSIM"},
+            {"name": "CardiacPSNR", "kwargs": {"coordinates_path": coords}},
+            {"name": "CardiacSSIM", "kwargs": {"coordinates_path": coords}},
+        ],
+        "predictor": {"name": "AcdcMISRPredictor",
+                      "kwargs": {"device": "cuda:0", "saved_dir": str(saved_dir), "exported": False,
+                                 **pred_kwargs}},
+    }
+
+
+def misr_train_config(tree: dict, key: str, saved_dir: Path) -> dict:
+    """configs/train/{duf_net,rbp_net,toflow_net}/exp1_x4.yaml (``key``
+    RBPNet_tpu: rbp_net/exp1_x4_tpu.yaml) with paths into the synthetic
+    tree's windows, on cuda:0, for EPOCHS epochs with a checkpoint every
+    epoch, with its ``logger:`` section."""
+    name = key.split("_")[0]
+    batch, loss, lr, weight_decay, knobs = MISR_TRAIN[key]
+    return {
+        "main": {"random_seed": "vsr", "saved_dir": str(saved_dir), "loaded_path": None},
+        "dataset": {
+            "name": "AcdcMISRDataset",
+            "kwargs": {
+                "data_dir": str(tree["videos"]), "downscale_factor": SCALE,
+                "transforms": [
+                    {"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}},
+                    {"name": "ToTensor"},
+                ],
+                "augments": [
+                    {"name": "RandomHorizontalFlip"}, {"name": "RandomVerticalFlip"},
+                    {"name": "RandomCropPatch", "kwargs": {"size": [PATCH, PATCH], "ratio": SCALE}},
+                ],
+                "num_frames": MISR_T,
+            },
+        },
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"train_batch_size": batch, "valid_batch_size": 1,
+                                  "shuffle": True, "num_workers": 8}},
+        "net": {"name": name, "kwargs": MISR_NETS[name]},
+        "losses": [loss],
+        "metrics": [{"name": "PSNR"}, {"name": "SSIM"}],
+        "optimizer": {"name": "Adam", "kwargs": {"lr": lr, "weight_decay": weight_decay}},
+        "logger": {"name": "AcdcMISRLogger", "kwargs": {"dummy_input": [batch, 1, PATCH, PATCH]}},
+        "monitor": {"name": "Monitor",
+                    "kwargs": {"mode": "min", "target": "Loss", "saved_freq": 1, "early_stop": 0}},
+        "trainer": {"name": "AcdcMISRTrainer",
+                    "kwargs": {"device": "cuda:0", "num_epochs": EPOCHS, **knobs}},
+    }
+
+
+def seeded_misr_net(cls, kwargs: dict):
+    """``cls(**kwargs)`` from seed 0, its BatchNorm running statistics drawn
+    off their init values (mean 0, variance 1) so that serving reads them."""
+    import torch
+
+    net = cls(**kwargs, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for key, buf in net.named_buffers():
+            if key.endswith("running_mean"):
+                buf.uniform_(-0.1, 0.1, generator=gen)
+            elif key.endswith("running_var"):
+                buf.uniform_(0.5, 1.5, generator=gen)
+    return net
+
+
+def misr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line) -> dict:
+    """Phase 15: each multi-frame net serves the tree's test windows; then
+    TOFlow with the ``_tpu`` config's knobs (bf16, ``max_flow: 4``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+
+    runs = [(name, name, kwargs, {}) for name, kwargs in MISR_NETS.items()]
+    runs.append(("TOFlowNet_tpu", "TOFlowNet", TOFLOW_TPU_NET, {"compute_dtype": "bfloat16"}))
+    results, windows = {}, CYCLE * SLICES
+    for key, name, kwargs, pred_kwargs in runs:
+        ckpt = tmp / f"{name}.pth"
+        if not ckpt.exists():
+            torch.save({"net": seeded_misr_net(getattr(models, name),
+                                               MISR_NETS[name]).state_dict()}, ckpt)
+        cfg = Cfg(misr_eval_config(tree, name, kwargs, ckpt, tmp / f"test_{key}", **pred_kwargs))
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pred = port_main.test_from_config(cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{key} serving launched the gate kernels {launches(lstm_gates)}")
+        frames = pred.throughput["frames"]
+        if frames != windows or not all(math.isfinite(v) for v in pred.log.values()):
+            raise AssertionError(f"{key} serving scored {frames} windows: {pred.log}")
+        warm_ms = float(np.median(pred.item_seconds[1:])) * 1e3
+        n_params = sum(p.numel() for p in pred.net.parameters())
+        log("misr eval", f"{key} {kwargs} {pred_kwargs}: {n_params:,} params; Test log {pred.log}")
+
+        # one window on the card against the same weights on the CPU, in
+        # the predictor's compute dtype
+        item = pred.test_dataloader.dataset[0]
+        lr = torch.from_numpy(item["lr_imgs"][None])
+        with torch.inference_mode():
+            on_card = pred._forward(lr.to(dev)).cpu()
+            cpu_pred = copy.copy(pred)
+            cpu_pred.net = copy.deepcopy(pred.net).cpu()
+            on_cpu = cpu_pred._forward(lr)
+        gap = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
+        if tuple(on_card.shape) != (1, HR, HR, 1) or not gap <= TOL_SISR_CARD_CPU:
+            raise AssertionError(f"{key}: card vs CPU {gap:.3e} of the largest value, "
+                                 f"shape {tuple(on_card.shape)}")
+        # the device's busy share in the predictor's own step on a warm window
+        batch = next(iter(pred.test_dataloader))
+        patient = pred._item_meta(int(batch["index"][0]))[0]
+        masks = pred._metric_masks(patient, (HR, HR))
+        busy = device_busy(lambda: pred._step(batch, masks))
+        flops = forward_flops(pred.net, lr.to(dev))
+        nbytes = 4 * (lr.numel() + HR * HR + n_params)  # input, output, weights once
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        log("misr eval", f"{key}: frames/s {pred.throughput['frames_per_sec']:.2f} over {frames} "
+                         f"windows; warm {warm_ms:.3f} ms a window (median of items 2-{frames}); "
+                         f"test_from_config wall {wall:.2f} s; peak device memory "
+                         f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+                         f"{held / 2**30:.3f} held before); {flops:.4g} operations a window, bound "
+                         f"{bound:.3f} ms ({bound_by}), {bound / warm_ms:.1%} of it; card vs CPU "
+                         f"{gap:.3e} of the largest value (tol {TOL_SISR_CARD_CPU})")
+        log("misr eval", f"{key}: predictor step on a warm window: wall {busy[0]:.3f} ms, "
+                         f"{busy[2]} kernels {busy[1]:.3f} ms, device busy {busy[1] / busy[0]:.1%}; "
+                         f"the bound is {bound / busy[1]:.1%} of the kernel time")
+        results[key] = {"frames_per_sec": pred.throughput["frames_per_sec"], "warm_ms": warm_ms,
+                        "item_ms": [x * 1e3 for x in pred.item_seconds], "peak_gib": peak / 2**30,
+                        "held_gib": held / 2**30, "flops_per_window": flops, "bound_ms": bound,
+                        "bound_by": bound_by, "card_vs_cpu_rel": gap, "log": pred.log,
+                        "wall_s": wall, "step_wall_ms": busy[0], "step_kernel_ms": busy[1],
+                        "step_kernels": busy[2]}
+        del pred, cpu_pred
+    fp32, bf16 = results["TOFlowNet"]["log"], results["TOFlowNet_tpu"]["log"]
+    gaps = {k: bf16[k] - fp32[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
+    log("misr eval", f"TOFlow bf16 + max_flow 4 - fp32: {gaps} (bound |dPSNR| < "
+                     f"{TOL_TOFLOW_BF16_DPSNR}, |dSSIM| < {TOL_TOFLOW_BF16_DSSIM})")
+    if not all(abs(v) < (TOL_TOFLOW_BF16_DPSNR if "PSNR" in k else TOL_TOFLOW_BF16_DSSIM)
+               for k, v in gaps.items()):
+        raise AssertionError(f"bf16 TOFlow serving left the bound of the fp32 run: {gaps}")
+    results["toflow_bf16_minus_fp32"] = gaps
+    print(json.dumps({"misr_serving": results, "card": card_line}), flush=True)
+    return results
+
+
+def misr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line,
+                  bf16_peak: float) -> dict:
+    """Phase 16: DUF, RBPN and TOFlow train on the tree's windows, and RBPN
+    with the ``_tpu`` config's knobs (bf16, 2 microbatches: its convs run on
+    the tensor cores, so its bound takes the bf16 peak)."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+
+    results = {}
+    for key in MISR_TRAIN:
+        name = key.split("_")[0]
+        batch_size = MISR_TRAIN[key][0]
+        saved = tmp / f"train_{key}"
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = port_main.train_from_config(Cfg(misr_train_config(tree, key, saved)))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{key} training launched the gate kernels {launches(lstm_gates)}")
+        history = trainer.history["train"] + trainer.history["valid"]
+        if len(trainer.history["train"]) != EPOCHS or not all(
+                math.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"{key} training logs incomplete or non-finite: {trainer.history}")
+        events = list((saved / "log").rglob("events.out.tfevents.*"))
+        if not events:
+            raise AssertionError(f"{key}: the logger wrote no event file")
+        for epoch, (t_log, v_log) in enumerate(zip(trainer.history["train"],
+                                                   trainer.history["valid"]), 1):
+            log("misr train", f"{key} epoch {epoch}: Train log {t_log}; Valid log {v_log}")
+        ckpts = saved / "checkpoints"
+        best = load_checkpoint(ckpts / "model_best.pth")
+        reloaded = getattr(models, name)(**MISR_NETS[name])
+        reloaded.load_state_dict(best["net"], strict=True)
+        same_epoch = load_checkpoint(ckpts / f"model_{best['epoch']}.pth")["net"]
+        final = load_checkpoint(ckpts / f"model_{EPOCHS}.pth")["net"]
+        reloaded_sd = reloaded.state_dict()
+        trained_sd = trainer.net.state_dict()
+        for k, value in trained_sd.items():  # running statistics included
+            if not (torch.equal(reloaded_sd[k], same_epoch[k]) and torch.equal(final[k], value.cpu())):
+                raise AssertionError(f"{key}: checkpointed {k} differs from the trainer's")
+        n_stats = sum("running" in k for k in trained_sd)
+        state_dtypes = {p.dtype for p in trainer.net.parameters()} | {
+            b.dtype for b in trainer.net.buffers() if b.is_floating_point()}
+        if state_dtypes != {torch.float32}:
+            raise AssertionError(f"{key}: the masters left fp32: {state_dtypes}")
+        tp = trainer.throughput  # of the last epoch: every step warm
+        step_ms = 1e3 / tp["train_steps_per_sec"]
+        # forward + backward ≈ 3 forwards at the full batch's shape
+        x = torch.zeros(batch_size, MISR_T, PATCH, PATCH, 1, device=dev)
+        flops = 3 * forward_flops(trainer.net, x)
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        # batch in and out, weights read and written, Adam's two moments read and written
+        nbytes = 4 * (x.numel() + batch_size * (PATCH * SCALE) ** 2 + 6 * n_params)
+        bf16 = MISR_TRAIN[key][4].get("compute_dtype") == "bfloat16"
+        bound, bound_by = bound_ms(nbytes, flops, rates[0], bf16_peak if bf16 else rates[1])
+        steps = math.ceil(2 * 2 * CYCLE / batch_size)
+        log("misr train", f"{key}: model_best.pth (epoch {best['epoch']}) and model_{EPOCHS}.pth "
+                          f"reload equal to the trainer's weights and {n_stats} running "
+                          f"statistics; {len(events)} event files")
+        print(f"misr training {key}: {tp['train_steps_per_sec']:.4f} steps/s, "
+              f"{tp['frames_per_sec']:.2f} LR frames/s, {step_ms:.2f} ms a step (epoch {EPOCHS}: "
+              f"{steps} warm steps of {batch_size} windows x {MISR_T} frames, the last of "
+              f"{2 * 2 * CYCLE - (steps - 1) * batch_size}, and the valid epoch not in it), peak "
+              f"device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+              f"{held / 2**30:.3f} held before), train_from_config wall {wall:.1f} s; "
+              f"{flops:.4g} operations a step, bound {bound:.3f} ms ({bound_by}), "
+              f"{bound / step_ms:.1%} of it", flush=True)
+        results[key] = {"steps_per_sec": tp["train_steps_per_sec"],
+                        "frames_per_sec": tp["frames_per_sec"], "step_ms": step_ms,
+                        "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                        "flops_per_step": flops, "bound_ms": bound, "bound_by": bound_by,
+                        "wall_s": wall, "best_epoch": best["epoch"], "batch": batch_size,
+                        "bound_peak": "bf16" if bf16 else "fp32"}
+        del trainer
+    print(json.dumps({"misr_training": results, "card": card_line}), flush=True)
+    return results
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -769,8 +1083,9 @@ def main() -> int:
                   f"CUDA {torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, mem_rate, fp32_peak = next(c for c in CARDS if c[0] in kind)
-    log("device", f"bound rates for this part: {mem_rate / 1e12} TB/s, {fp32_peak / 1e12} fp32 TFLOP/s")
+    _, mem_rate, fp32_peak, bf16_peak = next(c for c in CARDS if c[0] in kind)
+    log("device", f"bound rates for this part: {mem_rate / 1e12} TB/s, {fp32_peak / 1e12} fp32 "
+                  f"TFLOP/s, {bf16_peak / 1e12} bf16 TFLOP/s")
     dev = torch.device("cuda:0")
 
     # ----------------------------------------------------------------- 2 build
@@ -1289,16 +1604,21 @@ def main() -> int:
     # --------------------------------------------- 13-14 the single-image family
     sisr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
     sisr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
+
+    # ---------------------------------------------- 15-16 the multi-frame family
+    misr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
+    misr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line, bf16_peak)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
-    # the single-image paths (phases 13-14) launch neither kernel: held there
+    # the single-image and multi-frame paths (phases 13-16) launch neither
+    # kernel: held there
     fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
                  "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled,
-                 "sisr_eval": 0, "sisr_train": 0}
+                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
-                 "sisr_eval": 0, "sisr_train": 0}
+                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

@@ -1,5 +1,5 @@
 from . import datasets, transforms
-from .datasets import BaseDataset, SISRDataset, VSRRefineNetDataset
+from .datasets import BaseDataset, MISRDataset, SISRDataset, VSRRefineNetDataset
 from .loader import Dataloader, default_collate
 from .transforms import compose
 
@@ -7,6 +7,7 @@ __all__ = [
     "datasets",
     "transforms",
     "BaseDataset",
+    "MISRDataset",
     "SISRDataset",
     "VSRRefineNetDataset",
     "Dataloader",

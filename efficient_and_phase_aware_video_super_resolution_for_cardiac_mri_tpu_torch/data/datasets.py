@@ -1,9 +1,10 @@
 """Datasets of the ported paths (ACDC / DSB15 cardiac cine-MRI).
 
 The port's copies of the JAX package's ``SISRDataset`` (one 2D frame in,
-one out) and ``VSRRefineNetDataset``: items are dicts of channel-last numpy
-arrays, (H, W, C) frames for SISR and (T, H, W, C) with time as the leading
-axis for RefineNet, exactly as the JAX package yields them.  Train items run
+one out), ``MISRDataset`` (a window of frames in, its reference frame out)
+and ``VSRRefineNetDataset``: items are dicts of channel-last numpy arrays,
+(H, W, C) frames and (T, H, W, C) windows with time as the leading axis,
+exactly as the JAX package yields them.  Train items run
 the config's augments with the ``rng`` the loader hands each item
 (``item_rng``), then its transforms; valid and test items run the
 transforms only.  One
@@ -66,6 +67,21 @@ def _frames(vol: np.ndarray) -> list[np.ndarray]:
     return [vol[..., t] for t in range(vol.shape[-1])]
 
 
+def _window(start: int, end: int, vol: np.ndarray) -> np.ndarray:
+    """Frames [start, end) of a (H, W, C, T) volume with circular wrap
+    (reference ``acdc_misr_dataset.py:59-68``), in the reference's branch
+    order: with ``start < 0`` the tail ``vol[:end]`` takes no modulo (numpy
+    clamps an ``end`` past T), so a window longer than the sequence is the
+    wrapped start plus the whole sequence; only a nonnegative start with
+    ``end > T`` reduces ``end`` mod T."""
+    T = vol.shape[-1]
+    if start < 0:
+        return np.concatenate((vol[..., start:], vol[..., :end]), axis=-1)
+    if end > T:
+        return np.concatenate((vol[..., start:], vol[..., : end % T]), axis=-1)
+    return vol[..., start:end]
+
+
 class BaseDataset:
     def __init__(self, data_dir, type):
         self.data_dir = Path(data_dir)
@@ -99,6 +115,15 @@ class _SRDatasetBase(BaseDataset):
         )
         hr_paths = sorted((self.data_dir / self.type / "HR").glob(self.glob_pattern))
         return list(zip(lr_paths, hr_paths))
+
+    def _bounds(self, t: int) -> tuple[int, int]:
+        """[start, end) of the window around frame ``t`` (reference
+        ``acdc_misr_dataset.py:52-58``): ending at ``t`` for
+        ``temporal_order: last``, else centred (the extra frame after)."""
+        n = self.num_frames
+        if self.temporal_order == "last":
+            return t - n + 1, t + 1
+        return t - (n - 1) // 2, t + ((n - 1) - (n - 1) // 2) + 1
 
     def _explicit_normalize(self) -> int | None:
         """Index of the pipeline's explicit-stats ``Normalize``, or ``None``:
@@ -157,6 +182,38 @@ class SISRDataset(_SRDatasetBase):
         lr_path, hr_path = self.data[index]
         lr_img, hr_img = self._apply([_VOLUMES.get(lr_path), _VOLUMES.get(hr_path)], rng)
         return {"lr_img": lr_img, "hr_img": hr_img, "index": index}
+
+
+class MISRDataset(_SRDatasetBase):
+    """Multi-image SR (reference ``acdc_misr_dataset.py``): one item per
+    (sequence, frame t), ``{"lr_imgs": (T, h, w, C) window around t,
+    "hr_img": the window's reference HR frame, "index"}``; the window and
+    its HR twin go through the augments and transforms together."""
+
+    def __init__(self, *args, num_frames=5, temporal_order="middle", **kwargs):
+        super().__init__(*args, **kwargs)
+        if temporal_order not in ("last", "middle"):
+            raise ValueError(f"temporal_order must be 'last' or 'middle'; got {temporal_order}.")
+        self.num_frames = num_frames
+        self.temporal_order = temporal_order
+        self.data = []
+        for lr_path, hr_path in self._paired_paths():
+            T = nifti.read_header(lr_path)["shape"][-1]
+            self.data.extend((lr_path, hr_path, t) for t in range(T))
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index, rng=None):
+        lr_path, hr_path, t = self.data[index]
+        start, end = self._bounds(t)
+        lr = _window(start, end, _VOLUMES.get(lr_path))
+        hr = _window(start, end, _VOLUMES.get(hr_path))
+        imgs = self._apply(_frames(lr) + _frames(hr), rng)
+        half = len(imgs) // 2
+        n = self.num_frames
+        ref = n // 2 if n % 2 == 1 else n // 2 - 1
+        return {"lr_imgs": np.stack(imgs[:half]), "hr_img": imgs[half + ref], "index": index}
 
 
 class VSRRefineNetDataset(_SRDatasetBase):
@@ -226,7 +283,7 @@ class VSRRefineNetDataset(_SRDatasetBase):
         }
 
 
-for _workload, _cls in (("SISRDataset", SISRDataset),
+for _workload, _cls in (("SISRDataset", SISRDataset), ("MISRDataset", MISRDataset),
                        ("VSRRefineNetDataset", VSRRefineNetDataset)):
     DATASETS.add(f"Acdc{_workload}", _cls)
     DATASETS.add(f"Dsb15{_workload}", _cls)

@@ -1,12 +1,17 @@
-"""Model registry of the port: the flagship RefineNet and the single-image
-family (Bicubic, EDSRNet, SRFBNet, DRFSISRNet)."""
+"""Model registry of the port: the flagship RefineNet, the single-image
+family (Bicubic, EDSRNet, SRFBNet, DRFSISRNet) and the multi-frame family
+without deformable convs (DUFNet, RBPNet, TOFlowNet)."""
 from ..config import NETS
 from .bicubic import Bicubic
+from .duf_net import DUFNet
 from .edsr_net import EDSRNet
+from .rbp_net import RBPNet
 from .refine_net import RefineNet
 from .srfb_net import DRFSISRNet, SRFBNet
+from .toflow_net import TOFlowNet
 
-for _net in (Bicubic, EDSRNet, SRFBNet, DRFSISRNet, RefineNet):
+for _net in (Bicubic, EDSRNet, SRFBNet, DRFSISRNet, RefineNet, DUFNet, RBPNet, TOFlowNet):
     NETS.add(_net.__name__, _net)
 
-__all__ = ["Bicubic", "EDSRNet", "SRFBNet", "DRFSISRNet", "RefineNet"]
+__all__ = ["Bicubic", "EDSRNet", "SRFBNet", "DRFSISRNet", "RefineNet", "DUFNet", "RBPNet",
+           "TOFlowNet"]

@@ -2,16 +2,19 @@
 
 The port's counterpart of the JAX package's ``models/common.py``: the
 conv (odd-kernel 'same' padding, or an explicit stride and padding for the
-back-projection blocks), the transposed conv, the in-block (conv3×3 +
-PReLU), the conv + PixelShuffle upsampler, the one-parameter PReLU, the
-back-projection table, the convs' memory layout by dtype, and folding time
+back-projection blocks), the 3D conv, the transposed conv, the BatchNorm,
+the in-block (conv3×3 + PReLU), the conv + PixelShuffle upsampler, the
+one-parameter PReLU, the back-projection table, the convs' memory layout by
+dtype, padding to a multiple with the tensor's minimum, and folding time
 into the batch axis for per-frame blocks.  Module names give the
 reference's ``state_dict`` keys.
 
 Initialisation is torch's default, ``U(-1/√fan_in, 1/√fan_in)`` on weight
-and bias, with ``fan_in = C_in·kh·kw`` for a conv and ``C_out·kh·kw`` for a
-transposed conv (what the JAX package's ``ops/torch_init.py`` and
-``ConvTransposeTorch`` mimic), drawn from an explicit ``torch.Generator``.
+and bias, with ``fan_in = C_in·kh·kw`` (``C_in·kd·kh·kw`` in 3D) for a conv
+and ``C_out·kh·kw`` for a transposed conv (what the JAX package's
+``ops/torch_init.py`` and ``ConvTransposeTorch`` mimic), drawn from an
+explicit ``torch.Generator``; BatchNorm starts at weight 1, bias 0, running
+mean 0 and variance 1.
 """
 from __future__ import annotations
 
@@ -30,16 +33,66 @@ def init_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator)
 
 
 def conv2d(in_features: int, features: int, kernel_size: int,
-           generator: torch.Generator, stride: int = 1, padding: int | None = None) -> nn.Conv2d:
-    """``nn.Conv2d`` with torch-default init drawn from ``generator``;
-    ``padding`` defaults to k//2 ('same' for odd kernels) and pads both sides
-    of each spatial axis by that much (the strided projections)."""
-    conv = nn.Conv2d(in_features, features, kernel_size, stride=stride,
-                     padding=kernel_size // 2 if padding is None else padding)
+           generator: torch.Generator, stride: int = 1, padding: int | None = None,
+           cls: type[nn.Conv2d] = nn.Conv2d) -> nn.Conv2d:
+    """``nn.Conv2d`` (or its subclass ``cls``) with torch-default init drawn
+    from ``generator``; ``padding`` defaults to k//2 ('same' for odd kernels)
+    and pads both sides of each spatial axis by that much (the strided
+    projections)."""
+    conv = cls(in_features, features, kernel_size, stride=stride,
+               padding=kernel_size // 2 if padding is None else padding)
     fan_in = in_features * kernel_size * kernel_size
     init_uniform_(conv.weight, fan_in, generator)
     init_uniform_(conv.bias, fan_in, generator)
     return conv
+
+
+def conv3d(in_features: int, features: int, kernel_size: int | tuple[int, int, int],
+           generator: torch.Generator, padding: tuple[int, int, int] | None = None) -> nn.Conv3d:
+    """``nn.Conv3d`` over (B, C, T, H, W) with torch-default init drawn from
+    ``generator`` (``fan_in = C_in·kd·kh·kw``, the JAX package's
+    ``duf_net.conv3d``); ``padding`` defaults to k//2 on each axis."""
+    ks = (kernel_size,) * 3 if isinstance(kernel_size, int) else tuple(kernel_size)
+    conv = nn.Conv3d(in_features, features, ks,
+                     padding=tuple(k // 2 for k in ks) if padding is None else tuple(padding))
+    fan_in = in_features * math.prod(ks)
+    init_uniform_(conv.weight, fan_in, generator)
+    init_uniform_(conv.bias, fan_in, generator)
+    return conv
+
+
+def batch_norm(features: int, dims: int = 2, cls: type[nn.Module] | None = None) -> nn.Module:
+    """``nn.BatchNorm2d`` / ``nn.BatchNorm3d`` (or its subclass ``cls``) at
+    eps 1e-5 and momentum 0.1.  In training it normalises with the biased
+    batch variance and updates the running variance with the unbiased one,
+    the semantics the JAX package's ``TorchBatchNorm`` copies; in eval it
+    uses the running statistics."""
+    cls = cls or {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
+    return cls(features, eps=1e-5, momentum=0.1)
+
+
+def pad_to_multiple(x: torch.Tensor, mult: int, dims=(-3, -2)):
+    """Pad ``dims`` of ``x`` to multiples of ``mult`` with the WHOLE tensor's
+    minimum (over batch and frames, as ``jnp.min(x)`` in the JAX package's
+    ``pad_to_multiple``, the reference's ``F.pad(value=x.min())``), centred:
+    ``diff // 2`` before, the rest after.  Returns ``(padded, crops)``:
+    ``crops`` is a tuple of one slice per dimension of ``x`` that cuts the
+    input back out, or ``None`` when nothing was padded.  The pad value stays
+    on the device and in the autograd graph (its gradient reaches the
+    minimum, as through ``lax.pad``'s padding value)."""
+    crops = [slice(None)] * x.dim()
+    shape = list(x.shape)
+    for d in dims:
+        size = x.shape[d]
+        diff = (mult - size % mult) % mult
+        if diff:
+            crops[d % x.dim()] = slice(diff // 2, diff // 2 + size)
+            shape[d % x.dim()] = size + diff
+    if shape == list(x.shape):
+        return x, None
+    padded = x.amin().expand(shape).clone(memory_format=torch.contiguous_format)
+    padded[tuple(crops)] = x
+    return padded, tuple(crops)
 
 
 def conv_transpose2d(in_features: int, features: int, kernel_size: int, stride: int,

@@ -74,8 +74,12 @@ def resize_matrix(
 @functools.lru_cache(maxsize=64)
 def _device_matrix(in_size: int, out_size: int, align_corners: bool, kind: str,
                    device: torch.device) -> torch.Tensor:
-    """:func:`resize_matrix` on ``device``, uploaded once per shape."""
-    return torch.from_numpy(resize_matrix(in_size, out_size, align_corners, kind)).to(device)
+    """:func:`resize_matrix` on ``device``, uploaded once per shape.  Made
+    outside inference mode even when first asked for inside it (a serving
+    run, a valid epoch), so that a later training step may save it for its
+    backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(in_size, out_size, align_corners, kind)).to(device)
 
 
 def _resize(x: torch.Tensor, out_hw, align_corners: bool, kind: str) -> torch.Tensor:

@@ -14,13 +14,18 @@ reference's ``model_{epoch}.pth`` / ``model_best.pth`` names.
 
 It also reads the JAX package's pickle checkpoint (its
 ``runner/checkpoint.py`` ``save_checkpoint``): ``payload['net']`` is a flax
-param tree of numpy arrays, carried over by ``utils/jax_weights.py``.  That
-pickle also holds the optimizer state (optax namedtuples) and a ``SeedState``
-dataclass of the JAX package; a plain ``pickle.load`` would import optax,
-jax and the JAX package to rebuild them.  The unpickler here admits numpy
-and builtins only and turns every other class into an inert stub, so reading
-the weights imports nothing of JAX.  Resuming from such a file restores the
-net only.
+param tree of numpy arrays and ``payload['model_state']`` the other flax
+collections (a BatchNorm net's ``batch_stats``), carried over together by
+``utils/jax_weights.py``, so a JAX-trained BatchNorm net serves with its
+trained running statistics.  That pickle also holds the optimizer state
+(optax namedtuples) and a ``SeedState`` dataclass of the JAX package; a
+plain ``pickle.load`` would import optax, jax and the JAX package to rebuild
+them.  The unpickler here admits numpy and builtins only and turns every
+other class into an inert stub, so reading the weights imports nothing of
+JAX.  Resuming from such a file restores the net, the epoch, and the
+monitor's and the lr scheduler's state where they are plain values (they
+are: dicts of numbers, strings and flags); the optimizer and the seed
+state start afresh (ROADMAP queue 1, items 5 and 6).
 """
 from __future__ import annotations
 
@@ -81,16 +86,35 @@ def save_checkpoint(path, *, net_state: dict, optimizer_state=None, lr_scheduler
     os.replace(tmp, path)
 
 
+def _read_jax_payload(path: Path) -> dict:
+    with open(path, "rb") as f:
+        return _WeightsUnpickler(f).load()
+
+
+def _plain(value) -> bool:
+    """Whether ``value`` holds only builtins and numpy values (no stub)."""
+    if isinstance(value, dict):
+        return all(_plain(k) and _plain(v) for k, v in value.items())
+    if isinstance(value, (list, tuple)):
+        return all(_plain(v) for v in value)
+    return not isinstance(value, _Stub)
+
+
 def load_checkpoint(path, net: str = "RefineNet") -> dict:
     """The checkpoint as a dict.  A port ``.pth`` comes back whole; a JAX
-    package pickle of the net named ``net`` as ``{'net': state_dict}``
-    only."""
+    package pickle of the net named ``net`` as ``{'net': state_dict,
+    'epoch': ...}`` plus its ``monitor`` and ``lr_scheduler`` state where
+    those are plain values."""
     path = Path(path)
     if _is_torch_zipfile(path):
         return torch.load(path, map_location="cpu", weights_only=True)
-    with open(path, "rb") as f:
-        payload = _WeightsUnpickler(f).load()
-    return {"net": state_dict_from_jax_params(payload["net"], net)}
+    payload = _read_jax_payload(path)
+    variables = {"params": payload["net"], **(payload.get("model_state") or {})}
+    out = {"net": state_dict_from_jax_params(variables, net), "epoch": payload.get("epoch")}
+    for key in ("monitor", "lr_scheduler"):
+        if payload.get(key) is not None and _plain(payload[key]):
+            out[key] = payload[key]
+    return out
 
 
 def load_net_state_dict(path, net: str = "RefineNet") -> dict[str, torch.Tensor]:
@@ -100,10 +124,13 @@ def load_net_state_dict(path, net: str = "RefineNet") -> dict[str, torch.Tensor]
 
 
 def _peek_epoch(p: Path):
-    """Stored epoch of a checkpoint; None if unreadable or not stored."""
+    """Stored epoch of a checkpoint, read without building any net's
+    state_dict; None if unreadable or not stored."""
     try:
-        return load_checkpoint(p).get("epoch")
-    except (OSError, EOFError, RuntimeError, KeyError, pickle.UnpicklingError):
+        if _is_torch_zipfile(p):
+            return torch.load(p, map_location="cpu", weights_only=True).get("epoch")
+        return _read_jax_payload(p).get("epoch")
+    except (OSError, EOFError, RuntimeError, KeyError, AttributeError, pickle.UnpicklingError):
         return None
 
 

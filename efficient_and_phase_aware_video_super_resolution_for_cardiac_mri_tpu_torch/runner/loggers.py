@@ -2,9 +2,12 @@
 
 The port's copy of the JAX package's ``FrameLogger`` and ``VSRLogger``:
 per-key train/valid scalar pairs and an HR|SR panel of the last batch,
-written with tensorboardX, which is imported when a logger is built (a run
-whose config has no ``logger:`` section needs no tensorboardX).  Each is
-registered under both the Acdc and the Dsb15 name.  The ``dummy_input`` /
+written with tensorboardX's ``SummaryWriter``, or, where tensorboardX is not
+installed, with ``torch.utils.tensorboard``'s (which needs the tensorboard
+package); both write the same event files.  The writer is imported when a
+logger is built, so a run whose config has no ``logger:`` section needs
+neither, and one that has it fails at once where neither imports.  Each
+logger is registered under both the Acdc and the Dsb15 name.  The ``dummy_input`` /
 ``net`` kwargs are accepted for config compatibility and ignored (graph
 plotting is disabled in the reference too, ``base_logger.py:13-18``).
 """
@@ -38,7 +41,10 @@ class _Logger:
     of the panel."""
 
     def __init__(self, log_dir, net=None, dummy_input=None):
-        from tensorboardX import SummaryWriter
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            from torch.utils.tensorboard import SummaryWriter
 
         self.writer = SummaryWriter(str(log_dir))
 
@@ -71,8 +77,9 @@ class _Logger:
 class FrameLogger(_Logger):
     """HR vs SR of the last batch of (B, H, W, C) frames: the reference's
     byte-identical single-frame loggers (``acdc_sisr_logger.py``,
-    ``acdc_sisr_srfb_logger.py:23-26``); the SRFB trainer's display hook has
-    already picked the last step."""
+    ``acdc_sisr_srfb_logger.py:23-26``, ``acdc_misr_logger.py``, where the
+    HR frame is the window's reference frame); the SRFB trainer's display
+    hook has already picked the last step."""
 
     def _frames(self, batch, outputs):
         return batch["hr_img"], outputs
@@ -86,6 +93,7 @@ class VSRLogger(_Logger):
         return batch["hr_imgs"][:, -1], outputs[:, -1]
 
 
-for _workload, _cls in (("SISR", FrameLogger), ("SISRSRFB", FrameLogger), ("VSR", VSRLogger)):
+for _workload, _cls in (("SISR", FrameLogger), ("SISRSRFB", FrameLogger), ("MISR", FrameLogger),
+                       ("VSR", VSRLogger)):
     LOGGERS.add(f"Acdc{_workload}Logger", _cls)
     LOGGERS.add(f"Dsb15{_workload}Logger", _cls)

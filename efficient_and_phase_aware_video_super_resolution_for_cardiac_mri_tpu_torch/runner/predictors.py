@@ -1,7 +1,8 @@
 """Predictors: test-time evaluation and export.
 
 The port's counterpart of the JAX package's ``runner/predictors.py`` for the
-RefineNet eval path and the single-image family (SISR, SISRSRFB).  The
+RefineNet eval path, the single-image family (SISR, SISRSRFB) and the
+multi-frame family (MISR).  The
 contract is the reference's: batch size 1, per-frame loss/metric tables,
 Cardiac* metrics routed with the patient name parsed from the dataset path,
 CSV / GIF / PNG export, and the log weighted by sequence length.
@@ -128,8 +129,9 @@ class BasePredictor:
                 raise NotImplementedError(
                     f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet"
                 )
-        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset);
-        # no ported net has one, so the knob is accepted and does nothing
+        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset): TOFlow's
+        # max_flow runs here, its report (``ops/telemetry.py``) is ROADMAP
+        # item 12, so the knob is accepted and does nothing yet
         self.device = torch.device(device)
         #: 0 = off; else the time axis is padded to multiples of it
         self.t_bucket = int(t_bucket or 0)
@@ -383,7 +385,10 @@ class SISRPredictor(BasePredictor):
         self._gif_key = key
         imgs_dir = self.saved_dir / "imgs" / patient
         imgs_dir.mkdir(parents=True, exist_ok=True)
-        _dump_image(imgs_dir / f"{sid}_{filename.split('_')[-1]}.png", sr)
+        # MISR sids come from 2d+1d names ('sequenceNN'), its PNGs are named
+        # by slice (reference acdc_misr_predictor.py:91); a no-op for SISR
+        _dump_image(imgs_dir / f"{sid.replace('sequence', 'slice')}_{filename.split('_')[-1]}.png",
+                    sr)
 
     def _flush_gif(self):
         patient, sid = self._gif_key
@@ -404,6 +409,24 @@ class SISRSRFBPredictor(SISRPredictor):
 
     def _select_output(self, outputs):
         return outputs[-1]
+
+
+class MISRPredictor(SISRPredictor):
+    """A window in, its reference frame out (reference
+    ``acdc_misr_predictor.py``): rows, PNGs and GIFs as for single frames,
+    named ``<patient>_2d_sliceNN_frameMM`` after the window's frame."""
+
+    def _model_inputs(self, batch):
+        return (batch["lr_imgs"],)
+
+    def _item_meta(self, index):
+        """(patient, sid, filename) from the ``videos/`` tree's
+        ``(lr_path, hr_path, t)``: sid is the sequence's ``sequenceNN``."""
+        lr_path, _, t = self.test_dataloader.dataset.data[index]
+        filename = lr_path.parts[-1].split(".")[0]
+        patient, _, sid = filename.split("_")
+        name = filename.replace("2d+1d", "2d").replace("sequence", "slice")
+        return patient, sid, f"{name}_frame{t + 1:0>2d}"
 
 
 class VSRPredictor(BasePredictor):
@@ -487,5 +510,5 @@ class VSRRefineNetPredictor(VSRPredictor):
 
 
 for _workload, _cls in (("SISR", SISRPredictor), ("SISRSRFB", SISRSRFBPredictor),
-                       ("VSRRefineNet", VSRRefineNetPredictor)):
+                       ("MISR", MISRPredictor), ("VSRRefineNet", VSRRefineNetPredictor)):
     common.register_dataset_variants(PREDICTORS, _workload, "Predictor", _cls)

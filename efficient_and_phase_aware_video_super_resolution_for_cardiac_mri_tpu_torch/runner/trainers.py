@@ -1,7 +1,8 @@
 """Trainers: the epoch and step engine (reference ``src/runner/trainers/*``).
 
 The port's counterpart of the JAX package's ``runner/trainers.py`` for the
-RefineNet path and the single-image family (SISR, SISRSRFB).  The epoch
+RefineNet path, the single-image family (SISR, SISRSRFB) and the
+multi-frame family (MISR).  The epoch
 protocol is the JAX package's, statement for statement
 (``base_trainer.py:46-97``): per-epoch numpy reseed and
 ``loader.set_epoch``, train epoch → valid epoch → lr step → logger →
@@ -19,9 +20,12 @@ every step), as the JAX package's accumulators do.
 The JAX package's trainer knobs, each computing what it computes there:
 
 * ``compute_dtype`` (``bfloat16``): the forward and backward run on bf16
-  copies of the fp32 parameters made inside the autograd graph
+  copies of the fp32 parameters and buffers made inside the autograd graph
   (``utils/casting.forward_in``); parameters, Adam state, losses and
-  metrics stay fp32.
+  metrics stay fp32.  A training forward's BatchNorm updates land in the
+  bf16 copies of its running statistics and are carried back into the fp32
+  buffers after the step, as the JAX package carries its bf16
+  ``batch_stats`` updates back as fp32 masters.
 * ``grad_accum_steps`` A: the batch splits into A equal microbatches whose
   gradients are summed, then scaled by 1/A before one optimizer step; the
   logged values are the microbatches' mean, the display outputs the whole
@@ -100,8 +104,9 @@ class BaseTrainer:
                     f"trainer knob {knob}={value!r} is not implemented in the PyTorch port yet "
                     f"(ROADMAP queue 1, item {item})"
                 )
-        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset);
-        # no ported net has one, so the knob is accepted and does nothing
+        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset): TOFlow's
+        # max_flow runs here, its report (``ops/telemetry.py``) is ROADMAP
+        # item 12, so the knob is accepted and does nothing yet
         self.device = torch.device(device)
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
@@ -169,9 +174,10 @@ class BaseTrainer:
         return loader.batch_size
 
     def _frame_count(self, batch) -> int:
-        """LR frames the batch feeds the net: one an item (single-image
-        workloads); video workloads count B·T."""
-        return int(self._model_inputs(batch)[0].shape[0])
+        """LR frames the batch feeds the net: B for (B, h, w, C) frames,
+        B·T for (B, T, h, w, C) windows and sequences."""
+        shape = np.shape(self._model_inputs(batch)[0])
+        return int(shape[0] * (shape[1] if len(shape) == 5 else 1))
 
     def _denorm(self, x):
         return common.denorm_uint8(x, self.mean, self.std)
@@ -282,6 +288,8 @@ class BaseTrainer:
                 displays.append(self._display_outputs(outputs).detach())
             values = torch.stack([total.detach(), *[l.detach() for l in losses], *metrics])
             sums = values if sums is None else sums + values
+        if state is not None:
+            self._keep_buffers(state)
         if accum > 1:
             inv = 1.0 / accum
             for p in self.net.parameters():
@@ -292,6 +300,15 @@ class BaseTrainer:
         n = len(self.loss_fns)
         display = displays[0] if accum == 1 else torch.cat(displays)
         return sums[0], list(sums[1:1 + n]), list(sums[1 + n:]), display
+
+    @torch.no_grad()
+    def _keep_buffers(self, state: dict) -> None:
+        """Copy the step's updates of the cast buffers (BatchNorm running
+        statistics) back into the net's own, in their dtype."""
+        for name, buf in self.net.named_buffers():
+            cast = state.get(name)
+            if cast is not None and cast is not buf:
+                buf.copy_(cast)
 
     @torch.inference_mode()
     def _eval_step(self, batch):
@@ -497,6 +514,15 @@ class SISRSRFBTrainer(SISRTrainer):
         return outputs[-1]
 
 
+class MISRTrainer(SISRTrainer):
+    """A window of frames in, its reference frame out (reference
+    ``acdc_misr_trainer.py:8-49``): (B, T, h, w, C) → (B, rh, rw, C), the
+    losses and metrics of the single-image trainer."""
+
+    def _model_inputs(self, batch):
+        return (batch["lr_imgs"],)
+
+
 class VSRTrainer(BaseTrainer):
     """Sequence in, sequence out; logs weighted by B·T and per-frame metrics
     (reference ``acdc_vsr_trainer.py:9-123``)."""
@@ -509,9 +535,6 @@ class VSRTrainer(BaseTrainer):
 
     def _log_weight(self, batch, mode):
         return super()._log_weight(batch, mode) * batch["lr_imgs"].shape[1]
-
-    def _frame_count(self, batch):
-        return int(batch["lr_imgs"].shape[0] * batch["lr_imgs"].shape[1])
 
     def _compute_losses(self, outputs, target, training):
         return [fn(outputs, target) for fn in self.loss_fns]
@@ -553,5 +576,5 @@ class VSRRefineNetTrainer(VSRTrainer):
 
 
 for _workload, _cls in (("SISR", SISRTrainer), ("SISRSRFB", SISRSRFBTrainer),
-                       ("VSRRefineNet", VSRRefineNetTrainer)):
+                       ("MISR", MISRTrainer), ("VSRRefineNet", VSRRefineNetTrainer)):
     common.register_dataset_variants(TRAINERS, _workload, "Trainer", _cls)

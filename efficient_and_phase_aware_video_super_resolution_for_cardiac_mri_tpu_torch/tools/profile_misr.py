@@ -1,0 +1,204 @@
+"""Where the multi-frame nets spend their time on the card.
+
+    python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_misr \
+        [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu] [--modes eval train]
+
+Runs each net at its ``configs/{test,train}/<net>/exp1_x4.yaml`` width with
+seeded random weights, in fp32 with TF32 off, on the shapes of the serving
+and training paths: ``eval`` is one window of 7 LR 64×64 frames under
+``torch.inference_mode()`` (the net in eval mode); ``train`` is one step
+of the trainer (the config's batch of 7 × 32×32 LR patches: forward, the
+config's loss, backward, Adam; the net in training mode).
+``TOFlowNet_tpu`` is ``configs/test/toflow_net/exp1_x4_tpu.yaml``
+(``max_flow: 4``, bf16 compute) and ``RBPNet_tpu``
+``configs/train/rbp_net/exp1_x4_tpu.yaml`` (bf16, the batch as two
+microbatches).  For each it prints:
+
+* the wall time of a call (host clock around a synchronised call, median
+  of several), with ``torch.backends.cudnn.benchmark`` off (the port's
+  setting) and on, in turns (off, on, on, off);
+* from ``torch.profiler`` with benchmark off: the device's busy share, the
+  number of kernels, the top kernels by device time, and the top ATen ops
+  by the device time of their own kernels (the op that launched them);
+* the operations of the call counted as ``chip_smoke.py`` counts them
+  (convs, 3D convs, transposed convs, resize products, DUF's filter
+  product; a training step as three forwards) and their rate.
+
+The last line is one JSON object with these numbers.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+import torch.nn.functional as F
+
+from ..models import DUFNet, RBPNet, TOFlowNet
+from ..utils.casting import forward_in
+
+T, SCALE, REPEATS, TOP = 7, 4, 5, 14
+DUF = {"in_channels": 1, "out_channels": 1, "num_frames": T, "size_filter": 5,
+       "upscale_factor": SCALE, "backbone": "_DenseLayer16"}
+RBPN = {"in_channels": 1, "out_channels": 1, "base_filter": 256, "feat": 64, "num_stages": 3,
+        "num_resblocks": 5, "num_frames": T, "upscale_factor": SCALE}
+TOFLOW = {"in_channels": 1, "out_channels": 1, "num_frames": T, "upscale_factor": SCALE}
+#: name → (class, kwargs, compute dtype, train batch, microbatches, loss)
+NETS = {
+    "DUFNet": (DUFNet, DUF, None, 12, 1, "huber"),
+    "RBPNet": (RBPNet, RBPN, None, 16, 1, "l1"),
+    "TOFlowNet": (TOFlowNet, TOFLOW, None, 16, 1, "l1"),
+    "TOFlowNet_tpu": (TOFlowNet, {**TOFLOW, "max_flow": 4}, torch.bfloat16, 16, 1, "l1"),
+    "RBPNet_tpu": (RBPNet, RBPN, torch.bfloat16, 16, 2, "l1"),
+}
+LR_HW = {"eval": 64, "train": 32}
+
+
+def _ops(net, x) -> int:
+    """Operations (a multiply-add is 2) of one forward, as chip_smoke.py
+    counts them."""
+    total = 0
+
+    def hook(mod, args, out):
+        nonlocal total
+        k = math.prod(mod.weight.shape[1:])
+        total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
+                          else out.numel())
+
+    convs = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d)
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, convs)]
+    with torch.inference_mode():
+        net(x)
+    for h in handles:
+        h.remove()
+    B, _, h, w, C = x.shape
+    if isinstance(net, TOFlowNet):  # the bicubic upscale of every frame
+        total += 2 * B * T * C * (SCALE * h * h * w + SCALE * h * SCALE * w * w)
+    if isinstance(net, DUFNet):  # sf² taps × r² subpixels a pixel
+        total += 2 * B * C * net.size_filter ** 2 * SCALE ** 2 * h * w
+    return total
+
+
+def _call(name: str, mode: str, dev):
+    """The call to time: a forward (eval) or a whole training step."""
+    cls, kwargs, dtype, batch, micro, loss_name = NETS[name]
+    net = cls(**kwargs, generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B = 1 if mode == "eval" else batch
+    x = torch.randn(B, T, LR_HW[mode], LR_HW[mode], 1, device=dev, generator=gen)
+    ops = _ops(net.eval(), x)
+    if mode == "eval":
+        def call():
+            with torch.inference_mode():
+                return forward_in(net, dtype, x)
+        return call, ops, net, dtype
+
+    net.train()
+    target = torch.randn(B, LR_HW[mode] * SCALE, LR_HW[mode] * SCALE, 1, device=dev,
+                         generator=gen)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-4)
+
+    def loss_fn(out, tgt):
+        if loss_name == "huber":
+            return F.huber_loss(out, tgt, delta=0.01)
+        return (out - tgt).abs().mean()
+
+    def call():
+        opt.zero_grad(set_to_none=True)
+        m = B // micro
+        for i in range(micro):
+            out = forward_in(net, dtype, x[i * m:(i + 1) * m])
+            loss_fn(out, target[i * m:(i + 1) * m]).backward()
+        opt.step()
+    return call, 3 * ops, net, dtype
+
+
+def _wall_ms(call) -> float:
+    walls = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def profile(name: str, mode: str, dev) -> dict:
+    call, ops, net, dtype = _call(name, mode, dev)
+    walls = {}
+    for benchmark in (False, True, True, False):
+        torch.backends.cudnn.benchmark = benchmark
+        for _ in range(2):  # warm-up (and cuDNN's search when benchmark is on)
+            call()
+        torch.cuda.synchronize()
+        walls.setdefault(benchmark, []).append(_wall_ms(call))
+    torch.backends.cudnn.benchmark = False
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    kernel_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    ops_avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:TOP]
+    top_ops = [{"op": e.key, "ms": e.self_device_time_total / 1e3, "count": e.count}
+               for e in ops_avg if e.self_device_time_total > 0]
+    off, on = statistics.median(walls[False]), statistics.median(walls[True])
+    params = sum(p.numel() for p in net.parameters())
+    shape = (1 if mode == "eval" else NETS[name][3], T, LR_HW[mode], LR_HW[mode], 1)
+    print(f"{name} {mode} {shape} {dtype or torch.float32} ({params:,} params): wall {off:.3f} ms "
+          f"with cudnn.benchmark off {[round(v, 3) for v in walls[False]]}, {on:.3f} ms on "
+          f"{[round(v, 3) for v in walls[True]]}; {ops:.4g} operations, "
+          f"{ops / off / 1e9:.2f} TFLOP/s off, {ops / on / 1e9:.2f} on", flush=True)
+    print(f"  profiled (benchmark off): wall {prof_wall:.3f} ms, {len(kernels)} kernels "
+          f"{kernel_ms:.3f} ms, device busy {kernel_ms / prof_wall:.1%}")
+    for kname, (ms, n) in top:
+        print(f"  {ms:9.3f} ms {n:5d}x  {kname[:120]}")
+    print("  top ATen ops by the device time of their own kernels:")
+    for o in top_ops:
+        print(f"  {o['ms']:9.3f} ms {o['count']:5d}x  {o['op']}")
+    return {"net": name, "mode": mode, "shape": list(shape),
+            "compute_dtype": str(dtype or torch.float32), "params": params, "operations": ops,
+            "wall_ms_benchmark_off": walls[False], "wall_ms_benchmark_on": walls[True],
+            "profiled_wall_ms": prof_wall, "kernel_ms": kernel_ms, "kernels": len(kernels),
+            "top_kernels": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
+            "top_ops": top_ops}
+
+
+def _parse_args():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--nets", nargs="+", default=["DUFNet", "RBPNet", "TOFlowNet"],
+                        choices=list(NETS))
+    parser.add_argument("--modes", nargs="+", default=list(LR_HW), choices=list(LR_HW))
+    return parser.parse_args()
+
+
+def main() -> None:
+    args = _parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_misr needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(card, flush=True)
+    results = [profile(name, mode, dev) for name in args.nets for mode in args.modes]
+    print(json.dumps({"card": card, "results": results}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

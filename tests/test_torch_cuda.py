@@ -3,8 +3,8 @@ gate tail forward and backward, with and without the gate conv's bias, on
 each of their paths (16-byte vectors over rows, channels-last or NCHW
 planes; one element a vector for other widths and unaligned pointers), a
 small net's forward, one training step through the kernels against one
-through the plain gate tail, and the single-image nets (no hand-written
-kernel) on the card against the CPU.
+through the plain gate tail, and the single-image and multi-frame nets (no
+hand-written kernel) on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -351,3 +351,40 @@ def test_single_image_nets_on_the_card_match_the_cpu(cuda, name, kwargs, r):
     for g, w in zip(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want]):
         assert g.shape == w.shape == (2, 16 * r, 16 * r, 1)
         assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("name,kwargs,T", [
+    ("DUFNet", dict(in_channels=1, out_channels=1, num_frames=7, size_filter=5,
+                    backbone="_DenseLayer16"), 7),
+    ("RBPNet", dict(in_channels=1, out_channels=1, base_filter=16, feat=8, num_stages=3,
+                    num_resblocks=2, num_frames=5), 5),
+    ("TOFlowNet", dict(in_channels=1, out_channels=1, num_frames=3), 3),
+    ("TOFlowNet", dict(in_channels=1, out_channels=1, num_frames=3, max_flow=4), 3),
+])
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_misr_nets_on_the_card_match_the_cpu(cuda, name, kwargs, T, train):
+    """The multi-frame nets run no hand-written kernel: cuDNN's 2D and 3D
+    convs, transposed convs, ``grid_sample`` or the windowed warp, and the
+    resize products, in fp32 without TF32, one window on the card against
+    the CPU within 1e-4 of the largest value, the running statistics of a
+    training-mode forward too; no gate launch."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+
+    net = getattr(models, name)(upscale_factor=4, **kwargs,
+                                generator=torch.Generator().manual_seed(0)).train(train)
+    card = getattr(models, name)(upscale_factor=4, **kwargs).train(train)
+    card.load_state_dict(net.state_dict())
+    x = torch.randn(2, T, 12, 12, 1, generator=torch.Generator().manual_seed(1))
+    before = lstm_gates.LAUNCHES
+    with torch.no_grad():
+        want = net(x)
+        got = card.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_gates.LAUNCHES == before
+    assert got.shape == want.shape == (2, 48, 48, 1)
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+    if train:  # the running statistics moved alike (eval leaves them at their init)
+        for key, value in net.state_dict().items():
+            if "running" in key:
+                on_card = card.state_dict()[key].cpu()
+                assert ((on_card - value).abs().max() / value.abs().max()).item() <= 1e-4, key
