@@ -10,8 +10,9 @@ Drives the port's two main paths, the flagship RefineNet ×4 eval
 patches 32×32, 7 core frames + 2×6 warm-up, Adam at 1e-4), at full width
 on the card, and holds every hand-written kernel of those paths against its
 plain PyTorch version; then the single-image family's serving and training
-(EDSR, SRFB, Bicubic ×4) and the multi-frame family's (DUF, RBPN, TOFlow ×4),
-whose paths run no hand-written kernel.  Phases, one or more lines each; any failure exits
+(EDSR, SRFB, Bicubic ×4), the multi-frame family's (DUF, RBPN, TOFlow ×4)
+and the plain video family's (DRF, FRVSR ×4), whose paths run no
+hand-written kernel.  Phases, one or more lines each; any failure exits
 non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -96,8 +97,9 @@ non-zero and no result is printed:
     statistics drawn off their init values) saved as ``{'net':
     state_dict}``: every metric finite, no gate kernel launched, one window
     on the card against the CPU within 1e-4 of its largest value, bf16
-    TOFlow's PSNR/SSIM within the stated bound of the fp32 run's; the warm
-    ms a window, frames/s, peak memory, the device's busy share and the
+    TOFlow's PSNR/SSIM within the stated bound of the fp32 run's and its
+    windowed-warp exceedance summary (``ops/telemetry.py``) printed; the
+    warm ms a window, frames/s, peak memory, the device's busy share and the
     arithmetic bound of a window.
 16. multi-frame training: ``configs/train/{duf_net,rbp_net,toflow_net}/exp1_x4.yaml``
     and ``rbp_net/exp1_x4_tpu.yaml`` (bf16, ``grad_accum_steps: 2``) at
@@ -108,6 +110,27 @@ non-zero and no result is printed:
     kernel launched, ``model_best.pth`` written and reloaded, running
     statistics included (the final checkpoint's equal the trainer's); ms a
     step, LR frames/s, peak memory and the arithmetic bound of a step.
+17. plain video serving: ``configs/test/drf_net/exp1_x4.yaml`` (32 features
+    × 6 groups), ``frvsr_net/exp1_x4.yaml`` (10 resblocks) and then
+    ``frvsr_net/exp1_x4_tpu.yaml`` (bf16, ``max_flow: 4``) through
+    ``main.test_from_config`` on ``cuda:0`` over the tree's whole test
+    sequences (2 clips of 30 LR 64×64 frames), from seeded random weights
+    saved as ``{'net': state_dict}``: every metric finite, no gate kernel
+    launched, one fp32 clip on the card against the CPU within 1e-4 of its
+    largest value, ``FRVSRStream`` fed the clip frame by frame against the
+    clip forward within 1e-5, the bf16 + ``max_flow`` run's PSNR/SSIM within
+    the stated bound of the fp32 run's and its exceedance summary printed;
+    the warm ms a clip, frames/s, peak memory, the device's busy share and
+    the arithmetic bound of a clip (convs, transposed convs and resize
+    products).
+18. plain video training: ``configs/train/drf_net/exp1_x4.yaml`` (batch 16
+    × 7 frames, L1) and ``frvsr_net/exp1_x4.yaml`` (batch 16 × 10 frames,
+    ``FlowLoss`` + ``MSELoss``) at 32×32 LR patches, with their ``logger:``
+    sections, through ``main.train_from_config`` on ``cuda:0`` for 2 epochs
+    (120 windows an epoch), one 30-frame valid sequence an epoch: every
+    logged value finite, event files written, no gate kernel launched,
+    ``model_best.pth`` written and reloaded; ms a step, LR frames/s, peak
+    memory and the arithmetic bound of a step.
 
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
@@ -219,6 +242,38 @@ MISR_TRAIN = {
 # CardiacPSNR -6.8e-4 dB, SSIM -1.5e-6, CardiacSSIM -1.2e-5 (seeded data and
 # weights); the bounds are ~5x and ~8x the larger of each pair
 TOL_TOFLOW_BF16_DPSNR, TOL_TOFLOW_BF16_DSSIM = 4e-3, 1e-4
+
+# the plain video family's x4 configs (phases 17-18)
+VSR_NETS = {
+    "DRFNet": {"in_channels": 1, "out_channels": 1, "num_features": 32,  # configs/*/drf_net/exp1_x4.yaml
+               "num_groups": 6, "upscale_factor": SCALE},
+    "FRVSRNet": {"in_channels": 1, "out_channels": 1, "num_resblocks": 10,  # configs/*/frvsr_net/exp1_x4.yaml
+                 "upscale_factor": SCALE},
+}
+VSR_WORKLOAD = {"DRFNet": "VSR", "FRVSRNet": "FRVSR"}
+VSR_TEST_LOSS = {"DRFNet": "L1Loss", "FRVSRNet": "MSELoss"}  # configs/test/*/exp1_x4.yaml
+# configs/test/frvsr_net/exp1_x4.yaml and exp1_x4_tpu.yaml (bf16, max_flow: 4)
+VSR_SERVE = [("DRFNet", "DRFNet", VSR_NETS["DRFNet"], {}),
+             ("FRVSRNet", "FRVSRNet", {**VSR_NETS["FRVSRNet"], "is_prediction": True}, {}),
+             ("FRVSRNet_tpu", "FRVSRNet",
+              {**VSR_NETS["FRVSRNet"], "is_prediction": True, "max_flow": 4},
+              {"compute_dtype": "bfloat16"})]
+# configs/train/{drf_net,frvsr_net}/exp1_x4.yaml: batch, frames a window, losses
+VSR_TRAIN = {
+    "DRFNet": (16, 7, [{"name": "L1Loss", "weight": 1.0}]),
+    "FRVSRNet": (16, 10, [{"name": "FlowLoss", "weight": 1.0}, {"name": "MSELoss", "weight": 1.0}]),
+}
+# FRVSRStream fed a clip frame by frame against the clip forward, relative to
+# the largest value: the same per-frame step on the same inputs, bit-equal on
+# the CPU; on an H100 cuDNN's fp32 convs differ between the two by 3.3e-6
+# (bf16: 0)
+TOL_STREAM = 1e-5
+# bf16 + max_flow FRVSR serving against the fp32 exact run on the same clips.
+# The seeded random FNet makes HR flows of up to 15 px, so 99% of the
+# samples leave the 4 px window and its telemetry warns; measured on an H100:
+# PSNR +1.3e-3 dB, CardiacPSNR +4.7e-3 dB, SSIM +8.2e-5, CardiacSSIM +1.6e-4
+# (seeded data and weights); the bounds are ~5x and ~6x the larger of each pair
+TOL_FRVSR_BF16_DPSNR, TOL_FRVSR_BF16_DSSIM = 2.5e-2, 1e-3
 
 TOL_FP32 = 2e-6  # expf/tanhf against ATen's: an ulp or two
 TOL_BF16 = 1e-2  # one rounding to bf16 of values below 4, against the fp32 plain version
@@ -602,12 +657,18 @@ def sisr_train_config(tree: dict, name: str, saved_dir: Path) -> dict:
 
 def forward_flops(net, x) -> int:
     """Operations (a multiply-add is 2) of one forward of ``net`` on ``x``
-    ((B, h, w, C) frames or (B, T, h, w, C) windows): every conv, 3D conv
-    and transposed conv, counted from its shapes by a forward hook, plus the
-    dense resize products of ``ops/resize.py`` (Bicubic, SRFB's bilinear
-    skip, TOFlow's bicubic upscale of every frame) and DUF's filter product
-    (sf² taps × r² subpixels a pixel)."""
+    ((B, h, w, C) frames or (B, T, h, w, C) windows and clips): every conv,
+    3D conv and transposed conv, counted from its shapes by a forward hook;
+    every dense resize product of ``ops/resize.py`` (Bicubic, SRFB's
+    bilinear skip, TOFlow's bicubic upscale of every frame and its flow
+    pyramid, FNet's decoder and FRVSR's ×4 flow), counted from its shapes
+    as it runs: rows, then columns; and DUF's filter product (sf² taps × r²
+    subpixels a pixel)."""
     import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        resize,
+    )
 
     total = 0
 
@@ -619,20 +680,26 @@ def forward_flops(net, x) -> int:
         total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
                           else out.numel())
 
+    plain_resize = resize._resize
+
+    def counted_resize(y, out_hw, align_corners, kind):
+        nonlocal total
+        h, w = y.shape[-3], y.shape[-2]
+        planes = y.numel() // (h * w)  # every leading axis and the channels
+        total += 2 * planes * (out_hw[0] * h * w + out_hw[0] * out_hw[1] * w)
+        return plain_resize(y, out_hw, align_corners, kind)
+
     handles = [m.register_forward_hook(hook) for m in net.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d))]
+    resize._resize = counted_resize
     try:
         with torch.inference_mode():
             net(x)
     finally:
+        resize._resize = plain_resize
         for h in handles:
             h.remove()
     name = type(net).__name__
-    if name in ("Bicubic", "SRFBNet", "TOFlowNet"):
-        frames = x.shape[0] * (x.shape[1] if x.dim() == 5 else 1)
-        h, w, C = x.shape[-3:]
-        r = SCALE
-        total += 2 * frames * C * (r * h * h * w + r * h * r * w * w)  # rows, then columns
     if name == "DUFNet":
         B, _, h, w, C = x.shape
         total += 2 * B * C * net.size_filter ** 2 * net.upscale_factor ** 2 * h * w
@@ -884,6 +951,9 @@ def misr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, 
     import torch
 
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        telemetry,
+    )
 
     runs = [(name, name, kwargs, {}) for name, kwargs in MISR_NETS.items()]
     runs.append(("TOFlowNet_tpu", "TOFlowNet", TOFLOW_TPU_NET, {"compute_dtype": "bfloat16"}))
@@ -909,6 +979,11 @@ def misr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, 
         warm_ms = float(np.median(pred.item_seconds[1:])) * 1e3
         n_params = sum(p.numel() for p in pred.net.parameters())
         log("misr eval", f"{key} {kwargs} {pred_kwargs}: {n_params:,} params; Test log {pred.log}")
+        if "max_flow" in kwargs:
+            if sorted(pred.telemetry_summary) != ["flow_window", "spy_net/pyramid_flow_window"]:
+                raise AssertionError(f"{key}: telemetry sites {sorted(pred.telemetry_summary)}")
+            log("misr eval", f"{key}: Windowed-op telemetry: "
+                             f"{telemetry.format_summary(pred.telemetry_summary)}")
 
         # one window on the card against the same weights on the CPU, in
         # the predictor's compute dtype
@@ -946,7 +1021,7 @@ def misr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, 
                         "held_gib": held / 2**30, "flops_per_window": flops, "bound_ms": bound,
                         "bound_by": bound_by, "card_vs_cpu_rel": gap, "log": pred.log,
                         "wall_s": wall, "step_wall_ms": busy[0], "step_kernel_ms": busy[1],
-                        "step_kernels": busy[2]}
+                        "step_kernels": busy[2], "telemetry": pred.telemetry_summary}
         del pred, cpu_pred
     fp32, bf16 = results["TOFlowNet"]["log"], results["TOFlowNet_tpu"]["log"]
     gaps = {k: bf16[k] - fp32[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
@@ -1042,6 +1117,254 @@ def misr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates,
                         "bound_peak": "bf16" if bf16 else "fp32"}
         del trainer
     print(json.dumps({"misr_training": results, "card": card_line}), flush=True)
+    return results
+
+
+def vsr_eval_config(tree: dict, name: str, net_kwargs: dict, ckpt: Path, saved_dir: Path,
+                    dev, **pred_kwargs) -> dict:
+    """configs/test/{drf_net,frvsr_net}/exp1_x4[_tpu].yaml with paths into
+    the synthetic tree's whole sequences, on ``dev``, without the GIF/PNG
+    export."""
+    coords = str(tree["coordinates"])
+    return {
+        "main": {"saved_dir": str(saved_dir), "loaded_path": str(ckpt)},
+        "dataset": {"name": "AcdcVSRDataset",
+                    "kwargs": {"data_dir": str(tree["videos"]), "downscale_factor": SCALE,
+                               "transforms": [{"name": "Normalize",
+                                               "kwargs": {"means": [54.089], "stds": [48.084]}},
+                                              {"name": "ToTensor"}],
+                               "num_frames": VSR_TRAIN[name][1]}},
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"batch_size": 1, "shuffle": False, "num_workers": 8}},
+        "net": {"name": name, "kwargs": net_kwargs},
+        "losses": [{"name": VSR_TEST_LOSS[name], "weight": 1.0}],
+        "metrics": [
+            {"name": "PSNR"}, {"name": "SSIM"},
+            {"name": "CardiacPSNR", "kwargs": {"coordinates_path": coords}},
+            {"name": "CardiacSSIM", "kwargs": {"coordinates_path": coords}},
+        ],
+        "predictor": {"name": f"Acdc{VSR_WORKLOAD[name]}Predictor",
+                      "kwargs": {"device": str(dev), "saved_dir": str(saved_dir),
+                                 "exported": False, **pred_kwargs}},
+    }
+
+
+def vsr_train_config(tree: dict, name: str, saved_dir: Path, dev) -> dict:
+    """configs/train/{drf_net,frvsr_net}/exp1_x4.yaml with paths into the
+    synthetic tree, on ``dev``, for EPOCHS epochs with a checkpoint every
+    epoch, with its ``logger:`` section."""
+    batch, frames, losses = VSR_TRAIN[name]
+    return {
+        "main": {"random_seed": "vsr", "saved_dir": str(saved_dir), "loaded_path": None},
+        "dataset": {
+            "name": "AcdcVSRDataset",
+            "kwargs": {
+                "data_dir": str(tree["videos"]), "downscale_factor": SCALE,
+                "transforms": [
+                    {"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}},
+                    {"name": "ToTensor"},
+                ],
+                "augments": [
+                    {"name": "RandomHorizontalFlip"}, {"name": "RandomVerticalFlip"},
+                    {"name": "RandomCropPatch", "kwargs": {"size": [PATCH, PATCH], "ratio": SCALE}},
+                ],
+                "num_frames": frames,
+            },
+        },
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"train_batch_size": batch, "valid_batch_size": 1,
+                                  "shuffle": True, "num_workers": 8}},
+        "net": {"name": name, "kwargs": VSR_NETS[name]},
+        "losses": losses,
+        "metrics": [{"name": "PSNR"}, {"name": "SSIM"}],
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-4, "weight_decay": 0}},
+        "logger": {"name": "AcdcVSRLogger", "kwargs": {"dummy_input": [batch, 1, PATCH, PATCH]}},
+        "monitor": {"name": "Monitor",
+                    "kwargs": {"mode": "min", "target": "Loss", "saved_freq": 1, "early_stop": 0}},
+        "trainer": {"name": f"Acdc{VSR_WORKLOAD[name]}Trainer",
+                    "kwargs": {"device": str(dev), "num_epochs": EPOCHS}},
+    }
+
+
+def vsr_serving(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line) -> dict:
+    """Phase 17: DRF and FRVSR serve the tree's whole test sequences; then
+    FRVSR with the ``_tpu`` config's knobs (bf16, ``max_flow: 4``); the fp32
+    clips against the CPU and every FRVSR clip against ``FRVSRStream``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        telemetry,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.streaming import (
+        FRVSRStream,
+    )
+
+    results, clips = {}, SLICES
+    for key, name, kwargs, pred_kwargs in VSR_SERVE:
+        ckpt = tmp / f"{name}.pth"
+        if not ckpt.exists():
+            net = getattr(models, name)(**VSR_NETS[name], generator=torch.Generator().manual_seed(0))
+            torch.save({"net": net.state_dict()}, ckpt)
+        cfg = Cfg(vsr_eval_config(tree, name, kwargs, ckpt, tmp / f"test_{key}", dev,
+                                  **pred_kwargs))
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pred = port_main.test_from_config(cfg)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{key} serving launched the gate kernels {launches(lstm_gates)}")
+        frames = pred.throughput["frames"]
+        if frames != CYCLE * clips or not all(math.isfinite(v) for v in pred.log.values()):
+            raise AssertionError(f"{key} serving scored {frames} frames: {pred.log}")
+        n_params = sum(p.numel() for p in pred.net.parameters())
+        log("vsr eval", f"{key} {kwargs} {pred_kwargs}: {n_params:,} params; Test log {pred.log}")
+        tel_line = telemetry.format_summary(pred.telemetry_summary)
+        if "max_flow" in kwargs:
+            if sorted(pred.telemetry_summary) != ["lr_flow_window", "sr_flow_window"]:
+                raise AssertionError(f"{key}: telemetry sites {sorted(pred.telemetry_summary)}")
+            log("vsr eval", f"{key}: Windowed-op telemetry: {tel_line}")
+
+        # one clip on the card; the fp32 ones against the same weights on
+        # the CPU, every FRVSR one against the stream fed frame by frame
+        item = pred.test_dataloader.dataset[0]
+        lr = torch.from_numpy(item["lr_imgs"][None])
+        with torch.inference_mode():
+            on_card = pred._forward(lr.to(dev))
+        gap = None
+        if pred.compute_dtype is None:
+            cpu_pred = copy.copy(pred)
+            cpu_pred.net = copy.deepcopy(pred.net).cpu()
+            with torch.inference_mode():
+                on_cpu = cpu_pred._forward(lr)
+            gap = ((on_card.cpu() - on_cpu).abs().max() / on_cpu.abs().max()).item()
+            del cpu_pred
+            if tuple(on_card.shape) != (1, CYCLE, HR, HR, 1) or not gap <= TOL_SISR_CARD_CPU:
+                raise AssertionError(f"{key}: card vs CPU {gap:.3e} of the largest value, "
+                                     f"shape {tuple(on_card.shape)}")
+        stream_gap = None
+        if name == "FRVSRNet":
+            stream = FRVSRStream(pred.net, compute_dtype=pred_kwargs.get("compute_dtype"))
+            pushed = torch.stack([stream.push(lr[:, t].to(dev)) for t in range(CYCLE)], dim=1)
+            stream_gap = ((pushed - on_card).abs().max() / on_card.abs().max()).item()
+            if not stream_gap <= TOL_STREAM:
+                raise AssertionError(f"{key}: FRVSRStream vs the clip forward {stream_gap:.3e}")
+            del stream, pushed
+        # the device's busy share in the predictor's own step on a warm clip
+        batch = next(iter(pred.test_dataloader))
+        patient = pred._item_meta(int(batch["index"][0]))[0]
+        masks = pred._metric_masks(patient, (HR, HR))
+        busy = device_busy(lambda: pred._step(batch, masks))
+        flops = forward_flops(pred.net, lr.to(dev))
+        nbytes = 4 * (lr.numel() + CYCLE * HR * HR + n_params)  # input, output, weights once
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        log("vsr eval", f"{key}: frames/s {pred.throughput['frames_per_sec']:.2f} over {frames} "
+                        f"frames ({clips} clips of {CYCLE}); warm clip {busy[0]:.3f} ms (median of "
+                        f"3 predictor steps), {busy[0] / CYCLE:.3f} ms a frame; item seconds "
+                        f"{[round(x, 4) for x in pred.item_seconds]}; test_from_config wall "
+                        f"{wall:.2f} s; peak device memory {peak / 2**30:.3f} GiB "
+                        f"({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held before); "
+                        f"{flops:.4g} operations a clip, bound {bound:.3f} ms ({bound_by}), "
+                        f"{bound / busy[0]:.1%} of it; card vs CPU "
+                        f"{'not run (bf16)' if gap is None else f'{gap:.3e}'} of the largest "
+                        f"value (tol {TOL_SISR_CARD_CPU}); stream vs clip "
+                        f"{'n/a' if stream_gap is None else f'{stream_gap:.3e}'} (tol {TOL_STREAM})")
+        log("vsr eval", f"{key}: predictor step on a warm clip: {busy[2]} kernels {busy[1]:.3f} ms, "
+                        f"device busy {busy[1] / busy[0]:.1%}; the bound is "
+                        f"{bound / busy[1]:.1%} of the kernel time")
+        results[key] = {"frames_per_sec": pred.throughput["frames_per_sec"],
+                        "clip_ms": busy[0], "item_ms": [x * 1e3 for x in pred.item_seconds],
+                        "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                        "flops_per_clip": flops, "bound_ms": bound, "bound_by": bound_by,
+                        "card_vs_cpu_rel": gap, "stream_vs_clip_rel": stream_gap,
+                        "log": pred.log, "telemetry": pred.telemetry_summary, "wall_s": wall,
+                        "step_kernel_ms": busy[1], "step_kernels": busy[2]}
+        del pred, on_card
+    fp32, bf16 = results["FRVSRNet"]["log"], results["FRVSRNet_tpu"]["log"]
+    gaps = {k: bf16[k] - fp32[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
+    log("vsr eval", f"FRVSR bf16 + max_flow 4 - fp32: {gaps} (bound |dPSNR| < "
+                    f"{TOL_FRVSR_BF16_DPSNR}, |dSSIM| < {TOL_FRVSR_BF16_DSSIM})")
+    if not all(abs(v) < (TOL_FRVSR_BF16_DPSNR if "PSNR" in k else TOL_FRVSR_BF16_DSSIM)
+               for k, v in gaps.items()):
+        raise AssertionError(f"bf16 FRVSR serving left the bound of the fp32 run: {gaps}")
+    results["frvsr_bf16_minus_fp32"] = gaps
+    print(json.dumps({"vsr_serving": results, "card": card_line}), flush=True)
+    return results
+
+
+def vsr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, card_line) -> dict:
+    """Phase 18: DRF and FRVSR train on the tree's windows."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+
+    results = {}
+    for name, (batch_size, frames, _) in VSR_TRAIN.items():
+        saved = tmp / f"train_{name}"
+        held = torch.cuda.memory_allocated(dev)  # by the earlier phases
+        reset_launches(lstm_gates)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = port_main.train_from_config(Cfg(vsr_train_config(tree, name, saved, dev)))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches(lstm_gates) != (0, 0, 0, 0):
+            raise AssertionError(f"{name} training launched the gate kernels {launches(lstm_gates)}")
+        history = trainer.history["train"] + trainer.history["valid"]
+        if len(trainer.history["train"]) != EPOCHS or not all(
+                math.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"{name} training logs incomplete or non-finite: {trainer.history}")
+        if not list((saved / "log").rglob("events.out.tfevents.*")):
+            raise AssertionError(f"{name}: the logger wrote no event file")
+        for epoch, (t_log, v_log) in enumerate(zip(trainer.history["train"],
+                                                   trainer.history["valid"]), 1):
+            log("vsr train", f"{name} epoch {epoch}: Train log {t_log}; Valid log {v_log}")
+        ckpts = saved / "checkpoints"
+        best = load_checkpoint(ckpts / "model_best.pth")
+        reloaded = getattr(models, name)(**VSR_NETS[name])
+        reloaded.load_state_dict(best["net"], strict=True)
+        final = load_checkpoint(ckpts / f"model_{EPOCHS}.pth")["net"]
+        if not all(torch.equal(final[k], v.cpu()) for k, v in trainer.net.state_dict().items()):
+            raise AssertionError(f"{name}: the final checkpoint differs from the trainer's weights")
+        if {p.dtype for p in trainer.net.parameters()} != {torch.float32}:
+            raise AssertionError(f"{name}: the masters left fp32")
+        tp = trainer.throughput  # of the last epoch: every step warm
+        step_ms = 1e3 / tp["train_steps_per_sec"]
+        # forward + backward ≈ 3 forwards at the full batch's shape
+        x = torch.zeros(batch_size, frames, PATCH, PATCH, 1, device=dev)
+        flops = 3 * forward_flops(trainer.net, x)
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        # batch in and out, weights read and written, Adam's two moments read and written
+        nbytes = 4 * (x.numel() + batch_size * frames * (PATCH * SCALE) ** 2 + 6 * n_params)
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        steps = math.ceil(2 * 2 * CYCLE / batch_size)
+        log("vsr train", f"{name}: model_best.pth (epoch {best['epoch']}) reloads, "
+                         f"model_{EPOCHS}.pth equals the trainer's weights")
+        print(f"vsr training {name}: {tp['train_steps_per_sec']:.4f} steps/s, "
+              f"{tp['frames_per_sec']:.2f} LR frames/s, {step_ms:.2f} ms a step (epoch {EPOCHS}: "
+              f"{steps} warm steps of {batch_size} windows x {frames} frames, the last of "
+              f"{2 * 2 * CYCLE - (steps - 1) * batch_size}, and the valid epoch not in it), peak "
+              f"device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+              f"{held / 2**30:.3f} held before), train_from_config wall {wall:.1f} s; "
+              f"{flops:.4g} operations a step, bound {bound:.3f} ms ({bound_by}), "
+              f"{bound / step_ms:.1%} of it", flush=True)
+        results[name] = {"steps_per_sec": tp["train_steps_per_sec"],
+                         "frames_per_sec": tp["frames_per_sec"], "step_ms": step_ms,
+                         "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                         "flops_per_step": flops, "bound_ms": bound, "bound_by": bound_by,
+                         "wall_s": wall, "best_epoch": best["epoch"], "batch": batch_size,
+                         "frames": frames}
+        del trainer
+    print(json.dumps({"vsr_training": results, "card": card_line}), flush=True)
     return results
 
 
@@ -1608,17 +1931,23 @@ def main() -> int:
     # ---------------------------------------------- 15-16 the multi-frame family
     misr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
     misr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line, bf16_peak)
+
+    # ------------------------------------------ 17-18 the plain video family
+    vsr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
+    vsr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
-    # the single-image and multi-frame paths (phases 13-16) launch neither
-    # kernel: held there
+    # the single-image, multi-frame and plain video paths (phases 13-18)
+    # launch neither kernel: held there
     fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
                  "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled,
-                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0}
+                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
+                 "vsr_eval": 0, "vsr_train": 0}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
-                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0}
+                 "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
+                 "vsr_eval": 0, "vsr_train": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

@@ -1,5 +1,5 @@
 from . import datasets, transforms
-from .datasets import BaseDataset, MISRDataset, SISRDataset, VSRRefineNetDataset
+from .datasets import BaseDataset, MISRDataset, SISRDataset, VSRDataset, VSRRefineNetDataset
 from .loader import Dataloader, default_collate
 from .transforms import compose
 
@@ -9,6 +9,7 @@ __all__ = [
     "BaseDataset",
     "MISRDataset",
     "SISRDataset",
+    "VSRDataset",
     "VSRRefineNetDataset",
     "Dataloader",
     "default_collate",

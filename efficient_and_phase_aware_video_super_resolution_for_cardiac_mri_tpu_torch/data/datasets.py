@@ -1,8 +1,9 @@
 """Datasets of the ported paths (ACDC / DSB15 cardiac cine-MRI).
 
 The port's copies of the JAX package's ``SISRDataset`` (one 2D frame in,
-one out), ``MISRDataset`` (a window of frames in, its reference frame out)
-and ``VSRRefineNetDataset``: items are dicts of channel-last numpy arrays,
+one out), ``MISRDataset`` (a window of frames in, its reference frame out),
+``VSRDataset`` (a window or a whole sequence in, as many frames out) and
+``VSRRefineNetDataset``: items are dicts of channel-last numpy arrays,
 (H, W, C) frames and (T, H, W, C) windows with time as the leading axis,
 exactly as the JAX package yields them.  Train items run
 the config's augments with the ``rng`` the loader hands each item
@@ -216,6 +217,46 @@ class MISRDataset(_SRDatasetBase):
         return {"lr_imgs": np.stack(imgs[:half]), "hr_img": imgs[half + ref], "index": index}
 
 
+class VSRDataset(_SRDatasetBase):
+    """Video SR (reference ``acdc_vsr_dataset.py``): training items are
+    per-(sequence, t) windows of ``num_frames`` around t (``_bounds``, with
+    the circular wrap of ``_window``), valid and test items whole
+    sequences; ``{"lr_imgs": (T, h, w, C), "hr_imgs": (T, H, W, C),
+    "index"}``."""
+
+    def __init__(self, *args, num_frames=5, temporal_order="last", **kwargs):
+        super().__init__(*args, **kwargs)
+        if temporal_order not in ("last", "middle"):
+            raise ValueError(f"temporal_order must be 'last' or 'middle'; got {temporal_order}.")
+        self.num_frames = num_frames
+        self.temporal_order = temporal_order
+        pairs = self._paired_paths()
+        if self.type == "train":
+            self.data = []
+            for lr_path, hr_path in pairs:
+                T = nifti.read_header(lr_path)["shape"][-1]
+                self.data.extend((lr_path, hr_path, t) for t in range(T))
+        else:
+            self.data = pairs
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index, rng=None):
+        if self.type == "train":
+            lr_path, hr_path, t = self.data[index]
+            start, end = self._bounds(t)
+            lr = _window(start, end, _VOLUMES.get(lr_path))
+            hr = _window(start, end, _VOLUMES.get(hr_path))
+        else:
+            lr_path, hr_path = self.data[index]
+            lr, hr = _VOLUMES.get(lr_path), _VOLUMES.get(hr_path)
+        imgs = self._apply(_frames(lr) + _frames(hr), rng)
+        half = len(imgs) // 2
+        return {"lr_imgs": np.stack(imgs[:half]), "hr_imgs": np.stack(imgs[half:]),
+                "index": index}
+
+
 class VSRRefineNetDataset(_SRDatasetBase):
     """RefineNet VSR: phase codes + ×3 circular tiling + warm-up margins.
 
@@ -284,6 +325,6 @@ class VSRRefineNetDataset(_SRDatasetBase):
 
 
 for _workload, _cls in (("SISRDataset", SISRDataset), ("MISRDataset", MISRDataset),
-                       ("VSRRefineNetDataset", VSRRefineNetDataset)):
+                       ("VSRDataset", VSRDataset), ("VSRRefineNetDataset", VSRRefineNetDataset)):
     DATASETS.add(f"Acdc{_workload}", _cls)
     DATASETS.add(f"Dsb15{_workload}", _cls)

@@ -2,9 +2,9 @@
 
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main CONFIG [--test]
 
-The reference's RefineNet, single-image (Bicubic, EDSR, SRFB) and
-multi-frame (DUF, RBPN, TOFlow) ``configs/train|test/**.yaml`` files load
-unchanged.  The device is the
+The reference's RefineNet, single-image (Bicubic, EDSR, SRFB), multi-frame
+(DUF, RBPN, TOFlow) and plain video (DRF, FRVSR) ``configs/train|test/**.yaml``
+files load unchanged.  The device is the
 trainer's or the predictor's ``device`` kwarg: ``cuda:0`` (or any ``cuda``)
 is the card, ``cpu`` the CPU, and no device means ``cuda``.  A CUDA device on a machine without one raises; nothing
 falls back to the CPU.  On the card the fp32 path keeps TF32 off for

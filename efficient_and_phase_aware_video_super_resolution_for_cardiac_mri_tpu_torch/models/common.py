@@ -13,8 +13,9 @@ Initialisation is torch's default, ``U(-1/√fan_in, 1/√fan_in)`` on weight
 and bias, with ``fan_in = C_in·kh·kw`` (``C_in·kd·kh·kw`` in 3D) for a conv
 and ``C_out·kh·kw`` for a transposed conv (what the JAX package's
 ``ops/torch_init.py`` and ``ConvTransposeTorch`` mimic), drawn from an
-explicit ``torch.Generator``; BatchNorm starts at weight 1, bias 0, running
-mean 0 and variance 1.
+explicit ``torch.Generator``; FRVSR redraws its kernels Xavier-uniform
+(``init_xavier_``, the JAX package's ``xavier_conv_init``).  BatchNorm
+starts at weight 1, bias 0, running mean 0 and variance 1.
 """
 from __future__ import annotations
 
@@ -30,6 +31,24 @@ def init_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator)
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         return tensor.uniform_(-bound, bound, generator=generator)
+
+
+def init_xavier_(tensor: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """In place ``nn.init.xavier_uniform_`` (gain 1) from ``generator``:
+    ``U(±√(6 / (fan_in + fan_out)))``, the fans of a conv's or a transposed
+    conv's weight summing to (C_in + C_out)·kh·kw either way."""
+    with torch.no_grad():
+        return nn.init.xavier_uniform_(tensor, generator=generator)
+
+
+class PromotedConv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the promoted dtype of its input and its parameters,
+    as flax's ``nn.Conv`` computes: under ``compute_dtype: bfloat16`` a
+    conv fed an fp32 resize product runs in fp32 on bf16-rounded weights."""
+
+    def forward(self, x):
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
 
 def conv2d(in_features: int, features: int, kernel_size: int,
@@ -96,8 +115,11 @@ def pad_to_multiple(x: torch.Tensor, mult: int, dims=(-3, -2)):
 
 
 def conv_transpose2d(in_features: int, features: int, kernel_size: int, stride: int,
-                     padding: int, generator: torch.Generator) -> nn.ConvTranspose2d:
-    """``nn.ConvTranspose2d(k, s, p)``: out = (in-1)·s − 2p + k.
+                     padding: int, generator: torch.Generator,
+                     output_padding: int = 0) -> nn.ConvTranspose2d:
+    """``nn.ConvTranspose2d(k, s, p, output_padding)``: out = (in-1)·s − 2p
+    + k + output_padding (the extra rows and columns at the bottom and
+    right, as the JAX package's ``ConvTransposeTorch`` pads them).
 
     The JAX package's ``ConvTransposeTorch`` computes the same map as an
     input-dilated conv that flips its stored (kh, kw, in, out) kernel inside
@@ -105,7 +127,7 @@ def conv_transpose2d(in_features: int, features: int, kernel_size: int, stride: 
     permuted, with no flip.  torch's default init uses
     ``fan_in = out·k²`` (weight dim 1)."""
     deconv = nn.ConvTranspose2d(in_features, features, kernel_size, stride=stride,
-                                padding=padding)
+                                padding=padding, output_padding=output_padding)
     fan_in = features * kernel_size * kernel_size
     init_uniform_(deconv.weight, fan_in, generator)
     init_uniform_(deconv.bias, fan_in, generator)

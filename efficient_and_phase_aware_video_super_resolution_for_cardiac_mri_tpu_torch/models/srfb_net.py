@@ -1,17 +1,19 @@
-"""SRFBN feedback SISR and its DRF variant (reference ``src/model/nets/srfb_net.py``,
-``drf_sisr_net.py``), PyTorch.
+"""SRFBN feedback SISR and its DRF variants (reference ``src/model/nets/srfb_net.py``,
+``drf_sisr_net.py``, ``drf_net.py``), PyTorch.
 
-The feedback block's mutable ``hidden_state`` is an explicit carry over
-``num_steps`` unrolled steps; each net returns the list of per-step
-outputs.  Channels-last at the boundary, (B, h, w, C) → (B, rh, rw, C),
-NCHW inside.  Module names give the reference's ``state_dict`` keys (the
-JAX package's ``utils/torch_import._srfb_like_key_map``).  The video
-variant, DRFNet, is not ported yet.
+The feedback block's mutable ``hidden_state`` is an explicit carry: the
+single-image nets unroll it over ``num_steps`` and return the list of
+per-step outputs; the video net, DRFNet, carries it across the frames.
+Channels-last at the boundary, (B, h, w, C) → (B, rh, rw, C) and (B, T,
+h, w, C) → (B, T, rh, rw, C), NCHW inside.  Module names give the
+reference's ``state_dict`` keys (the JAX package's
+``utils/torch_import._srfb_like_key_map``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import upsample_bilinear
 from .common import (
@@ -20,7 +22,9 @@ from .common import (
     UpsampleBlock,
     conv2d,
     conv_transpose2d,
+    fold_time,
     to_conv_layout,
+    unfold_time,
 )
 
 
@@ -179,3 +183,48 @@ class DRFSISRNet(nn.Module):
             hidden = self.f_block(features, hidden)
             outputs.append(self.out_block(features + hidden).permute(0, 2, 3, 1))
         return outputs
+
+
+class DRFNet(nn.Module):
+    """DRFSISRNet unrolled over video frames (reference ``drf_net.py:8-147``):
+    (B, T, h, w, C) → (B, T, rh, rw, C).  The LR features of every frame
+    come from one folded ``in_block`` call; frame t's feedback step reads
+    the hidden state frame t−1 left, and frame 0 reads its own features
+    (the JAX package's ``jnp.where(first, f, hidden)``).
+
+    ``remat``: each frame step (feedback block and upsampler) is a
+    non-reentrant ``torch.utils.checkpoint`` under autograd, so the
+    backward keeps only the hidden states across frames and recomputes
+    the rest (the JAX package's ``nn.remat`` of ``_DRFStep``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_features: int, num_groups: int,
+                 upscale_factor: int, remat: bool = False, generator: torch.Generator | None = None):
+        super().__init__()
+        _check_factor(upscale_factor)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.remat = remat
+        self.in_block = _LRFBlock(in_channels, num_features, generator)
+        self.f_block = _FBlock(num_features, num_groups, upscale_factor, generator)
+        self.out_block = UpsampleBlock(num_features, out_channels, upscale_factor, generator)
+
+    def step(self, f: torch.Tensor, hidden: torch.Tensor):
+        """One frame: its features and the incoming hidden state → (the new
+        hidden state, the SR frame (B, C, rh, rw))."""
+        hidden = self.f_block(f, hidden)
+        return hidden, self.out_block(f + hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, spec = fold_time(x)
+        feats = unfold_time(self.in_block(to_conv_layout(y)), spec)
+        remat = self.remat and torch.is_grad_enabled()
+        hidden, outs = feats[:, 0], []
+        for t in range(feats.shape[1]):
+            if remat:
+                # the step is deterministic: no RNG state to stash and restore
+                hidden, out = checkpoint(self.step, feats[:, t], hidden, use_reentrant=False,
+                                         preserve_rng_state=False)
+            else:
+                hidden, out = self.step(feats[:, t], hidden)
+            outs.append(out.permute(0, 2, 3, 1))
+        return torch.stack(outs, dim=1)

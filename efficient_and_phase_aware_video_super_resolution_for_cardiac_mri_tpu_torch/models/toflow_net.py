@@ -20,6 +20,11 @@ dtype of its input and its parameters, as flax's ``nn.Conv`` does: under
 ``compute_dtype: bfloat16`` the net runs in fp32 on bf16-rounded weights and
 inputs, as the JAX package's does.
 
+Under ``max_flow`` every upsampled pyramid flow and every final flow is a
+telemetry site (``ops/telemetry.py``: ``spy_net/pyramid_flow_window`` and
+``flow_window``, the JAX package's ``_sow_flow``), recorded only inside
+``telemetry.collect``.
+
 Channels-last at the boundary, (B, T, h, w, C) → (B, rh, rw, C); NCHW
 inside, flows (B, H, W, 2).  Keys: ``spy_net.blocks.{i}.block.{0,1,3,4,6,7,
 9,10,12}`` and ``out_block.{0,2,4,6}`` (the JAX package's
@@ -31,17 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import telemetry
 from ..ops.resize import resize_bilinear, upsample_bicubic
 from ..ops.warp import flow_warp
-from .common import batch_norm, conv2d, pad_to_multiple
-
-
-class _Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in the promoted dtype of its input and its parameters."""
-
-    def forward(self, x):
-        dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+from .common import PromotedConv2d, batch_norm, conv2d, pad_to_multiple
 
 
 class _BatchNorm2d(nn.BatchNorm2d):
@@ -64,8 +62,16 @@ class _BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _record_flow(module: nn.Module, name: str, bound: int | None, flow: torch.Tensor) -> None:
+    """|flow| in pixels against the ``max_flow`` exactness bound; nothing is
+    computed unless collecting."""
+    if bound is not None and telemetry.collecting(module):
+        telemetry.record_triple(module, name, telemetry.exceedance_triple(
+            bound, flow[..., 0].abs(), flow[..., 1].abs()))
+
+
 def _conv(in_features: int, features: int, kernel_size: int, generator: torch.Generator):
-    return conv2d(in_features, features, kernel_size, generator, cls=_Conv2d)
+    return conv2d(in_features, features, kernel_size, generator, cls=PromotedConv2d)
 
 
 def _bn(features: int) -> _BatchNorm2d:
@@ -108,6 +114,7 @@ class SpyNet(nn.Module):
         for block, r, n in zip(self.blocks, refs, nbrs):
             h, w = flow.shape[1] * 2, flow.shape[2] * 2
             flow_up = resize_bilinear(flow, (h, w), align_corners=True) * 2.0
+            _record_flow(self, "pyramid_flow_window", self.max_flow, flow_up)
             feats = torch.cat([r, flow_warp(n, flow_up, max_flow=self.max_flow),
                                flow_up.permute(0, 3, 1, 2)], dim=1)
             flow = flow_up + block(feats).permute(0, 2, 3, 1)
@@ -146,14 +153,20 @@ class TOFlowNet(nn.Module):
         x = x.permute(0, 1, 4, 2, 3).contiguous()  # (B, T, C, H, W)
         x_ref = x[:, ref_idx]
         if self.training:
-            warped = [x_ref if i == ref_idx else
-                      flow_warp(x[:, i], self.spy_net(x_ref, x[:, i]), max_flow=self.max_flow)
-                      for i in range(T)]
+            warped = []
+            for i in range(T):
+                if i == ref_idx:
+                    warped.append(x_ref)
+                    continue
+                flow = self.spy_net(x_ref, x[:, i])
+                _record_flow(self, "flow_window", self.max_flow, flow)
+                warped.append(flow_warp(x[:, i], flow, max_flow=self.max_flow))
         else:
             nbr_idx = [i for i in range(T) if i != ref_idx]
             n = len(nbr_idx)
             flat = x[:, nbr_idx].reshape(B * n, C, H, W)
             flows = self.spy_net(x_ref.repeat_interleave(n, dim=0), flat)
+            _record_flow(self, "flow_window", self.max_flow, flows)
             warped_nbrs = flow_warp(flat, flows, max_flow=self.max_flow).reshape(B, n, C, H, W)
             nbr_of = {i: k for k, i in enumerate(nbr_idx)}
             warped = [x_ref if i == ref_idx else warped_nbrs[:, nbr_of[i]] for i in range(T)]

@@ -104,7 +104,8 @@ def seam_probe_plan(plan_h, plan_w, tile_hw, overlap: int, h: int, w: int) -> li
     return sorted(set(probes))
 
 
-def tiled_apply(tile_fn, inputs, tile_hw, overlap: int, seam_stats: bool = False):
+def tiled_apply(tile_fn, inputs, tile_hw, overlap: int, seam_stats: bool = False,
+                probe_fn=None):
     """Run ``tile_fn`` (the network forward returning one HR tensor) over
     fixed-shape windows of ``inputs`` and stitch the owned cores.
 
@@ -117,6 +118,8 @@ def tiled_apply(tile_fn, inputs, tile_hw, overlap: int, seam_stats: bool = False
       ownership boundaries and compare their valid cores with the stitched
       output; returns ``(out, {"n_probes", "rms", "max_abs"})`` in output
       units, with ``None`` for the stats when the plan has one window.
+    - ``probe_fn``: the forward of the probe windows (default ``tile_fn``),
+      so a caller can keep their side effects (telemetry) apart.
     """
     th, tw = int(tile_hw[0]), int(tile_hw[1])
     arrays = list(inputs)
@@ -146,7 +149,7 @@ def tiled_apply(tile_fn, inputs, tile_hw, overlap: int, seam_stats: bool = False
     outs = [tile_fn(*_window_args(hs, ws)) for (hs, _, _), (ws, _, _) in plan]
     probe_plan = (seam_probe_plan(plan_h, plan_w, (th, tw), overlap, h, w)
                   if seam_stats else [])
-    probe_outs = [tile_fn(*_window_args(phs, pws)) for phs, pws in probe_plan]
+    probe_outs = [(probe_fn or tile_fn)(*_window_args(phs, pws)) for phs, pws in probe_plan]
 
     first = outs[0]
     oth, otw = first.shape[-3], first.shape[-2]

@@ -17,11 +17,19 @@ The port's copy of the JAX package's ``ops/warp.py`` for TOFlow:
   is clamped to the window ('border').  ``flow_warp(max_flow=R)`` takes it
   with the window widened for the chain's rescale and shift.
 
+* ``stn_warp``: FRVSR's STN warp (reference ``frvsr_net.py:209-226``), a
+  normalised flow added to a ``linspace(-1, 1)`` mesh and sampled with
+  ``align_corners=False``; ``max_flow=R`` takes the windowed path with the
+  window widened by one for the mesh's sub-pixel offset.
+
 Images are (B, C, H, W); a grid or a flow is (B, H, W, 2) with x first, as
-``F.grid_sample`` takes its grid.  FRVSR's ``stn_warp`` is not ported yet.
+``F.grid_sample`` takes its grid.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -99,4 +107,37 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros",
             _ceil_div(2 * max_flow * H + H - 1, 2 * H - 2) if H > 1 else max_flow,
         )
         return windowed_sample(x, sy - grid_y, sx - grid_x, win, padding_mode)
+    return grid_sample(x, torch.stack([gx, gy], dim=-1), padding_mode, align_corners=False)
+
+
+@functools.lru_cache(maxsize=64)
+def _mesh(size: int, device: torch.device) -> torch.Tensor:
+    """``np.linspace(-1, 1, size)`` in f64 cast to f32 on ``device``, the
+    reference's mesh bit for bit (``frvsr_net.py:211-212``; a device
+    ``torch.linspace`` in f32 is 1 ulp off, which the recurrent warp
+    amplifies over training steps).  Uploaded once per size, outside
+    inference mode (see ``ops/resize._device_matrix``)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.linspace(-1.0, 1.0, size).astype(np.float32)).to(device)
+
+
+def stn_warp(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, padding_mode: str = "border",
+             max_flow: int | None = None) -> torch.Tensor:
+    """FRVSR's STN warp: x (B, C, H, W); u, v (B, H, W) normalised flow
+    added to the mesh, then sampled with ``align_corners=False`` → (B, C,
+    H, W) in ``x.dtype``.
+
+    ``max_flow=R`` takes the windowed path, exact while the pixel flow
+    (normalised flow · size/2) stays within R: the mesh's offset from the
+    pixel centres is a position-dependent shift in (−0.5, +0.5], so the
+    window is R + 1."""
+    B, C, H, W = x.shape
+    gx = _mesh(W, x.device)[None, None, :] + u.float()
+    gy = _mesh(H, x.device)[None, :, None] + v.float()
+    if max_flow is not None:
+        sx = ((gx + 1.0) * W - 1.0) / 2.0
+        sy = ((gy + 1.0) * H - 1.0) / 2.0
+        grid_x = torch.arange(W, dtype=torch.float32, device=x.device)[None, None, :]
+        grid_y = torch.arange(H, dtype=torch.float32, device=x.device)[None, :, None]
+        return windowed_sample(x, sy - grid_y, sx - grid_x, max_flow + 1, padding_mode)
     return grid_sample(x, torch.stack([gx, gy], dim=-1), padding_mode, align_corners=False)

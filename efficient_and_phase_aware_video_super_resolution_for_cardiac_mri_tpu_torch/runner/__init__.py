@@ -1,3 +1,4 @@
-from . import checkpoint, common, loggers, monitor, optim, predictors, trainers
+from . import checkpoint, common, loggers, monitor, optim, predictors, streaming, trainers
 
-__all__ = ["checkpoint", "common", "loggers", "monitor", "optim", "predictors", "trainers"]
+__all__ = ["checkpoint", "common", "loggers", "monitor", "optim", "predictors", "streaming",
+           "trainers"]

@@ -1,8 +1,8 @@
 """Predictors: test-time evaluation and export.
 
 The port's counterpart of the JAX package's ``runner/predictors.py`` for the
-RefineNet eval path, the single-image family (SISR, SISRSRFB) and the
-multi-frame family (MISR).  The
+RefineNet eval path, the single-image family (SISR, SISRSRFB), the
+multi-frame family (MISR) and the plain video family (VSR, FRVSR).  The
 contract is the reference's: batch size 1, per-frame loss/metric tables,
 Cardiac* metrics routed with the patient name parsed from the dataset path,
 CSV / GIF / PNG export, and the log weighted by sequence length.
@@ -21,12 +21,20 @@ The JAX package's serving knobs, each computing what it computes there:
   windows (``ops/tiling.py``), the first item of each (H, W) also through
   seam probes whose disagreement is logged in gray levels.
 * ``aot_cache``: accepted and logged; the port compiles nothing per shape.
+* ``telemetry`` (on by default) / ``telemetry_warn_frac``: each item's
+  forward collects the windowed call sites' exceedance triples
+  (``ops/telemetry.py``; nets without ``max_flow`` record none, a tiled
+  item merges its windows' and drops its seam probes'), fetched with the
+  item's scores; an item whose out-of-window fraction exceeds
+  ``telemetry_warn_frac`` logs a warning naming its file, and the run's
+  aggregate is logged as ``Windowed-op telemetry``.
 
-``pad_h``, ``export_nifti`` and ``telemetry_warn_frac`` are still to port:
-a config that sets one of them raises ``NotImplementedError``.
+``pad_h`` and ``export_nifti`` are still to port: a config that sets one
+of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import logging
 import time
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import PREDICTORS
+from ..ops import telemetry as tel
 from ..ops.tiling import tiled_apply
 from ..utils import casting
 from ..utils.stats import get_stats
@@ -49,7 +58,6 @@ LOG = logging.getLogger(__name__)
 DEFERRED_KNOBS = {
     "pad_h": False,
     "export_nifti": False,
-    "telemetry_warn_frac": 0.0,
 }
 
 
@@ -84,6 +92,7 @@ class BasePredictor:
         exported=False,
         dataset_stats: str | None = None,
         telemetry: bool = True,
+        telemetry_warn_frac: float = 0.0,
         t_bucket: int = 0,
         compute_dtype: str | None = None,
         aot_cache: str | None = None,
@@ -129,10 +138,11 @@ class BasePredictor:
                 raise NotImplementedError(
                     f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet"
                 )
-        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset): TOFlow's
-        # max_flow runs here, its report (``ops/telemetry.py``) is ROADMAP
-        # item 12, so the knob is accepted and does nothing yet
         self.device = torch.device(device)
+        self.telemetry = bool(telemetry)
+        self.telemetry_warn_frac = float(telemetry_warn_frac)
+        #: the run's per-site aggregate of the items' telemetry summaries
+        self.telemetry_summary: dict = {}
         #: 0 = off; else the time axis is padded to multiples of it
         self.t_bucket = int(t_bucket or 0)
         self.compute_dtype = casting.resolve_dtype(compute_dtype)
@@ -234,22 +244,29 @@ class BasePredictor:
     def _step(self, batch, masks):
         """One item on the device → host (total, losses (T, n_loss),
         metrics (T, n_metric), uint8 display frames when exporting, seam
-        stats of a tiled item that ran the probes)."""
+        stats of a tiled item that ran the probes, telemetry summary)."""
         inputs = [self._to_device(x) for x in self._model_inputs(batch)]
         target = self._to_device(self._targets(batch))
         seam = None
         state = casting.cast_state(self.net, self.compute_dtype)  # once for all windows
+        collector = tel.Collector()
 
         def forward(*window):
             return self._forward(*window, state=state)
 
-        if self._tile is None:
-            out = forward(*inputs)
-        elif self._want_seam(inputs):
-            out, seam = tiled_apply(forward, inputs, self._tile, self._tile_overlap,
-                                    seam_stats=True)
-        else:
-            out = tiled_apply(forward, inputs, self._tile, self._tile_overlap)
+        def probe(*window):
+            # a seam probe re-covers samples the windows counted: unrecorded
+            with collector.pause():
+                return forward(*window)
+
+        with tel.collect(self.net, collector) if self.telemetry else contextlib.nullcontext():
+            if self._tile is None:
+                out = forward(*inputs)
+            elif self._want_seam(inputs):
+                out, seam = tiled_apply(forward, inputs, self._tile, self._tile_overlap,
+                                        seam_stats=True, probe_fn=probe)
+            else:
+                out = tiled_apply(forward, inputs, self._tile, self._tile_overlap)
         losses = self._frame_losses(out, target)
         weights = torch.from_numpy(self.loss_weights).to(self.device)
         total = torch.sum(losses.mean(dim=0) * weights)
@@ -257,7 +274,8 @@ class BasePredictor:
         tgt_d = common.denorm_uint8(target, self.mean, self.std)
         metrics = self._frame_metrics(out_d, tgt_d, masks)
         frames = out_d.to(torch.uint8).cpu().numpy() if self.exported else None
-        return float(total), losses.cpu().numpy(), metrics.cpu().numpy(), frames, seam
+        summary = collector.summary()  # {} when nothing was recorded
+        return float(total), losses.cpu().numpy(), metrics.cpu().numpy(), frames, seam, summary
 
     def predict(self):
         self.net.to(self.device).eval()
@@ -280,8 +298,13 @@ class BasePredictor:
             batch, true_T = self._bucket_batch(batch)
             # bucketing pads time only: the masks see the true (H, W)
             masks = self._metric_masks(patient, np.shape(self._targets(batch))[-3:-1])
-            total, losses, metrics, out_d, seam = self._step(batch, masks)
+            total, losses, metrics, out_d, seam, summary = self._step(batch, masks)
             self.item_seconds.append(time.perf_counter() - t_item)
+            if summary:
+                # warn per item (one patient leaving the window is the
+                # actionable event); aggregate for the run's line
+                tel.check(summary, self.telemetry_warn_frac, context=filename)
+                tel.merge_summaries(self.telemetry_summary, summary)
             if seam:
                 self._log_seam(filename, seam)
             if true_T is not None:  # slice the wrapped frames back off
@@ -306,6 +329,8 @@ class BasePredictor:
             self._finish_export(results)
         for key in log:
             log[key] /= max(count, 1)
+        if self.telemetry_summary:
+            LOG.info("Windowed-op telemetry: %s.", tel.format_summary(self.telemetry_summary))
         if self.seam_summary:
             LOG.info(
                 "Tile seam (run max over %d items): rms=%.4f max=%.3f display units.",
@@ -498,6 +523,14 @@ class VSRPredictor(BasePredictor):
             _dump_image(imgs_dir / f"{sid.replace('sequence', 'slice')}_frame{t+1:0>2d}.png", sr)
 
 
+class FRVSRPredictor(VSRPredictor):
+    """FRVSR returns (SR frames, warped LR frames) unless ``is_prediction``:
+    the SR frames are scored."""
+
+    def _select_output(self, outputs):
+        return outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+
+
 class VSRRefineNetPredictor(VSRPredictor):
     """Feeds (lr, pos_code), evaluates the final fused stage ``outputs[-1]``
     (reference ``acdc_vsr_refinenet_predictor.py:15-183``)."""
@@ -510,5 +543,6 @@ class VSRRefineNetPredictor(VSRPredictor):
 
 
 for _workload, _cls in (("SISR", SISRPredictor), ("SISRSRFB", SISRSRFBPredictor),
-                       ("MISR", MISRPredictor), ("VSRRefineNet", VSRRefineNetPredictor)):
+                       ("MISR", MISRPredictor), ("VSR", VSRPredictor),
+                       ("VSRRefineNet", VSRRefineNetPredictor), ("FRVSR", FRVSRPredictor)):
     common.register_dataset_variants(PREDICTORS, _workload, "Predictor", _cls)

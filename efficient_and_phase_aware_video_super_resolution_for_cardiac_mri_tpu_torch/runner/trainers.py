@@ -1,8 +1,8 @@
 """Trainers: the epoch and step engine (reference ``src/runner/trainers/*``).
 
 The port's counterpart of the JAX package's ``runner/trainers.py`` for the
-RefineNet path, the single-image family (SISR, SISRSRFB) and the
-multi-frame family (MISR).  The epoch
+RefineNet path, the single-image family (SISR, SISRSRFB), the multi-frame
+family (MISR) and the plain video family (VSR, FRVSR).  The epoch
 protocol is the JAX package's, statement for statement
 (``base_trainer.py:46-97``): per-epoch numpy reseed and
 ``loader.set_epoch``, train epoch → valid epoch → lr step → logger →
@@ -34,12 +34,19 @@ The JAX package's trainer knobs, each computing what it computes there:
   device; image arrays travel as uint8/int16 where that is lossless (as
   bf16 for a fractional LR under bf16 compute) and are normalized there.
 * ``aot_cache``: accepted and logged; the port compiles nothing per shape.
+* ``telemetry`` / ``telemetry_warn_frac``: every valid epoch collects the
+  windowed call sites' exceedance triples (``ops/telemetry.py``; nets
+  without ``max_flow`` record none), fetches them once at the epoch's end,
+  logs ``Windowed-op telemetry (valid epoch N)`` and warns for a site whose
+  out-of-window fraction exceeds ``telemetry_warn_frac``.  The train step
+  never collects.
 
 The knobs still to port raise ``NotImplementedError`` naming their ROADMAP
 item when set to anything but their default.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import signal
 import time
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from ..config import TRAINERS
+from ..ops import telemetry as tel
 from ..utils import casting
 from ..utils.seeding import SeedState, seed_everything
 from ..utils.stats import get_stats
@@ -60,7 +68,6 @@ LOG = logging.getLogger(__name__)
 #: their default, and the ROADMAP queue-1 item that ports them
 DEFERRED_KNOBS = {
     "checkpoint_backend": ("pickle", 10),
-    "telemetry_warn_frac": (0.0, 12),
 }
 
 
@@ -87,6 +94,7 @@ class BaseTrainer:
         seed_state: SeedState | None = None,
         dataset_stats: str | None = None,
         telemetry: bool = True,
+        telemetry_warn_frac: float = 0.0,
         preempt_after_epochs: int = 0,
         preempt_after_seconds: float = 0.0,
         compute_dtype: str | None = None,
@@ -104,9 +112,6 @@ class BaseTrainer:
                     f"trainer knob {knob}={value!r} is not implemented in the PyTorch port yet "
                     f"(ROADMAP queue 1, item {item})"
                 )
-        # ``telemetry`` reports windowed ops (max_flow / dcn_max_offset): TOFlow's
-        # max_flow runs here, its report (``ops/telemetry.py``) is ROADMAP
-        # item 12, so the knob is accepted and does nothing yet
         self.device = torch.device(device)
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
@@ -135,6 +140,10 @@ class BaseTrainer:
         self.throughput = {"train_steps_per_sec": 0.0, "frames_per_sec": 0.0}
         #: per-epoch train/valid logs, in order
         self.history = {"train": [], "valid": []}
+        self.telemetry = bool(telemetry)
+        self.telemetry_warn_frac = float(telemetry_warn_frac)
+        self.telemetry_summary: dict = {}  # run aggregate across epochs
+        self.telemetry_history: list[dict] = []  # per-valid-epoch summaries
         # self-preemption budgets (SURVEY §5 failure recovery): once hit at an
         # epoch boundary, take the SIGTERM path (checkpoint
         # model_preempted.pth, clean exit); ``loaded_path: auto`` resumes.
@@ -158,8 +167,11 @@ class BaseTrainer:
     def _targets(self, batch):
         raise NotImplementedError
 
-    def _compute_losses(self, outputs, target, training: bool) -> list:
-        raise NotImplementedError
+    def _compute_losses(self, outputs, batch, training: bool) -> list:
+        """The losses of ``outputs`` against the fed (device) ``batch``: by
+        default each loss of the outputs against the targets."""
+        target = self._targets(batch)
+        return [fn(outputs, target) for fn in self.loss_fns]
 
     def _compute_metrics(self, outputs, target) -> list:
         raise NotImplementedError
@@ -258,7 +270,7 @@ class BaseTrainer:
         outputs = casting.forward_in(self.net, self.compute_dtype, *self._model_inputs(batch),
                                      state=state)
         target = self._targets(batch)
-        losses = self._compute_losses(outputs, target, training)
+        losses = self._compute_losses(outputs, batch, training)
         total = torch.sum(torch.stack(losses) * self.loss_weights)
         return total, losses, outputs, target
 
@@ -322,16 +334,20 @@ class BaseTrainer:
         count, steps, frames = 0.0, 0, 0
         batch = outputs = None
         acc = None  # [total, *losses, *metrics], weighted sums on the device
+        # the valid epoch's windowed-op telemetry, merged on the device
+        collector = tel.Collector()
+        collecting = self.telemetry and not training
         t0 = time.perf_counter()
-        for batch in loader:
-            step = self._train_step if training else self._eval_step
-            total, losses, metrics, outputs = step(batch)
-            w = float(self._log_weight(batch, mode))
-            values = torch.stack([total, *losses, *metrics]) * w
-            acc = values if acc is None else acc + values
-            count += w
-            steps += 1
-            frames += self._frame_count(batch)
+        with tel.collect(self.net, collector) if collecting else contextlib.nullcontext():
+            for batch in loader:
+                step = self._train_step if training else self._eval_step
+                total, losses, metrics, outputs = step(batch)
+                w = float(self._log_weight(batch, mode))
+                values = torch.stack([total, *losses, *metrics]) * w
+                acc = values if acc is None else acc + values
+                count += w
+                steps += 1
+                frames += self._frame_count(batch)
         log = common.init_log(self.loss_fns, self.metric_fns)
         if acc is not None:
             for key, val in zip(log, acc.tolist()):  # the epoch's one fetch
@@ -343,6 +359,13 @@ class BaseTrainer:
             self.throughput["frames_per_sec"] = frames / elapsed
         for key in log:
             log[key] /= max(count, 1)
+        summary = collector.summary()  # the epoch's one fetch of it; {} when none
+        if summary:
+            tel.check(summary, self.telemetry_warn_frac, context=f"valid epoch {self.epoch}")
+            tel.merge_summaries(self.telemetry_summary, summary)
+            self.telemetry_history.append(summary)
+            LOG.info("Windowed-op telemetry (valid epoch %d): %s.", self.epoch,
+                     tel.format_summary(summary))
         return log, batch, outputs
 
     def train(self):
@@ -491,9 +514,6 @@ class SISRTrainer(BaseTrainer):
     def _targets(self, batch):
         return batch["hr_img"]
 
-    def _compute_losses(self, outputs, target, training):
-        return [fn(outputs, target) for fn in self.loss_fns]
-
     def _compute_metrics(self, outputs, target):
         o, t = self._denorm(outputs), self._denorm(target)
         return [fn(o, t) for fn in self.metric_fns]
@@ -504,7 +524,8 @@ class SISRSRFBTrainer(SISRTrainer):
     over the steps, the metrics and the display use the last step
     (reference ``acdc_sisr_srfb_trainer.py:6-39``)."""
 
-    def _compute_losses(self, outputs, target, training):
+    def _compute_losses(self, outputs, batch, training):
+        target = self._targets(batch)
         return [torch.mean(torch.stack([fn(o, target) for o in outputs])) for fn in self.loss_fns]
 
     def _compute_metrics(self, outputs, target):
@@ -536,9 +557,6 @@ class VSRTrainer(BaseTrainer):
     def _log_weight(self, batch, mode):
         return super()._log_weight(batch, mode) * batch["lr_imgs"].shape[1]
 
-    def _compute_losses(self, outputs, target, training):
-        return [fn(outputs, target) for fn in self.loss_fns]
-
     def _compute_metrics(self, outputs, target):
         o, t = self._denorm(outputs), self._denorm(target)
         return [_per_frame_metric(fn, o, t) for fn in self.metric_fns]
@@ -556,7 +574,8 @@ class VSRRefineNetTrainer(VSRTrainer):
     def _model_inputs(self, batch):
         return (batch["lr_imgs"], batch["pos_code"])
 
-    def _compute_losses(self, outputs, target, training):
+    def _compute_losses(self, outputs, batch, training):
+        target = self._targets(batch)
         if training:
             num_stages = len(outputs) // 3
             return [
@@ -575,6 +594,27 @@ class VSRRefineNetTrainer(VSRTrainer):
         return outputs[-1]
 
 
+class FRVSRTrainer(VSRTrainer):
+    """Frame-recurrent VSR (reference ``acdc_frvsr_trainer.py:9-124``): the
+    net returns (SR frames, previous LR frames warped to each frame);
+    ``FlowLoss`` compares the warped LR frames with the batch's LR frames,
+    every other loss the SR frames with the HR frames; metrics and the
+    display use the SR frames."""
+
+    def _compute_losses(self, outputs, batch, training):
+        sr_imgs, lr_warped = outputs
+        target = self._targets(batch)
+        return [fn(lr_warped, batch["lr_imgs"]) if fn.name == "FlowLoss" else fn(sr_imgs, target)
+                for fn in self.loss_fns]
+
+    def _compute_metrics(self, outputs, target):
+        return super()._compute_metrics(outputs[0], target)
+
+    def _display_outputs(self, outputs):
+        return outputs[0]
+
+
 for _workload, _cls in (("SISR", SISRTrainer), ("SISRSRFB", SISRSRFBTrainer),
-                       ("MISR", MISRTrainer), ("VSRRefineNet", VSRRefineNetTrainer)):
+                       ("MISR", MISRTrainer), ("VSR", VSRTrainer),
+                       ("VSRRefineNet", VSRRefineNetTrainer), ("FRVSR", FRVSRTrainer)):
     common.register_dataset_variants(TRAINERS, _workload, "Trainer", _cls)

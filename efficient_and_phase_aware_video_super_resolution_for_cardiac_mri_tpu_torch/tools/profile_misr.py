@@ -1,18 +1,21 @@
-"""Where the multi-frame nets spend their time on the card.
+"""Where the multi-frame and plain video nets spend their time on the card.
 
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_misr \
-        [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu] [--modes eval train]
+        [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu DRFNet FRVSRNet FRVSRNet_tpu] \
+        [--modes eval train]
 
 Runs each net at its ``configs/{test,train}/<net>/exp1_x4.yaml`` width with
 seeded random weights, in fp32 with TF32 off, on the shapes of the serving
-and training paths: ``eval`` is one window of 7 LR 64×64 frames under
+and training paths: ``eval`` is one window of 7 LR 64×64 frames (a whole
+30-frame clip for the video nets, DRF and FRVSR) under
 ``torch.inference_mode()`` (the net in eval mode); ``train`` is one step
-of the trainer (the config's batch of 7 × 32×32 LR patches: forward, the
-config's loss, backward, Adam; the net in training mode).
+of the trainer (the config's batch of 32×32 LR patches, 7 frames, FRVSR's
+10: forward, the config's loss, backward, Adam; the net in training mode).
 ``TOFlowNet_tpu`` is ``configs/test/toflow_net/exp1_x4_tpu.yaml``
-(``max_flow: 4``, bf16 compute) and ``RBPNet_tpu``
+(``max_flow: 4``, bf16 compute), ``RBPNet_tpu``
 ``configs/train/rbp_net/exp1_x4_tpu.yaml`` (bf16, the batch as two
-microbatches).  For each it prints:
+microbatches) and ``FRVSRNet_tpu`` ``configs/test/frvsr_net/exp1_x4_tpu.yaml``
+(``max_flow: 4``, bf16 compute).  For each it prints:
 
 * the wall time of a call (host clock around a synchronised call, median
   of several), with ``torch.backends.cudnn.benchmark`` off (the port's
@@ -21,7 +24,7 @@ microbatches).  For each it prints:
   number of kernels, the top kernels by device time, and the top ATen ops
   by the device time of their own kernels (the op that launched them);
 * the operations of the call counted as ``chip_smoke.py`` counts them
-  (convs, 3D convs, transposed convs, resize products, DUF's filter
+  (convs, 3D convs, transposed convs, every resize product, DUF's filter
   product; a training step as three forwards) and their rate.
 
 The last line is one JSON object with these numbers.  Needs a CUDA card.
@@ -39,22 +42,32 @@ from collections import defaultdict
 import torch
 import torch.nn.functional as F
 
-from ..models import DUFNet, RBPNet, TOFlowNet
+from ..models import DRFNet, DUFNet, FRVSRNet, RBPNet, TOFlowNet
+from ..ops import resize
 from ..utils.casting import forward_in
 
 T, SCALE, REPEATS, TOP = 7, 4, 5, 14
+CLIP = 30  # the video nets serve a whole cycle
 DUF = {"in_channels": 1, "out_channels": 1, "num_frames": T, "size_filter": 5,
        "upscale_factor": SCALE, "backbone": "_DenseLayer16"}
 RBPN = {"in_channels": 1, "out_channels": 1, "base_filter": 256, "feat": 64, "num_stages": 3,
         "num_resblocks": 5, "num_frames": T, "upscale_factor": SCALE}
 TOFLOW = {"in_channels": 1, "out_channels": 1, "num_frames": T, "upscale_factor": SCALE}
-#: name → (class, kwargs, compute dtype, train batch, microbatches, loss)
+DRF = {"in_channels": 1, "out_channels": 1, "num_features": 32, "num_groups": 6,
+       "upscale_factor": SCALE}
+FRVSR = {"in_channels": 1, "out_channels": 1, "num_resblocks": 10, "upscale_factor": SCALE}
+#: name → (class, kwargs, compute dtype, train batch, microbatches, loss,
+#: frames (eval, train))
 NETS = {
-    "DUFNet": (DUFNet, DUF, None, 12, 1, "huber"),
-    "RBPNet": (RBPNet, RBPN, None, 16, 1, "l1"),
-    "TOFlowNet": (TOFlowNet, TOFLOW, None, 16, 1, "l1"),
-    "TOFlowNet_tpu": (TOFlowNet, {**TOFLOW, "max_flow": 4}, torch.bfloat16, 16, 1, "l1"),
-    "RBPNet_tpu": (RBPNet, RBPN, torch.bfloat16, 16, 2, "l1"),
+    "DUFNet": (DUFNet, DUF, None, 12, 1, "huber", (T, T)),
+    "RBPNet": (RBPNet, RBPN, None, 16, 1, "l1", (T, T)),
+    "TOFlowNet": (TOFlowNet, TOFLOW, None, 16, 1, "l1", (T, T)),
+    "TOFlowNet_tpu": (TOFlowNet, {**TOFLOW, "max_flow": 4}, torch.bfloat16, 16, 1, "l1", (T, T)),
+    "RBPNet_tpu": (RBPNet, RBPN, torch.bfloat16, 16, 2, "l1", (T, T)),
+    "DRFNet": (DRFNet, DRF, None, 16, 1, "l1", (CLIP, 7)),
+    "FRVSRNet": (FRVSRNet, FRVSR, None, 16, 1, "flow+mse", (CLIP, 10)),
+    "FRVSRNet_tpu": (FRVSRNet, {**FRVSR, "max_flow": 4}, torch.bfloat16, 16, 1, "flow+mse",
+                     (CLIP, 10)),
 }
 LR_HW = {"eval": 64, "train": 32}
 
@@ -70,15 +83,25 @@ def _ops(net, x) -> int:
         total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
                           else out.numel())
 
+    plain_resize = resize._resize
+
+    def counted_resize(y, out_hw, align_corners, kind):  # rows, then columns
+        nonlocal total
+        hh, ww = y.shape[-3], y.shape[-2]
+        total += 2 * (y.numel() // (hh * ww)) * (out_hw[0] * hh * ww + out_hw[0] * out_hw[1] * ww)
+        return plain_resize(y, out_hw, align_corners, kind)
+
     convs = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d)
     handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, convs)]
-    with torch.inference_mode():
-        net(x)
-    for h in handles:
-        h.remove()
+    resize._resize = counted_resize
+    try:
+        with torch.inference_mode():
+            net(x)
+    finally:
+        resize._resize = plain_resize
+        for h in handles:
+            h.remove()
     B, _, h, w, C = x.shape
-    if isinstance(net, TOFlowNet):  # the bicubic upscale of every frame
-        total += 2 * B * T * C * (SCALE * h * h * w + SCALE * h * SCALE * w * w)
     if isinstance(net, DUFNet):  # sf² taps × r² subpixels a pixel
         total += 2 * B * C * net.size_filter ** 2 * SCALE ** 2 * h * w
     return total
@@ -86,11 +109,12 @@ def _ops(net, x) -> int:
 
 def _call(name: str, mode: str, dev):
     """The call to time: a forward (eval) or a whole training step."""
-    cls, kwargs, dtype, batch, micro, loss_name = NETS[name]
+    cls, kwargs, dtype, batch, micro, loss_name, frames = NETS[name]
     net = cls(**kwargs, generator=torch.Generator().manual_seed(0)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     B = 1 if mode == "eval" else batch
-    x = torch.randn(B, T, LR_HW[mode], LR_HW[mode], 1, device=dev, generator=gen)
+    t = frames[0] if mode == "eval" else frames[1]
+    x = torch.randn(B, t, LR_HW[mode], LR_HW[mode], 1, device=dev, generator=gen)
     ops = _ops(net.eval(), x)
     if mode == "eval":
         def call():
@@ -99,21 +123,24 @@ def _call(name: str, mode: str, dev):
         return call, ops, net, dtype
 
     net.train()
-    target = torch.randn(B, LR_HW[mode] * SCALE, LR_HW[mode] * SCALE, 1, device=dev,
-                         generator=gen)
+    video = cls in (DRFNet, FRVSRNet)  # a frame out for every frame in
+    hr = LR_HW[mode] * SCALE
+    target = torch.randn(B, *((t,) if video else ()), hr, hr, 1, device=dev, generator=gen)
     opt = torch.optim.Adam(net.parameters(), lr=1e-4)
 
-    def loss_fn(out, tgt):
+    def loss_fn(out, tgt, lr):
         if loss_name == "huber":
             return F.huber_loss(out, tgt, delta=0.01)
+        if loss_name == "flow+mse":  # FlowLoss on the warped LR frames, MSE on the SR
+            return F.mse_loss(out[1], lr) + F.mse_loss(out[0], tgt)
         return (out - tgt).abs().mean()
 
     def call():
         opt.zero_grad(set_to_none=True)
         m = B // micro
         for i in range(micro):
-            out = forward_in(net, dtype, x[i * m:(i + 1) * m])
-            loss_fn(out, target[i * m:(i + 1) * m]).backward()
+            xs = x[i * m:(i + 1) * m]
+            loss_fn(forward_in(net, dtype, xs), target[i * m:(i + 1) * m], xs).backward()
         opt.step()
     return call, 3 * ops, net, dtype
 
@@ -158,7 +185,8 @@ def profile(name: str, mode: str, dev) -> dict:
                for e in ops_avg if e.self_device_time_total > 0]
     off, on = statistics.median(walls[False]), statistics.median(walls[True])
     params = sum(p.numel() for p in net.parameters())
-    shape = (1 if mode == "eval" else NETS[name][3], T, LR_HW[mode], LR_HW[mode], 1)
+    frames = NETS[name][6][0 if mode == "eval" else 1]
+    shape = (1 if mode == "eval" else NETS[name][3], frames, LR_HW[mode], LR_HW[mode], 1)
     print(f"{name} {mode} {shape} {dtype or torch.float32} ({params:,} params): wall {off:.3f} ms "
           f"with cudnn.benchmark off {[round(v, 3) for v in walls[False]]}, {on:.3f} ms on "
           f"{[round(v, 3) for v in walls[True]]}; {ops:.4g} operations, "

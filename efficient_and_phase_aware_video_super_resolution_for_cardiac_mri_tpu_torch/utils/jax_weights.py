@@ -223,6 +223,40 @@ def _toflow_net(params: dict, stats: dict | None) -> dict:
     return sd
 
 
+def _drf_net(params: dict) -> dict:
+    """Inverse of ``torch_import.drf_net_key_map``: the ``in_block`` sits at
+    the top, the feedback block and the upsampler under the scan's
+    ``steps``."""
+    return _srfb_like({**{k: v for k, v in params.items() if k != "steps"}, **params["steps"]},
+                      "in_block")
+
+
+def _frvsr_net(params: dict) -> dict:
+    """Inverse of ``torch_import.frvsr_net_key_map``: FNet and SRNet under
+    the scan's ``steps``."""
+    sd: dict[str, np.ndarray] = {}
+    for name, node in params["steps"]["fnet"].items():
+        if m := re.fullmatch(r"tail_(conv\d)", name):
+            _put(sd, f"fnet.tail.{m[1]}", node)
+        elif re.fullmatch(r"conv\d_\d", name):
+            _put(sd, f"fnet.body.{name}", node)
+        else:
+            raise KeyError(f"Unmapped FRVSRNet param: steps.fnet.{name}")
+    for name, node in params["steps"]["srnet"].items():
+        if name == "head":
+            _put(sd, "srnet.head.conv", node)
+        elif name == "tail":
+            _put(sd, "srnet.tail.conv", node)
+        elif re.fullmatch(r"deconv\d", name):
+            _put(sd, f"srnet.tail.{name}", node, w=_deconv_w)
+        elif m := re.fullmatch(r"resblock(\d+)", name):
+            for conv_name, conv in node.items():
+                _put(sd, f"srnet.body.{m[1]}.body.{conv_name}", conv)
+        else:
+            raise KeyError(f"Unmapped FRVSRNet param: steps.srnet.{name}")
+    return sd
+
+
 _NETS = {
     "RefineNet": lambda params, stats: _refine_net(params),
     "EDSRNet": lambda params, stats: _edsr_net(params),
@@ -231,6 +265,8 @@ _NETS = {
     "DUFNet": _duf_net,
     "RBPNet": _rbp_net,
     "TOFlowNet": _toflow_net,
+    "DRFNet": lambda params, stats: _drf_net(params),
+    "FRVSRNet": lambda params, stats: _frvsr_net(params),
 }
 
 
@@ -238,13 +274,15 @@ def state_dict_from_jax_params(tree: dict, net: str = "RefineNet") -> dict[str, 
     """The flax weights of the net named ``net`` → the port's state_dict.
 
     ``tree`` is a ``params`` tree, or a flax ``variables`` dict
-    (``{'params': ..., 'batch_stats': ...}``).  BatchNorm running statistics
-    come only from ``batch_stats``: a ``params`` tree alone gives the
-    parameters' keys (a gradient tree maps the same way), which a BatchNorm
-    net then refuses to load with ``strict=True``."""
+    (``{'params': ..., 'batch_stats': ...}``; a ``telemetry`` collection,
+    which ``init`` of a net with ``max_flow`` sows, holds no weight and is
+    ignored).  BatchNorm running statistics come only from ``batch_stats``:
+    a ``params`` tree alone gives the parameters' keys (a gradient tree maps
+    the same way), which a BatchNorm net then refuses to load with
+    ``strict=True``."""
     if net not in _NETS:
         raise KeyError(f"No JAX weight map for net {net!r}; have {sorted(_NETS)}")
     params, stats = tree, None
-    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+    if "params" in tree and set(tree) <= {"params", "batch_stats", "telemetry"}:
         params, stats = tree["params"], tree.get("batch_stats")
     return {k: _t(v) for k, v in _NETS[net](params, stats).items()}

@@ -3,8 +3,8 @@ gate tail forward and backward, with and without the gate conv's bias, on
 each of their paths (16-byte vectors over rows, channels-last or NCHW
 planes; one element a vector for other widths and unaligned pointers), a
 small net's forward, one training step through the kernels against one
-through the plain gate tail, and the single-image and multi-frame nets (no
-hand-written kernel) on the card against the CPU.
+through the plain gate tail, and the single-image, multi-frame and plain
+video nets (no hand-written kernel) on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -388,3 +388,34 @@ def test_misr_nets_on_the_card_match_the_cpu(cuda, name, kwargs, T, train):
             if "running" in key:
                 on_card = card.state_dict()[key].cpu()
                 assert ((on_card - value).abs().max() / value.abs().max()).item() <= 1e-4, key
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("DRFNet", dict(in_channels=1, out_channels=1, num_features=8, num_groups=2)),
+    ("FRVSRNet", dict(in_channels=1, out_channels=1, num_resblocks=2)),
+    ("FRVSRNet", dict(in_channels=1, out_channels=1, num_resblocks=2, max_flow=4)),
+], ids=["DRFNet", "FRVSRNet", "FRVSRNet-max_flow4"])
+def test_vsr_nets_on_the_card_match_the_cpu(cuda, name, kwargs):
+    """The plain video nets run no hand-written kernel: cuDNN's convs and
+    transposed convs, the resize products and the STN warp (``grid_sample``
+    or the windowed sum), in fp32 without TF32, a 4-frame clip of 10×12
+    frames (FNet pads to /8) on the card against the CPU within 1e-4 of the
+    largest value, both FRVSR heads; no gate launch."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+
+    net = getattr(models, name)(upscale_factor=4, **kwargs,
+                                generator=torch.Generator().manual_seed(0))
+    card = getattr(models, name)(upscale_factor=4, **kwargs)
+    card.load_state_dict(net.state_dict())
+    x = torch.randn(2, 4, 10, 12, 1, generator=torch.Generator().manual_seed(1))
+    before = lstm_gates.LAUNCHES
+    with torch.inference_mode():
+        want = net(x)
+        got = card.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_gates.LAUNCHES == before
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert got[0].shape == want[0].shape == (2, 4, 40, 48, 1)
+    for g, w in zip(got, want):
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4

@@ -122,11 +122,18 @@ def test_training_on_cuda_without_a_card_raises(monkeypatch, tmp_path, device):
     assert not (tmp_path / "config.yaml").exists()  # raised before any work
 
 
-@pytest.mark.parametrize("knob,value", [("checkpoint_backend", "orbax"),
-                                        ("telemetry_warn_frac", 0.1)])
+@pytest.mark.parametrize("knob,value", [("checkpoint_backend", "orbax")])
 def test_deferred_trainer_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
         trainers.VSRRefineNetTrainer(device="cpu", **{knob: value})
+
+
+@pytest.mark.parametrize("engine", [trainers.VSRRefineNetTrainer, VSRRefineNetPredictor])
+def test_telemetry_warn_frac_is_ported(engine):
+    """The knob sets the threshold above which an out-of-window fraction
+    warns (tests/test_torch_telemetry.py drives it through both engines)."""
+    assert engine(device="cpu", telemetry_warn_frac=0.1).telemetry_warn_frac == 0.1
+    assert engine(device="cpu").telemetry_warn_frac == 0.0
 
 
 def test_deferred_trainer_knobs_at_their_defaults_are_accepted():

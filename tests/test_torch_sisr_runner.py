@@ -378,7 +378,7 @@ def test_srfb_loss_is_the_mean_over_steps_and_metrics_use_the_last():
                                        metric_fns=[PM.PSNR()])
     target = torch.zeros(1, 4, 4, 1)
     outputs = [torch.full((1, 4, 4, 1), v) for v in (1.0, 3.0)]
-    (loss,) = trainer._compute_losses(outputs, target, True)
+    (loss,) = trainer._compute_losses(outputs, {"hr_img": target}, True)
     assert loss.item() == 2.0
     assert trainer._display_outputs(outputs) is outputs[-1]
     (psnr,) = trainer._compute_metrics(outputs, target)
