@@ -12,12 +12,14 @@ on the card, and holds every hand-written kernel of those paths against its
 plain PyTorch version; then the single-image family's serving and training
 (EDSR, SRFB, Bicubic ×4), the multi-frame family's (DUF, RBPN, TOFlow ×4)
 and the plain video family's (DRF, FRVSR ×4), whose paths run no
-hand-written kernel.  Phases, one or more lines each; any failure exits
+hand-written kernel; then EDVR ×4 with the deformable conv's three
+hand-written kernels, each held against its plain version.  Phases, one or more lines each; any failure exits
 non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    TF32 off for convolutions and matrix products.
-2. build: every kernel of the path from ``csrc/`` with ``nvcc`` (sm_90a).
+2. build: every kernel of the paths from ``csrc/`` with ``nvcc`` (sm_90a),
+   one ``nvcc`` a source, started together.
 3. kernel vs plain: the ConvLSTM gate tail with the gate conv's bias at
    the main path's shape, in fp32 and bf16, in the layout the recurrence
    hands it (``recurrence_format``: fp32 NCHW, bf16 channels-last) and in
@@ -131,6 +133,40 @@ non-zero and no result is printed:
     logged value finite, event files written, no gate kernel launched,
     ``model_best.pth`` written and reloaded; ms a step, LR frames/s, peak
     memory and the arithmetic bound of a step.
+19. DCN kernels (``csrc/deform_conv.cu``: ``deform_im2col``,
+    ``deform_col2im``, ``deform_col2im_coord``) against their plain
+    versions at EDVR's serving L1 shape (x (1, 128, 64, 64), 8 deformable
+    groups, K 9) and its training L1 shape (x (16, 128, 32, 32)), in fp32
+    and bf16: each kernel on the same inputs; the autograd function's
+    forward and its five gradients at zero offsets with a unit mask (the
+    integer knife edge, also against the dense conv), at fractional
+    offsets reaching outside the image, and at R = 2 with offsets beyond
+    the window (output exactly the bias, gradients exactly 0); each
+    kernel's time per launch beside its plain version's and its bound (CUDA
+    graphs over operand sets larger than L2), and the whole DCN (im2col +
+    GEMM) beside a dense ``F.conv2d`` of the same shapes.
+20. EDVR serving: ``configs/test/edvr_net/exp1_x4.yaml`` (nf 128, 8
+    groups, 5 + 40 residual blocks, 5 frames) and ``exp1_x4_tpu.yaml``
+    (bf16, ``dcn_max_offset: 2``) through ``main.test_from_config`` on
+    ``cuda:0`` over the tree's 60 windows, from seeded random weights with
+    the offset convs drawn off their zero init (fractional offsets): every
+    metric finite, exactly 20 im2col launches a window (5 neighbours × L3,
+    L2, L1, cascade; under bf16 the 5 L3 ones bf16) and no backward or gate
+    launch, one fp32 window on the card against the CPU within 1e-4 of its
+    largest value, the bf16 run's PSNR/SSIM within the stated bound of the
+    fp32 run's and its four ``dcn_offset_window`` sites printed; the warm ms
+    a window, frames/s, peak memory, the device's busy share and the
+    arithmetic bound (the DCN GEMMs counted).
+21. EDVR training: ``configs/train/edvr_net/exp1_x4.yaml`` (batch 16 × 5
+    frames, 32×32 LR patches, Charbonnier, Adam at 4e-4) and
+    ``exp1_x4_tpu.yaml`` (bf16, ``grad_accum_steps: 2``, ``dcn_max_offset:
+    2``) with their ``logger:`` sections for 2 epochs (8 steps each) and one
+    30-window valid slice an epoch: every logged value finite, the DCN
+    launches of 20 im2col + 20 col2im + 20 col2im_coord a microbatch step
+    and 20 im2col a valid window, no gate launch, ``model_best.pth``
+    written and reloaded; one fp32 step through the kernels against the
+    same step through the plain versions (loss and every gradient); ms a
+    step, LR frames/s, peak memory and the bound.
 
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
@@ -146,6 +182,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -662,11 +699,13 @@ def forward_flops(net, x) -> int:
     every dense resize product of ``ops/resize.py`` (Bicubic, SRFB's
     bilinear skip, TOFlow's bicubic upscale of every frame and its flow
     pyramid, FNet's decoder and FRVSR's ×4 flow), counted from its shapes
-    as it runs: rows, then columns; and DUF's filter product (sf² taps × r²
-    subpixels a pixel)."""
+    as it runs: rows, then columns; DUF's filter product (sf² taps × r²
+    subpixels a pixel); and every deformable conv's (Cout, Cin·K) @ col
+    GEMM (EDVR's 20 a window, which no conv hook sees)."""
     import torch
 
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv,
         resize,
     )
 
@@ -689,14 +728,21 @@ def forward_flops(net, x) -> int:
         total += 2 * planes * (out_hw[0] * h * w + out_hw[0] * out_hw[1] * w)
         return plain_resize(y, out_hw, align_corners, kind)
 
+    plain_contract = deform_conv._contract
+
+    def counted_contract(col, weight, bias, g):
+        nonlocal total
+        total += 2 * weight.numel() * g.B * g.Ho * g.Wo
+        return plain_contract(col, weight, bias, g)
+
     handles = [m.register_forward_hook(hook) for m in net.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d))]
-    resize._resize = counted_resize
+    resize._resize, deform_conv._contract = counted_resize, counted_contract
     try:
         with torch.inference_mode():
             net(x)
     finally:
-        resize._resize = plain_resize
+        resize._resize, deform_conv._contract = plain_resize, plain_contract
         for h in handles:
             h.remove()
     name = type(net).__name__
@@ -859,10 +905,14 @@ def sisr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates,
 
 
 def misr_eval_config(tree: dict, name: str, net_kwargs: dict, ckpt: Path, saved_dir: Path,
-                     **pred_kwargs) -> dict:
-    """configs/test/{duf_net,rbp_net,toflow_net}/exp1_x4[_tpu].yaml with paths
-    into the synthetic tree's windows, on cuda:0, without the GIF/PNG export."""
+                     num_frames: int = MISR_T, loss: dict | None = None, **pred_kwargs) -> dict:
+    """configs/test/{duf_net,rbp_net,toflow_net,edvr_net}/exp1_x4[_tpu].yaml
+    with paths into the synthetic tree's windows of ``num_frames``, on
+    cuda:0, without the GIF/PNG export."""
     coords = str(tree["coordinates"])
+    if loss is None:
+        loss = ({"name": "HuberLoss", "kwargs": {"delta": 0.01}, "weight": 1.0}
+                if name == "DUFNet" else {"name": "L1Loss", "weight": 1.0})
     return {
         "main": {"saved_dir": str(saved_dir), "loaded_path": str(ckpt)},
         "dataset": {"name": "AcdcMISRDataset",
@@ -870,12 +920,11 @@ def misr_eval_config(tree: dict, name: str, net_kwargs: dict, ckpt: Path, saved_
                                "transforms": [{"name": "Normalize",
                                                "kwargs": {"means": [54.089], "stds": [48.084]}},
                                               {"name": "ToTensor"}],
-                               "num_frames": MISR_T}},
+                               "num_frames": num_frames}},
         "dataloader": {"name": "Dataloader",
                        "kwargs": {"batch_size": 1, "shuffle": False, "num_workers": 8}},
         "net": {"name": name, "kwargs": net_kwargs},
-        "losses": [{"name": "HuberLoss", "kwargs": {"delta": 0.01}, "weight": 1.0}
-                   if name == "DUFNet" else {"name": "L1Loss", "weight": 1.0}],
+        "losses": [loss],
         "metrics": [
             {"name": "PSNR"}, {"name": "SSIM"},
             {"name": "CardiacPSNR", "kwargs": {"coordinates_path": coords}},
@@ -1368,6 +1417,543 @@ def vsr_training(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, rates, 
     return results
 
 
+# ------------------------------------------------------------ EDVR (19-21)
+# configs/{test,train}/edvr_net/exp1_x4.yaml: the net at its published width
+EDVR_T = 5
+EDVR_NET = {"in_channels": 1, "out_channels": 1, "nf": 128, "nframes": EDVR_T, "groups": 8,
+            "front_RBs": 5, "back_RBs": 40}
+EDVR_TPU_R = 2  # configs/{test,train}/edvr_net/exp1_x4_tpu.yaml: dcn_max_offset
+EDVR_LOSS = {"name": "CharbonnierLoss", "kwargs": {"epsilon": 1e-6}, "weight": 1.0}
+# DCN calls a forward: 5 neighbours (the centre included, as the reference
+# loops) x {L3, L2, L1, cascading}; under the _tpu knobs the L3 level's col
+# is bf16 (its offsets come from bf16 convs) and the other three fp32 (their
+# offsets follow an fp32 resize product, which promotes, as in JAX)
+DCN_PER_FORWARD, DCN_BF16_PER_FORWARD = EDVR_T * 4, EDVR_T
+EDVR_TRAIN = {"EDVRNet": (16, {}), "EDVRNet_tpu": (16, {"compute_dtype": "bfloat16",
+                                                        "grad_accum_steps": 2})}
+# phase 19's shapes: EDVR's L1 DCN call at the serving window (64x64) and at
+# the training batch (16 windows of 32x32), nf 128, 8 deformable groups
+DCN_SHAPES = {"serving": (1, 128, 64, 64), "training": (16, 128, 32, 32)}
+DCN_DG = 8
+# operations per col element (one (b, c, tap, pixel) sample), counted from
+# the kernels: im2col, 2 coordinates, 2 floors and fractions (4), 4 corner
+# weights (8), 4 multiply-adds (8) and the mask (1); col2im, the same
+# coordinates and weights (14), grad x mask (1) and 4 weighted adds (8);
+# col2im_coord, 3 multiply-adds a corner (24) and 3 with the gradient (6)
+DCN_OPS = {"deform_im2col": 23, "deform_col2im": 23, "deform_col2im_coord": 30}
+# kernels against the plain version on the same inputs, relative to the
+# largest element: fp32 sums in another order (col2im's atomics in a
+# different order every run); bf16 rounds col (and d_weight's product) to
+# 8 bits where the plain version stays fp32
+TOL_DCN_FP32, TOL_DCN_BF16 = 1e-5, 2e-2
+# EDVR offsets drawn off the zero init: conv_offset_mask ~ N(0, 0.1), so
+# the offsets are fractional (up to ~1.5 px at the published width) and
+# mostly inside the 2 px window
+EDVR_OFFSET_STD = 0.1
+# bf16 + dcn_max_offset 2 EDVR serving against the fp32 exact run on the
+# same windows (most of bf16 EDVR computes in fp32, as in JAX; the window
+# drops the corners beyond 2 px).  Measured on an H100 with offsets of
+# 0.14 px at most: PSNR -5.7e-4 dB, CardiacPSNR -4.9e-4 dB, SSIM +3.8e-6,
+# CardiacSSIM +1.1e-5 (seeded data and weights)
+TOL_EDVR_BF16_DPSNR, TOL_EDVR_BF16_DSSIM = 1e-2, 5e-4
+# one fp32 training step through the DCN kernels against the same step
+# through their plain versions on the card, each gradient relative to its
+# largest element.  Measured on an H100: 3.25e-4 and 1.08e-3 at most (two
+# runs), 1.4e-5 and 2.8e-5 the median, where the kernels against themselves
+# differ by 7.2e-7 at most (col2im's atomics).  The forwards differ by ~1e-7
+# (phase 19), and Charbonnier's eps of 1e-6 turns that into much more: its
+# derivative (out - hr) / sqrt((out - hr)^2 + eps) swings from -1 to 1
+# within 1e-3 of the target.  The step is also run through the kernels on
+# frames one ulp apart, which shows that amplification; the bound is ~10x
+# the largest measured
+TOL_EDVR_STEP = 1e-2
+
+
+def dcn_launches(dcn) -> tuple[int, ...]:
+    """(im2col, col2im, col2im_coord, and the same on bf16) since the reset."""
+    return (*(dcn.LAUNCHES[k] for k in dcn.KERNELS), *(dcn.BF16_LAUNCHES[k] for k in dcn.KERNELS))
+
+
+class plain_dcn:
+    """Inside the block the DCN's autograd function runs the plain versions
+    on CUDA tensors too (the comparison of phase 21)."""
+
+    def __init__(self, dcn):
+        self.dcn = dcn
+
+    def __enter__(self):
+        d = self.dcn
+        self.saved = (d.deform_im2col, d.deform_col2im, d.deform_col2im_coord)
+        d.deform_im2col = d.deform_im2col_reference
+        d.deform_col2im = d.deform_col2im_reference
+        d.deform_col2im_coord = d.deform_col2im_coord_reference
+
+    def __exit__(self, *exc):
+        d = self.dcn
+        d.deform_im2col, d.deform_col2im, d.deform_col2im_coord = self.saved
+
+
+def dcn_operands(dcn, shape, dtype, dev, gen, offsets="fractional", R=None):
+    """x, offset (fp32), mask, grad_col and the geometry of one L1 DCN call."""
+    import torch
+
+    g = dcn.geometry(shape, 3, 3, 1, 1, 1, DCN_DG, R)
+    B, C = shape[:2]
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    oshape = (B, DCN_DG * 18, g.Ho, g.Wo)
+    if offsets == "zero":
+        off = torch.zeros(oshape, device=dev)
+    elif offsets == "fractional":  # reaches outside the image from the border taps
+        off = (torch.rand(oshape, device=dev, generator=gen) * 2 - 1) * 3.5
+    else:  # "beyond": |o| >= R + 1: every corner out of the window
+        off = (R + 1 + 2 * torch.rand(oshape, device=dev, generator=gen)) * torch.sign(
+            torch.randn(oshape, device=dev, generator=gen))
+    mask = torch.rand(B, DCN_DG * 9, g.Ho, g.Wo, device=dev, generator=gen).to(dtype)
+    grad_col = torch.randn(B, C * 9, g.Ho * g.Wo, device=dev, generator=gen).to(dtype)
+    return x, off, mask, grad_col, g
+
+
+def dcn_times_line(name, shape, dtype, t) -> str:
+    return (f"{name} {dtype} x {tuple(shape)} dg {DCN_DG}: kernel {t['ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us ({t['plain_ms'] / t['ms']:.1f}x), bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} bytes, {t['ops']} "
+            f"operations), {t['bound_ms'] / t['ms']:.0%} of the bound; {t['sets']} operand sets")
+
+
+def dcn_kernels(dcn, dev, rates, card_line) -> dict:
+    """Phase 19: the three DCN kernels against their plain versions at EDVR's
+    serving and training L1 shapes, in fp32 and bf16 (zero offsets with a
+    unit mask against the dense conv; fractional offsets reaching outside
+    the image; R = 2 with offsets beyond the window: exactly no
+    contribution; the forward and all five gradients through the autograd
+    function), then each kernel's time beside its plain version's and its
+    bound, and the whole DCN (im2col + GEMM) beside a dense ``F.conv2d`` of
+    the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    f32, b16 = torch.float32, torch.bfloat16
+    errors = {k: {} for k in dcn.KERNELS}  # kernel → dtype → max abs error
+    results = {"errors": errors, "times": {}}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+    for shape_name, shape in DCN_SHAPES.items():
+        C = shape[1]
+        for dtype, tol in ((f32, TOL_DCN_FP32), (b16, TOL_DCN_BF16)):
+            # each kernel against its plain version on the same inputs
+            x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen)
+            got = {"deform_im2col": dcn.deform_im2col(x, off, mask, g),
+                   "deform_col2im": dcn.deform_col2im(grad_col, off, mask, g),
+                   "deform_col2im_coord": dcn.deform_col2im_coord(grad_col, x, off, mask, g)}
+            want = {"deform_im2col": dcn.deform_im2col_reference(x, off, mask, g),
+                    "deform_col2im": dcn.deform_col2im_reference(grad_col, off, mask, g),
+                    "deform_col2im_coord": dcn.deform_col2im_coord_reference(
+                        grad_col, x, off, mask, g)}
+            for k in dcn.KERNELS:
+                pairs = list(zip(*(v if isinstance(v, tuple) else (v,) for v in (got[k], want[k]))))
+                err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+                r = max(rel(a, b) for a, b in pairs)
+                errors[k][str(dtype)] = max(err, errors[k].get(str(dtype), 0.0))
+                log("dcn", f"{k} {dtype} {shape_name} x {tuple(shape)} fractional offsets: max abs "
+                           f"err {err:.3e}, {r:.3e} of the largest element (tol {tol})")
+                if not r <= tol:
+                    raise AssertionError(f"{k} disagrees with its plain version: {r}")
+            del got, want, grad_col
+            # the autograd function: forward and the five gradients
+            w = (torch.randn(C, C, 3, 3, device=dev, generator=gen) / 34).to(dtype)
+            b = torch.randn(C, device=dev, generator=gen).to(dtype)
+            for case in ("zero", "fractional", "beyond"):
+                R = EDVR_TPU_R if case == "beyond" else None
+                x, off, mask, _, g = dcn_operands(dcn, shape, dtype, dev, gen, case, R)
+                if case == "zero":
+                    mask = torch.ones_like(mask)
+                kw = dict(padding=1, deformable_groups=DCN_DG, max_offset=R)
+                leaves = [t.clone().requires_grad_() for t in (x, off, mask, w, b)]
+                out = dcn.deform_conv2d(leaves[0], leaves[1], leaves[3], leaves[2], leaves[4], **kw)
+                cot = torch.randn(out.shape, device=dev, generator=gen)
+                (out.float() * cot).sum().backward()
+                ref = [t.detach().float().clone().requires_grad_() for t in (x, off, mask, w, b)]
+                want = dcn.deform_conv2d_reference(ref[0], ref[1], ref[3], ref[2], ref[4], **kw)
+                (want * cot).sum().backward()
+                rels = {"out": rel(out, want)}
+                rels.update({n: rel(a.grad, r.grad) for n, a, r in
+                             zip(("x", "offset", "mask", "weight", "bias"), leaves, ref)
+                             if r.grad.abs().max() > 0})
+                worst = max(rels.values())
+                note = ""
+                if case == "zero":  # the integer knife edge is the dense conv
+                    dense = F.conv2d(x.float(), w.float(), b.float(), padding=1)
+                    rels["dense_conv"] = rel(out, dense)
+                    worst = max(worst, rels["dense_conv"])
+                    note = f"; against the dense conv {rels['dense_conv']:.3e}"
+                if case == "beyond":
+                    exact_bias = torch.equal(out.detach(), b.view(1, -1, 1, 1).expand_as(out))
+                    zero_grads = all(torch.count_nonzero(t.grad) == 0 for t in leaves[:4])
+                    note = (f"; beyond the window: output exactly the bias {exact_bias}, "
+                            f"x/offset/mask/weight gradients exactly 0 {zero_grads}")
+                    if not (exact_bias and zero_grads):
+                        raise AssertionError("out-of-window offsets contributed")
+                log("dcn", f"autograd function {dtype} {shape_name} {case} offsets: relative "
+                           f"errors { {k: f'{v:.2e}' for k, v in rels.items()} } (tol {tol}){note}")
+                if not worst <= tol:
+                    raise AssertionError(f"the DCN autograd function disagrees: {case} {rels}")
+                del leaves, ref, out, want
+            # times
+            times = time_dcn(dcn, shape, dtype, dev, gen, rates, w, b)
+            results["times"][f"{shape_name} {dtype}"] = times
+            for k in dcn.KERNELS:
+                print(f"times {dcn_times_line(k, shape, dtype, times[k])}", flush=True)
+            t = times["dcn"]
+            print(f"times deform_conv2d (im2col + GEMM) {dtype} {shape_name} x {tuple(shape)}: "
+                  f"{t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
+                  f"dense F.conv2d of the same shapes {t['dense_conv_ms'] * 1e3:.2f} us "
+                  f"({t['ms'] / t['dense_conv_ms']:.1f}x)", flush=True)
+    print(json.dumps({"dcn_kernels": results, "card": card_line}), flush=True)
+    return results
+
+
+def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b) -> dict:
+    """Per launch, CUDA graphs over operand sets larger than L2: each kernel
+    and its plain version, with the bound; the whole DCN forward and a dense
+    conv of the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    el = torch.empty((), dtype=dtype).element_size()
+    x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen)
+    n_x, n_off, n_mask, n_col = x.numel(), off.numel(), mask.numel(), grad_col.numel()
+    nbytes = {"deform_im2col": el * (n_x + n_mask + n_col) + 4 * n_off,
+              "deform_col2im": el * (n_col + n_mask) + 4 * (n_off + n_x),
+              "deform_col2im_coord": el * (n_col + n_x + n_mask) + 4 * (n_off + n_off + n_mask)}
+    sets = [dcn_operands(dcn, shape, dtype, dev, gen)[:4]
+            for _ in range(_n_sets(el * (n_x + n_mask + 2 * n_col) + 4 * n_off))]
+    calls = {"deform_im2col": (lambda a: dcn.deform_im2col(a[0], a[1], a[2], g),
+                               lambda a: dcn.deform_im2col_reference(a[0], a[1], a[2], g)),
+             "deform_col2im": (lambda a: dcn.deform_col2im(a[3], a[1], a[2], g),
+                               lambda a: dcn.deform_col2im_reference(a[3], a[1], a[2], g)),
+             "deform_col2im_coord": (
+                 lambda a: dcn.deform_col2im_coord(a[3], a[0], a[1], a[2], g),
+                 lambda a: dcn.deform_col2im_coord_reference(a[3], a[0], a[1], a[2], g))}
+    out = {}
+    for k, (kernel, plain) in calls.items():
+        t = {"bytes": nbytes[k], "ops": DCN_OPS[k] * n_col, "sets": len(sets)}
+        t["ms"] = time_graph_ms([lambda a=a: kernel(a) for a in _cycled(sets)])
+        t["plain_ms"] = time_graph_ms([lambda a=a: plain(a) for a in _cycled(sets, 20)])
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"], *rates)
+        out[k] = t
+    # the whole forward (im2col + the GEMM in the promoted dtype) and the
+    # dense conv it would be at zero offsets
+    Cout = w.shape[0]
+    gemm_ops = 2 * Cout * n_col
+    t = {"ms": time_graph_ms([lambda a=a: dcn.deform_conv2d(a[0], a[1], w, a[2], b, padding=1,
+                                                              deformable_groups=DCN_DG)
+                              for a in _cycled(sets)])}
+    t["dense_conv_ms"] = time_graph_ms([lambda a=a: F.conv2d(a[0], w, b, padding=1)
+                                        for a in _cycled(sets)])
+    dcn_bytes = el * (n_x + n_mask + w.numel() + Cout + g.B * Cout * g.Ho * g.Wo) + 4 * n_off
+    t["bound_ms"], t["bound_by"] = bound_ms(dcn_bytes, gemm_ops + DCN_OPS["deform_im2col"] * n_col,
+                                            *rates)
+    out["dcn"] = t
+    del sets
+    return out
+
+
+def seeded_edvr(kwargs: dict):
+    """EDVR from seed 0, its offset convs drawn off their zero init so that
+    every DCN samples at fractional offsets."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        EDVRNet,
+    )
+
+    net = EDVRNet(**kwargs, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "conv_offset_mask" in name:
+                p.normal_(0.0, EDVR_OFFSET_STD, generator=gen)
+    return net
+
+
+def edvr_serving(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, dev, rates,
+                 card_line) -> dict:
+    """Phase 20: EDVR serves the tree's test windows of 5 frames in fp32 and
+    with the ``_tpu`` config's knobs (bf16, ``dcn_max_offset: 2``)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        telemetry,
+    )
+
+    ckpt = tmp / "EDVRNet.pth"
+    torch.save({"net": seeded_edvr(EDVR_NET).state_dict()}, ckpt)
+    runs = [("EDVRNet", EDVR_NET, {}),
+            ("EDVRNet_tpu", {**EDVR_NET, "dcn_max_offset": EDVR_TPU_R},
+             {"compute_dtype": "bfloat16"})]
+    results, windows = {}, CYCLE * SLICES
+    for key, kwargs, pred_kwargs in runs:
+        cfg = Cfg(misr_eval_config(tree, "EDVRNet", kwargs, ckpt, tmp / f"test_{key}",
+                                   num_frames=EDVR_T, loss=EDVR_LOSS, **pred_kwargs))
+        held = torch.cuda.memory_allocated(dev)
+        reset_launches(lstm_gates)
+        dcn.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pred = port_main.test_from_config(cfg)
+        wall = time.perf_counter() - t0
+        counts = dcn_launches(dcn)
+        gates = launches(lstm_gates)
+        peak = torch.cuda.max_memory_allocated(dev)
+        bf16 = "compute_dtype" in pred_kwargs
+        want = (DCN_PER_FORWARD * windows, 0, 0,
+                DCN_BF16_PER_FORWARD * windows if bf16 else 0, 0, 0)
+        log("edvr eval", f"{key}: DCN launches (im2col, col2im, col2im_coord; bf16 of each) "
+                         f"{counts}, expected {want} ({DCN_PER_FORWARD} im2col a window x "
+                         f"{windows} windows); gate launches {gates}")
+        if counts != want or gates != (0, 0, 0, 0):
+            raise AssertionError(f"{key} serving launched {counts} DCN and {gates} gate kernels")
+        frames = pred.throughput["frames"]
+        if frames != windows or not all(math.isfinite(v) for v in pred.log.values()):
+            raise AssertionError(f"{key} serving scored {frames} windows: {pred.log}")
+        warm_ms = float(np.median(pred.item_seconds[1:])) * 1e3
+        n_params = sum(p.numel() for p in pred.net.parameters())
+        log("edvr eval", f"{key} {kwargs} {pred_kwargs}: {n_params:,} params; Test log {pred.log}")
+        if "dcn_max_offset" in kwargs:
+            sites = sorted(f"pcd_align/{lvl}_dcnpack/dcn_offset_window"
+                           for lvl in ("L3", "L2", "L1", "cas"))
+            if sorted(pred.telemetry_summary) != sites:
+                raise AssertionError(f"{key}: telemetry sites {sorted(pred.telemetry_summary)}")
+            log("edvr eval", f"{key}: Windowed-op telemetry: "
+                             f"{telemetry.format_summary(pred.telemetry_summary)}")
+        item = pred.test_dataloader.dataset[0]
+        lr = torch.from_numpy(item["lr_imgs"][None])
+        gap = None
+        if not bf16:  # one window on the card against the same weights on the CPU
+            with torch.inference_mode():
+                on_card = pred._forward(lr.to(dev)).cpu()
+                cpu_pred = copy.copy(pred)
+                cpu_pred.net = copy.deepcopy(pred.net).cpu()
+                on_cpu = cpu_pred._forward(lr)
+            gap = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
+            if tuple(on_card.shape) != (1, HR, HR, 1) or not gap <= TOL_SISR_CARD_CPU:
+                raise AssertionError(f"{key}: card vs CPU {gap:.3e} of the largest value, "
+                                     f"shape {tuple(on_card.shape)}")
+            del cpu_pred
+        batch = next(iter(pred.test_dataloader))
+        patient = pred._item_meta(int(batch["index"][0]))[0]
+        masks = pred._metric_masks(patient, (HR, HR))
+        busy = device_busy(lambda: pred._step(batch, masks))
+        flops = forward_flops(pred.net, lr.to(dev))
+        nbytes = 4 * (lr.numel() + HR * HR + n_params)
+        bound, bound_by = bound_ms(nbytes, flops, *rates)
+        log("edvr eval", f"{key}: frames/s {pred.throughput['frames_per_sec']:.2f} over {frames} "
+                         f"windows; warm {warm_ms:.3f} ms a window (median of items 2-{frames}); "
+                         f"test_from_config wall {wall:.2f} s; peak device memory "
+                         f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+                         f"{held / 2**30:.3f} held before); {flops:.4g} operations a window "
+                         f"(DCN GEMMs included), bound {bound:.3f} ms ({bound_by}), "
+                         f"{bound / warm_ms:.1%} of it; card vs CPU "
+                         f"{'not run (bf16)' if gap is None else f'{gap:.3e}'} of the largest "
+                         f"value (tol {TOL_SISR_CARD_CPU})")
+        log("edvr eval", f"{key}: predictor step on a warm window: wall {busy[0]:.3f} ms, "
+                         f"{busy[2]} kernels {busy[1]:.3f} ms, device busy {busy[1] / busy[0]:.1%}; "
+                         f"the bound is {bound / busy[1]:.1%} of the kernel time")
+        results[key] = {"frames_per_sec": pred.throughput["frames_per_sec"], "warm_ms": warm_ms,
+                        "item_ms": [t * 1e3 for t in pred.item_seconds], "peak_gib": peak / 2**30,
+                        "held_gib": held / 2**30, "flops_per_window": flops, "bound_ms": bound,
+                        "bound_by": bound_by, "card_vs_cpu_rel": gap, "log": pred.log,
+                        "wall_s": wall, "step_wall_ms": busy[0], "step_kernel_ms": busy[1],
+                        "step_kernels": busy[2], "telemetry": pred.telemetry_summary,
+                        "dcn_launches": counts}
+        del pred
+    fp32, b16 = results["EDVRNet"]["log"], results["EDVRNet_tpu"]["log"]
+    gaps = {k: b16[k] - fp32[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
+    log("edvr eval", f"EDVR bf16 + dcn_max_offset {EDVR_TPU_R} - fp32: {gaps} (bound |dPSNR| < "
+                     f"{TOL_EDVR_BF16_DPSNR}, |dSSIM| < {TOL_EDVR_BF16_DSSIM})")
+    if not all(abs(v) < (TOL_EDVR_BF16_DPSNR if "PSNR" in k else TOL_EDVR_BF16_DSSIM)
+               for k, v in gaps.items()):
+        raise AssertionError(f"bf16 EDVR serving left the bound of the fp32 run: {gaps}")
+    results["edvr_bf16_minus_fp32"] = gaps
+    print(json.dumps({"edvr_serving": results, "card": card_line}), flush=True)
+    return results
+
+
+def edvr_train_config(tree: dict, key: str, saved_dir: Path) -> dict:
+    """configs/train/edvr_net/exp1_x4[_tpu].yaml with paths into the
+    synthetic tree's windows of 5 frames, on cuda:0, for EPOCHS epochs with a
+    checkpoint every epoch, with its ``logger:`` section."""
+    batch, knobs = EDVR_TRAIN[key]
+    net = {**EDVR_NET, **({"dcn_max_offset": EDVR_TPU_R} if key.endswith("_tpu") else {})}
+    return {
+        "main": {"random_seed": "vsr", "saved_dir": str(saved_dir), "loaded_path": None},
+        "dataset": {
+            "name": "AcdcMISRDataset",
+            "kwargs": {
+                "data_dir": str(tree["videos"]), "downscale_factor": SCALE,
+                "transforms": [
+                    {"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}},
+                    {"name": "ToTensor"},
+                ],
+                "augments": [
+                    {"name": "RandomHorizontalFlip"}, {"name": "RandomVerticalFlip"},
+                    {"name": "RandomCropPatch", "kwargs": {"size": [PATCH, PATCH], "ratio": SCALE}},
+                ],
+                "num_frames": EDVR_T,
+            },
+        },
+        "dataloader": {"name": "Dataloader",
+                       "kwargs": {"train_batch_size": batch, "valid_batch_size": 1,
+                                  "shuffle": True, "num_workers": 8}},
+        "net": {"name": "EDVRNet", "kwargs": net},
+        "losses": [EDVR_LOSS],
+        "metrics": [{"name": "PSNR"}, {"name": "SSIM"}],
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 4e-4, "weight_decay": 0}},
+        "logger": {"name": "AcdcMISRLogger", "kwargs": {"dummy_input": [batch, 1, PATCH, PATCH]}},
+        "monitor": {"name": "Monitor",
+                    "kwargs": {"mode": "min", "target": "Loss", "saved_freq": 1, "early_stop": 0}},
+        "trainer": {"name": "AcdcMISRTrainer",
+                    "kwargs": {"device": "cuda:0", "num_epochs": EPOCHS, **knobs}},
+    }
+
+
+def edvr_training(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, dev, rates, card_line,
+                  bf16_peak: float) -> dict:
+    """Phase 21: EDVR trains on the tree's windows, fp32 and with the
+    ``_tpu`` config's knobs (bf16, 2 microbatches, ``dcn_max_offset: 2``);
+    one fp32 step through the DCN kernels against the same step through
+    their plain versions."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import losses
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        EDVRNet,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+
+    results = {}
+    items = 2 * 2 * CYCLE  # train windows an epoch
+    valid_windows = CYCLE * VALID_CLIPS
+    for key, (batch_size, knobs) in EDVR_TRAIN.items():
+        micro = knobs.get("grad_accum_steps", 1)
+        bf16 = knobs.get("compute_dtype") == "bfloat16"
+        saved = tmp / f"train_{key}"
+        held = torch.cuda.memory_allocated(dev)
+        reset_launches(lstm_gates)
+        dcn.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = port_main.train_from_config(Cfg(edvr_train_config(tree, key, saved)))
+        wall = time.perf_counter() - t0
+        counts, gates = dcn_launches(dcn), launches(lstm_gates)
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = math.ceil(items / batch_size) * EPOCHS
+        fwd = DCN_PER_FORWARD * (steps * micro + valid_windows * EPOCHS)
+        bwd = DCN_PER_FORWARD * steps * micro
+        per = DCN_BF16_PER_FORWARD if bf16 else 0
+        want = (fwd, bwd, bwd, per * (steps * micro + valid_windows * EPOCHS), per * steps * micro,
+                per * steps * micro)
+        log("edvr train", f"{key}: DCN launches (im2col, col2im, col2im_coord; bf16 of each) "
+                          f"{counts}, expected {want} ({steps} steps x {micro} microbatches x "
+                          f"{DCN_PER_FORWARD} a forward and a backward, + {EPOCHS} x "
+                          f"{valid_windows} valid windows x {DCN_PER_FORWARD}); gate launches {gates}")
+        if counts != want or gates != (0, 0, 0, 0):
+            raise AssertionError(f"{key} training launched {counts} DCN and {gates} gate kernels")
+        history = trainer.history["train"] + trainer.history["valid"]
+        if len(trainer.history["train"]) != EPOCHS or not all(
+                math.isfinite(v) for h in history for v in h.values()):
+            raise AssertionError(f"{key} training logs incomplete or non-finite: {trainer.history}")
+        if not list((saved / "log").rglob("events.out.tfevents.*")):
+            raise AssertionError(f"{key}: the logger wrote no event file")
+        for epoch, (t_log, v_log) in enumerate(zip(trainer.history["train"],
+                                                   trainer.history["valid"]), 1):
+            log("edvr train", f"{key} epoch {epoch}: Train log {t_log}; Valid log {v_log}")
+        if bf16:
+            log("edvr train", f"{key}: valid-epoch telemetry {trainer.telemetry_history}")
+        best = load_checkpoint(saved / "checkpoints" / "model_best.pth")
+        EDVRNet(**edvr_train_config(tree, key, saved)["net"]["kwargs"]).load_state_dict(
+            best["net"], strict=True)
+        tp = trainer.throughput
+        step_ms = 1e3 / tp["train_steps_per_sec"]
+        x = torch.zeros(batch_size, EDVR_T, PATCH, PATCH, 1, device=dev)
+        flops = 3 * forward_flops(trainer.net, x)
+        n_params = sum(p.numel() for p in trainer.net.parameters())
+        nbytes = 4 * (x.numel() + batch_size * (PATCH * SCALE) ** 2 + 6 * n_params)
+        bound, bound_by = bound_ms(nbytes, flops, rates[0], bf16_peak if bf16 else rates[1])
+        print(f"edvr training {key}: {tp['train_steps_per_sec']:.4f} steps/s, "
+              f"{tp['frames_per_sec']:.2f} LR frames/s, {step_ms:.2f} ms a step (epoch {EPOCHS}: "
+              f"{steps // EPOCHS} warm steps of {batch_size} windows x {EDVR_T} frames, the last of "
+              f"{items - (steps // EPOCHS - 1) * batch_size}, and the valid epoch not in it), peak "
+              f"device memory {peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the "
+              f"{held / 2**30:.3f} held before), train_from_config wall {wall:.1f} s; "
+              f"{flops:.4g} operations a step, bound {bound:.3f} ms ({bound_by}), "
+              f"{bound / step_ms:.1%} of it; model_best.pth (epoch {best['epoch']}) reloaded",
+              flush=True)
+        results[key] = {"steps_per_sec": tp["train_steps_per_sec"],
+                        "frames_per_sec": tp["frames_per_sec"], "step_ms": step_ms,
+                        "peak_gib": peak / 2**30, "held_gib": held / 2**30,
+                        "flops_per_step": flops, "bound_ms": bound, "bound_by": bound_by,
+                        "wall_s": wall, "best_epoch": best["epoch"], "batch": batch_size,
+                        "bound_peak": "bf16" if bf16 else "fp32", "dcn_launches": counts}
+        if not bf16:  # one step through the kernels against the plain versions
+            net = trainer.net.train()
+            batch = next(iter(trainer.train_dataloader))
+            lr_b = torch.as_tensor(batch["lr_imgs"]).to(dev)
+            hr_b = torch.as_tensor(batch["hr_img"]).to(dev)
+            loss_fn = losses.CharbonnierLoss(epsilon=1e-6)
+
+            def step(lr_in=lr_b):
+                net.zero_grad(set_to_none=True)
+                loss = loss_fn(net(lr_in), hr_b)
+                loss.backward()
+                return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
+
+            dcn.reset_launches()
+            loss_k, grads_k = step()
+            step_counts = dcn_launches(dcn)
+            with plain_dcn(dcn):
+                loss_p, grads_p = step()
+            _, grads_k2 = step()  # the kernels again: the run-to-run noise
+            noise = rel_diffs(grads_k2, grads_k)
+            # the kernels on frames one ulp apart: the loss's amplification
+            _, grads_ulp = step(torch.nextafter(lr_b, torch.full_like(lr_b, math.inf)))
+            ulp = rel_diffs(grads_ulp, grads_k)
+            grad_rel = rel_diffs(grads_k, grads_p)
+            worst = max(grad_rel, key=grad_rel.get)
+            loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+            log("edvr train", f"fp32 step, DCN kernels vs plain versions on batch "
+                              f"{tuple(lr_b.shape)}: kernel launches {step_counts[:3]}; loss "
+                              f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_rel:.2e}); {len(grads_p)} "
+                              f"gradients, largest relative difference {grad_rel[worst]:.2e} at "
+                              f"{worst} (tol {TOL_EDVR_STEP}); median "
+                              f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.2e}; the kernels "
+                              f"against themselves: largest {max(noise.values()):.2e}, median "
+                              f"{sorted(noise.values())[len(noise) // 2]:.2e}; on frames one ulp "
+                              f"apart: largest {max(ulp.values()):.2e}, median "
+                              f"{sorted(ulp.values())[len(ulp) // 2]:.2e}")
+            if (step_counts[:3] != (DCN_PER_FORWARD,) * 3 or loss_rel > TOL_EDVR_STEP
+                    or grad_rel[worst] > TOL_EDVR_STEP):
+                raise AssertionError("an EDVR step through the DCN kernels disagrees with the "
+                                     "plain versions")
+            results[key]["kernels_vs_plain_loss_rel"] = loss_rel
+            results[key]["kernels_vs_plain_grad_rel"] = grad_rel[worst]
+            results[key]["kernels_vs_kernels_grad_rel"] = max(noise.values())
+            results[key]["kernels_one_ulp_apart_grad_rel"] = max(ulp.values())
+            net.zero_grad(set_to_none=True)
+            del grads_k, grads_p, grads_k2, grads_ulp
+        del trainer
+    print(json.dumps({"edvr_training": results, "card": card_line}), flush=True)
+    return results
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -1387,7 +1973,11 @@ def main() -> int:
         recurrence_format,
         set_gate_tail,
     )
-    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates, tiling
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv,
+        lstm_gates,
+        tiling,
+    )
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import common
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
         load_checkpoint,
@@ -1412,11 +2002,16 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # ----------------------------------------------------------------- 2 build
-    built = lstm_gates.build()
-    log("build", f"lstm_gates.cu -> {built.path.name} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+    # one nvcc a source, all started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = {name: pool.submit(mod.build) for name, mod in
+                  (("lstm_gates.cu", lstm_gates), ("deform_conv.cu", deform_conv))}
+        builds = {name: future.result() for name, future in builds.items()}
+    for name, built in builds.items():
+        log("build", f"{name} -> {built.path.name} in {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", line.strip())
 
     # ------------------------------------------------------- 3 kernel vs plain
     # the gate conv's raw output, c and its bias, in the layout the recurrence
@@ -1935,6 +2530,13 @@ def main() -> int:
     # ------------------------------------------ 17-18 the plain video family
     vsr_serving(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
     vsr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
+
+    # --------------------------------------------- 19-21 EDVR and its DCN kernels
+    dcn_res = dcn_kernels(deform_conv, dev, rates, card_line)
+    edvr_eval = edvr_serving(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, dev, rates,
+                             card_line)
+    edvr_train = edvr_training(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, dev, rates,
+                               card_line, bf16_peak)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
@@ -1943,11 +2545,11 @@ def main() -> int:
     fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
                  "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
-                 "vsr_eval": 0, "vsr_train": 0}
+                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
-                 "vsr_eval": 0, "vsr_train": 0}
+                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
@@ -2012,6 +2614,53 @@ def main() -> int:
         "library_ms_bf16": bwd_train[b16]["library_ms"],
         "library_error_bf16": bwd_train[b16]["library_error"],
     }]}
+    # the DCN kernels replace XLA code of the JAX package, not a Pallas kernel
+    # (its __init__.py:14 names a Pallas DCN that does not exist)
+    jax_dcn = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/deform_conv.py"
+    replaces = {"deform_im2col": f"{jax_dcn}:28, :62, :141 (XLA gathers; no Pallas kernel)",
+                "deform_col2im": f"{jax_dcn}:62, :141 (XLA autodiff of the gathers; no Pallas "
+                                 f"kernel)",
+                "deform_col2im_coord": f"{jax_dcn}:28, :141 (XLA autodiff of the bilinear "
+                                       f"weights; no Pallas kernel)"}
+    index = {k: i for i, k in enumerate(deform_conv.KERNELS)}
+    for k in deform_conv.KERNELS:
+        paths = {"edvr_eval": edvr_eval["EDVRNet"]["dcn_launches"][index[k]],
+                 "edvr_eval_bf16": edvr_eval["EDVRNet_tpu"]["dcn_launches"][index[k]],
+                 "edvr_train": edvr_train["EDVRNet"]["dcn_launches"][index[k]],
+                 "edvr_train_bf16": edvr_train["EDVRNet_tpu"]["dcn_launches"][index[k]]}
+        serve32, serve16 = (dcn_res["times"][f"serving {d}"] for d in (f32, b16))
+        train32, train16 = (dcn_res["times"][f"training {d}"] for d in (f32, b16))
+        record["kernels"].append({
+            "name": k,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/deform_conv.cu",
+            "replaces": replaces[k],
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": dcn_res["errors"][k][str(f32)],
+            "max_abs_err_bf16": dcn_res["errors"][k][str(b16)],
+            "ms": serve32[k]["ms"],
+            "plain_ms": serve32[k]["plain_ms"],
+            "bound_ms": serve32[k]["bound_ms"],
+            "bound_by": serve32[k]["bound_by"],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a deformable im2col or its backward",
+            "shape": list(DCN_SHAPES["serving"]),
+            "dtype": "float32",
+            "dense_conv_ms": serve32["dcn"]["dense_conv_ms"],
+            "dcn_forward_ms": serve32["dcn"]["ms"],
+            "ms_bf16": serve16[k]["ms"],
+            "plain_ms_bf16": serve16[k]["plain_ms"],
+            "bound_ms_bf16": serve16[k]["bound_ms"],
+            "ms_train_shape": train32[k]["ms"],
+            "plain_ms_train_shape": train32[k]["plain_ms"],
+            "bound_ms_train_shape": train32[k]["bound_ms"],
+            "dense_conv_ms_train_shape": train32["dcn"]["dense_conv_ms"],
+            "dcn_forward_ms_train_shape": train32["dcn"]["ms"],
+            "ms_bf16_train_shape": train16[k]["ms"],
+            "plain_ms_bf16_train_shape": train16[k]["plain_ms"],
+            "bound_ms_bf16_train_shape": train16[k]["bound_ms"],
+        })
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,26 +2,28 @@
 
 The port's copy of the JAX package's ``ops/telemetry.py``.  ``max_flow``
 replaces the unbounded gather of a warp with a window of shifted products
-(``ops/warp.py``) that is exact only while the displacement stays inside
-the window; an out-of-window displacement silently degrades the scores.
-Every windowed call site therefore reduces its displacements, on the
-device, to
+(``ops/warp.py``), and ``dcn_max_offset`` drops a deformable conv's
+bilinear corners beyond a window (``ops/deform_conv.py``): each is exact
+only while the displacement stays inside the window; an out-of-window
+displacement silently degrades the scores.  Every windowed call site
+therefore reduces its displacements, on the device, to
 
     triple = [count(|d| > bound), count(total), max(|d|)]   (float32, (3,))
 
 with ``|d|`` in pixels and ``bound`` the configured knob.  Remedy on a
 warning: raise the knob until the fraction is 0, or drop it to restore the
-exact gather path (``net.kwargs.max_flow``).
+exact gather path (``net.kwargs.max_flow``, ``net.kwargs.dcn_max_offset``).
 
 Collection is opt-in.  Where the JAX package sows into a flax variable
 collection, a caller here opens :func:`collect` around the forwards it
 wants measured: it points every module of the net at one
 :class:`Collector`, and each call site records its triple under its module
 path (``spy_net/pyramid_flow_window``, ``flow_window``,
-``sr_flow_window``: the names the JAX package's :func:`summarize` prints
-for the same net).  Outside ``collect`` a call site computes nothing and
-nothing syncs; the training step never collects.  The triples stay on the
-device and :func:`summarize` fetches them in one transfer.
+``sr_flow_window``, ``pcd_align/L1_dcnpack/dcn_offset_window``: the names
+the JAX package's :func:`summarize` prints for the same net).  Outside
+``collect`` a call site computes nothing and nothing syncs; the training
+step never collects.  The triples stay on the device and
+:func:`summarize` fetches them in one transfer.
 
 The JAX package's ``strip`` has no counterpart: it drops a stale
 collection that ``net.init`` leaves in a variables dict, and a torch
@@ -117,11 +119,27 @@ def collecting(module: nn.Module) -> bool:
 
 def record_triple(module: nn.Module, name: str, triple: torch.Tensor) -> None:
     """Merge a call site's triple into the site ``<module path>/name``; a
-    no-op unless collecting."""
+    no-op unless collecting.  The triple leaves the autograd graph (a
+    forward under autograd may be collected too)."""
     sink = _sink(module)
     if sink is not None:
         collector, prefix = sink
-        collector.add(f"{prefix}/{name}" if prefix else name, triple)
+        collector.add(f"{prefix}/{name}" if prefix else name, triple.detach())
+
+
+def record_offset_exceedance(module: nn.Module, offset: torch.Tensor, deformable_groups: int,
+                             bound: float, name: str = "dcn_offset_window") -> None:
+    """A deformable conv's call site (the JAX package's
+    ``sow_offset_exceedance``): |y| and |x| of every group's and tap's
+    offset, (B, dg·2K, Ho, Wo) with channel ``g·2K + 2·tap`` the y and
+    ``+1`` the x component, against ``dcn_max_offset``; nothing is computed
+    unless collecting."""
+    if not collecting(module):
+        return
+    B, C, Ho, Wo = offset.shape
+    off = offset.reshape(B, deformable_groups, C // (2 * deformable_groups), 2, Ho, Wo)
+    record_triple(module, name, exceedance_triple(bound, off[:, :, :, 0].abs(),
+                                                  off[:, :, :, 1].abs()))
 
 
 # --------------------------------------------------------------- host side

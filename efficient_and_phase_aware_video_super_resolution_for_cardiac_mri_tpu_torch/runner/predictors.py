@@ -23,8 +23,9 @@ The JAX package's serving knobs, each computing what it computes there:
 * ``aot_cache``: accepted and logged; the port compiles nothing per shape.
 * ``telemetry`` (on by default) / ``telemetry_warn_frac``: each item's
   forward collects the windowed call sites' exceedance triples
-  (``ops/telemetry.py``; nets without ``max_flow`` record none, a tiled
-  item merges its windows' and drops its seam probes'), fetched with the
+  (``ops/telemetry.py``; nets without ``max_flow`` or ``dcn_max_offset``
+  record none, EDVR's four DCN packs record theirs, a tiled item merges
+  its windows' and drops its seam probes'), fetched with the
   item's scores; an item whose out-of-window fraction exceeds
   ``telemetry_warn_frac`` logs a warning naming its file, and the run's
   aggregate is logged as ``Windowed-op telemetry``.

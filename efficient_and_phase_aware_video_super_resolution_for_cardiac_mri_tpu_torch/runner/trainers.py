@@ -36,7 +36,8 @@ The JAX package's trainer knobs, each computing what it computes there:
 * ``aot_cache``: accepted and logged; the port compiles nothing per shape.
 * ``telemetry`` / ``telemetry_warn_frac``: every valid epoch collects the
   windowed call sites' exceedance triples (``ops/telemetry.py``; nets
-  without ``max_flow`` record none), fetches them once at the epoch's end,
+  without ``max_flow`` or ``dcn_max_offset`` record none), fetches them
+  once at the epoch's end,
   logs ``Windowed-op telemetry (valid epoch N)`` and warns for a site whose
   out-of-window fraction exceeds ``telemetry_warn_frac``.  The train step
   never collects.

@@ -1,7 +1,8 @@
 """Where the multi-frame and plain video nets spend their time on the card.
 
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_misr \
-        [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu DRFNet FRVSRNet FRVSRNet_tpu] \
+        [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu DRFNet FRVSRNet FRVSRNet_tpu \
+                EDVRNet EDVRNet_tpu] \
         [--modes eval train]
 
 Runs each net at its ``configs/{test,train}/<net>/exp1_x4.yaml`` width with
@@ -15,7 +16,10 @@ of the trainer (the config's batch of 32×32 LR patches, 7 frames, FRVSR's
 (``max_flow: 4``, bf16 compute), ``RBPNet_tpu``
 ``configs/train/rbp_net/exp1_x4_tpu.yaml`` (bf16, the batch as two
 microbatches) and ``FRVSRNet_tpu`` ``configs/test/frvsr_net/exp1_x4_tpu.yaml``
-(``max_flow: 4``, bf16 compute).  For each it prints:
+(``max_flow: 4``, bf16 compute); ``EDVRNet`` is
+``configs/{test,train}/edvr_net/exp1_x4.yaml`` (5 frames, Charbonnier) and
+``EDVRNet_tpu`` ``configs/train/edvr_net/exp1_x4_tpu.yaml`` (bf16,
+``dcn_max_offset: 2``, two microbatches).  For each it prints:
 
 * the wall time of a call (host clock around a synchronised call, median
   of several), with ``torch.backends.cudnn.benchmark`` off (the port's
@@ -25,7 +29,8 @@ microbatches) and ``FRVSRNet_tpu`` ``configs/test/frvsr_net/exp1_x4_tpu.yaml``
   by the device time of their own kernels (the op that launched them);
 * the operations of the call counted as ``chip_smoke.py`` counts them
   (convs, 3D convs, transposed convs, every resize product, DUF's filter
-  product; a training step as three forwards) and their rate.
+  product, the deformable convs' GEMMs; a training step as three
+  forwards) and their rate.
 
 The last line is one JSON object with these numbers.  Needs a CUDA card.
 """
@@ -42,8 +47,8 @@ from collections import defaultdict
 import torch
 import torch.nn.functional as F
 
-from ..models import DRFNet, DUFNet, FRVSRNet, RBPNet, TOFlowNet
-from ..ops import resize
+from ..models import DRFNet, DUFNet, EDVRNet, FRVSRNet, RBPNet, TOFlowNet
+from ..ops import deform_conv, resize
 from ..utils.casting import forward_in
 
 T, SCALE, REPEATS, TOP = 7, 4, 5, 14
@@ -56,6 +61,8 @@ TOFLOW = {"in_channels": 1, "out_channels": 1, "num_frames": T, "upscale_factor"
 DRF = {"in_channels": 1, "out_channels": 1, "num_features": 32, "num_groups": 6,
        "upscale_factor": SCALE}
 FRVSR = {"in_channels": 1, "out_channels": 1, "num_resblocks": 10, "upscale_factor": SCALE}
+EDVR = {"in_channels": 1, "out_channels": 1, "nf": 128, "nframes": 5, "groups": 8,
+        "front_RBs": 5, "back_RBs": 40}
 #: name → (class, kwargs, compute dtype, train batch, microbatches, loss,
 #: frames (eval, train))
 NETS = {
@@ -68,6 +75,9 @@ NETS = {
     "FRVSRNet": (FRVSRNet, FRVSR, None, 16, 1, "flow+mse", (CLIP, 10)),
     "FRVSRNet_tpu": (FRVSRNet, {**FRVSR, "max_flow": 4}, torch.bfloat16, 16, 1, "flow+mse",
                      (CLIP, 10)),
+    "EDVRNet": (EDVRNet, EDVR, None, 16, 1, "charbonnier", (5, 5)),
+    "EDVRNet_tpu": (EDVRNet, {**EDVR, "dcn_max_offset": 2}, torch.bfloat16, 16, 2,
+                    "charbonnier", (5, 5)),
 }
 LR_HW = {"eval": 64, "train": 32}
 
@@ -83,7 +93,7 @@ def _ops(net, x) -> int:
         total += 2 * k * (args[0].numel() if isinstance(mod, torch.nn.ConvTranspose2d)
                           else out.numel())
 
-    plain_resize = resize._resize
+    plain_resize, plain_contract = resize._resize, deform_conv._contract
 
     def counted_resize(y, out_hw, align_corners, kind):  # rows, then columns
         nonlocal total
@@ -91,14 +101,19 @@ def _ops(net, x) -> int:
         total += 2 * (y.numel() // (hh * ww)) * (out_hw[0] * hh * ww + out_hw[0] * out_hw[1] * ww)
         return plain_resize(y, out_hw, align_corners, kind)
 
+    def counted_contract(col, weight, bias, g):  # the DCN's (Cout, C·K) @ col GEMM
+        nonlocal total
+        total += 2 * weight.numel() * g.B * g.Ho * g.Wo
+        return plain_contract(col, weight, bias, g)
+
     convs = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Conv3d)
     handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, convs)]
-    resize._resize = counted_resize
+    resize._resize, deform_conv._contract = counted_resize, counted_contract
     try:
         with torch.inference_mode():
             net(x)
     finally:
-        resize._resize = plain_resize
+        resize._resize, deform_conv._contract = plain_resize, plain_contract
         for h in handles:
             h.remove()
     B, _, h, w, C = x.shape
@@ -133,6 +148,8 @@ def _call(name: str, mode: str, dev):
             return F.huber_loss(out, tgt, delta=0.01)
         if loss_name == "flow+mse":  # FlowLoss on the warped LR frames, MSE on the SR
             return F.mse_loss(out[1], lr) + F.mse_loss(out[0], tgt)
+        if loss_name == "charbonnier":
+            return torch.sqrt((out - tgt) ** 2 + 1e-6).mean()
         return (out - tgt).abs().mean()
 
     def call():

@@ -257,6 +257,47 @@ def _frvsr_net(params: dict) -> dict:
     return sd
 
 
+#: EDVRNet's top-level plain convs (the non-TSA 1x1 fusion conv is a conv
+#: named ``tsa_fusion`` too)
+_EDVR_TOP_CONVS = {
+    "conv_first", "conv_first_1", "conv_first_2", "conv_first_3", "conv_1x1",
+    "fea_L2_conv1", "fea_L2_conv2", "fea_L3_conv1", "fea_L3_conv2",
+    "upconv1", "upconv2", "HRconv", "conv_last",
+}
+
+
+def _edvr_net(params: dict) -> dict:
+    """Inverse of ``torch_import.edvr_net_key_map``: ``feature_extraction{i}``
+    and ``recon_trunk{i}`` become sequential indices; a DCN pack's raw
+    ``weight`` (k, k, Cin, Cout) becomes OIHW beside its ``bias`` and its
+    ``conv_offset_mask``."""
+    sd: dict[str, np.ndarray] = {}
+    for name, node in params.items():
+        if m := re.fullmatch(r"(feature_extraction|recon_trunk)(\d+)", name):
+            for conv_name, conv in node.items():
+                _put(sd, f"{m[1]}.{m[2]}.{conv_name}", conv)
+        elif name == "pcd_align":
+            for sub, subnode in node.items():
+                if sub.endswith("_dcnpack"):
+                    _put(sd, f"pcd_align.{sub}.conv_offset_mask", subnode["conv_offset_mask"])
+                    sd[f"pcd_align.{sub}.weight"] = _w(subnode["weight"])
+                    sd[f"pcd_align.{sub}.bias"] = subnode["bias"]
+                else:
+                    _put(sd, f"pcd_align.{sub}", subnode)
+        elif name in ("tsa_fusion", "pre_deblur") and "kernel" not in node:
+            for sub, subnode in node.items():
+                if sub.startswith("RB_"):
+                    for conv_name, conv in subnode.items():
+                        _put(sd, f"{name}.{sub}.{conv_name}", conv)
+                else:
+                    _put(sd, f"{name}.{sub}", subnode)
+        elif name in _EDVR_TOP_CONVS or name == "tsa_fusion":
+            _put(sd, name, node)
+        else:
+            raise KeyError(f"Unmapped EDVRNet param: {name}")
+    return sd
+
+
 _NETS = {
     "RefineNet": lambda params, stats: _refine_net(params),
     "EDSRNet": lambda params, stats: _edsr_net(params),
@@ -265,6 +306,7 @@ _NETS = {
     "DUFNet": _duf_net,
     "RBPNet": _rbp_net,
     "TOFlowNet": _toflow_net,
+    "EDVRNet": lambda params, stats: _edvr_net(params),
     "DRFNet": lambda params, stats: _drf_net(params),
     "FRVSRNet": lambda params, stats: _frvsr_net(params),
 }

@@ -4,7 +4,10 @@ each of their paths (16-byte vectors over rows, channels-last or NCHW
 planes; one element a vector for other widths and unaligned pointers), a
 small net's forward, one training step through the kernels against one
 through the plain gate tail, and the single-image, multi-frame and plain
-video nets (no hand-written kernel) on the card against the CPU.
+video nets (no hand-written kernel) on the card against the CPU; the
+deformable conv's three kernels (im2col, col2im, col2im_coord) against
+their plain versions, fp32 and bf16, at zero, fractional and out-of-window
+offsets, what they refuse, and a small EDVR on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -419,3 +422,110 @@ def test_vsr_nets_on_the_card_match_the_cpu(cuda, name, kwargs):
     assert got[0].shape == want[0].shape == (2, 4, 40, 48, 1)
     for g, w in zip(got, want):
         assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+# ------------------------------------------------------- deformable conv
+def _dcn_operands(dev, dtype, offsets, B=2, C=16, H=13, W=11, dg=4, seed=0):
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv as dcn,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    g = dcn.geometry((B, C, H, W), 3, 3, 1, 1, 1, dg, 2 if offsets == "beyond" else None)
+    shape = (B, dg * 18, g.Ho, g.Wo)
+    if offsets == "zero":
+        off = torch.zeros(shape)
+    elif offsets == "fractional":  # reaches outside the image from the border taps
+        off = (torch.rand(shape, generator=gen) * 2 - 1) * 3.5
+    else:  # |o| in (R, R + 2]: corners dropped, many samples wholly out of the window
+        off = (2 + 2 * torch.rand(shape, generator=gen)) * torch.sign(torch.randn(shape, generator=gen))
+    x = torch.randn(B, C, H, W, generator=gen)
+    mask = torch.rand(B, dg * 9, g.Ho, g.Wo, generator=gen)
+    w = torch.randn(8, C, 3, 3, generator=gen) * 0.2
+    b = torch.randn(8, generator=gen)
+    cot = torch.randn(B, 8, g.Ho, g.Wo, generator=gen)
+    cast = lambda t: t.to(dev, dtype)  # noqa: E731
+    return dcn, g, [cast(x), off.to(dev), cast(mask), cast(w), cast(b)], cot.to(dev)
+
+
+@pytest.mark.parametrize("offsets", ["zero", "fractional", "beyond"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets):
+    """The three kernels (im2col, col2im, col2im_coord) through the autograd
+    function against the plain version under autograd on the same inputs
+    upcast to fp32: the output and the gradients in x, offset, mask, weight
+    and bias, each relative to its largest element (bf16: the kernels round
+    col and the operands once; the plain version runs in fp32)."""
+    dcn, g, ops, cot = _dcn_operands(cuda, dtype, offsets)
+    R = None if g.R < 0 else g.R
+    kwargs = dict(padding=1, deformable_groups=g.dg, max_offset=R)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    before = dict(dcn.LAUNCHES)
+    out = dcn.deform_conv2d(leaves[0], leaves[1], leaves[3], leaves[2], leaves[4], **kwargs)
+    (out.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    ref = [t.detach().float().clone().requires_grad_() for t in ops]
+    want = dcn.deform_conv2d_reference(ref[0], ref[1], ref[3], ref[2], ref[4], **kwargs)
+    (want * cot).sum().backward()
+    pairs = [("out", out, want)] + [(n, a.grad, b.grad) for n, a, b in
+                                    zip(("x", "offset", "mask", "weight", "bias"), leaves, ref)]
+    for name, a, b in pairs:
+        rel = ((a.float() - b.float()).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+        assert rel <= tol, (name, rel)
+    if offsets == "beyond":  # what lies beyond the window adds exactly nothing
+        far = ops[1].clone()
+        far[:] = 3.5 * torch.sign(far)
+        with torch.no_grad():
+            zero = dcn.deform_conv2d(ops[0], far, ops[3], ops[2], ops[4], **kwargs)
+        assert torch.equal(zero, ops[4].view(1, -1, 1, 1).expand_as(zero).to(zero.dtype))
+
+
+def test_dcn_kernels_refuse_what_they_do_not_take(cuda):
+    dcn, g, ops, _ = _dcn_operands(cuda, torch.float32, "fractional")
+    x, off, mask, w, b = ops
+    with pytest.raises(TypeError):
+        dcn.deform_im2col(x.half(), off, None, g)
+    with pytest.raises(ValueError):
+        dcn.deform_im2col(x, off, mask.cpu(), g)
+    with pytest.raises(ValueError):
+        dcn.deform_im2col(x, off[:, :-1], mask, g)
+    with pytest.raises(ValueError):
+        dcn.deform_conv2d(x, off, w, mask, b, padding=1, deformable_groups=3)
+
+
+@pytest.mark.parametrize("R", [None, 2], ids=["exact", "windowed"])
+def test_small_edvr_on_the_card_matches_the_cpu(cuda, R):
+    """A small EDVR (nf 16, 2 groups, 5 frames, LR 10×11: the pad path),
+    offsets drawn off zero: the output and every gradient on the card
+    (the DCN kernels: 20 im2col launches a forward, 20 of each backward
+    kernel a backward) against the CPU's plain versions."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv as dcn,
+    )
+
+    kwargs = dict(in_channels=1, out_channels=1, nf=16, nframes=5, groups=2, front_RBs=1,
+                  back_RBs=1, dcn_max_offset=R)
+    net = models.EDVRNet(**kwargs, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "conv_offset_mask" in name:
+                p.normal_(0.0, 0.05, generator=gen)
+    card = models.EDVRNet(**kwargs)
+    card.load_state_dict(net.state_dict())
+    card.to(cuda)
+    x = torch.randn(2, 5, 10, 11, 1, generator=gen)
+    want = net(x)
+    (want ** 2).mean().backward()
+    before = dict(dcn.LAUNCHES)
+    got = card(x.to(cuda))
+    (got ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 20)
+    assert ((got.detach().cpu() - want.detach()).abs().max() / want.abs().max()).item() <= 1e-4
+    on_card = dict(card.named_parameters())
+    for name, p in net.named_parameters():
+        rel = ((on_card[name].grad.cpu() - p.grad).abs().max() / p.grad.abs().max()).item()
+        assert rel <= 1e-3, (name, rel)

@@ -28,7 +28,8 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
 REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).parent
 JAX_PACKAGE = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE}
+# the tests' DCN oracle too: the port keeps its own plain versions
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE, "dcn_oracle"}
 
 
 def _port_modules():

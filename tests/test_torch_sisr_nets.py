@@ -190,8 +190,8 @@ def test_conv_transpose_and_strided_projection_sizes():
 
 
 def test_unknown_net_in_the_weight_map_raises():
-    with pytest.raises(KeyError, match="EDVRNet"):
-        state_dict_from_jax_params({}, "EDVRNet")
+    with pytest.raises(KeyError, match="NoSuchNet"):
+        state_dict_from_jax_params({}, "NoSuchNet")
 
 
 # ------------------------------------------------------------------ losses
