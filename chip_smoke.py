@@ -137,14 +137,16 @@ non-zero and no result is printed:
     ``deform_col2im``, ``deform_col2im_coord``) against their plain
     versions at EDVR's serving L1 shape (x (1, 128, 64, 64), 8 deformable
     groups, K 9) and its training L1 shape (x (16, 128, 32, 32)), in fp32
-    and bf16: each kernel on the same inputs; the autograd function's
-    forward and its five gradients at zero offsets with a unit mask (the
-    integer knife edge, also against the dense conv), at fractional
-    offsets reaching outside the image, and at R = 2 with offsets beyond
-    the window (output exactly the bias, gradients exactly 0); each
-    kernel's time per launch beside its plain version's and its bound (CUDA
-    graphs over operand sets larger than L2), and the whole DCN (im2col +
-    GEMM) beside a dense ``F.conv2d`` of the same shapes.
+    and bf16: each kernel on the same inputs at offsets of up to 3.5 px
+    and of up to 12 px; the autograd function's forward and its five gradients
+    at zero offsets with a unit mask (the integer knife edge, also against
+    the dense conv), at fractional offsets reaching outside the image, and
+    at R = 2 with offsets beyond the window (output exactly the bias,
+    gradients exactly 0); each kernel's time per launch beside its plain
+    version's, its bound and the first design's recorded time (CUDA graphs over
+    operand sets larger than L2; im2col also without its transpose, on a
+    channels-last x), and the whole DCN (im2col + GEMM) beside a dense
+    ``F.conv2d`` of the same shapes.
 20. EDVR serving: ``configs/test/edvr_net/exp1_x4.yaml`` (nf 128, 8
     groups, 5 + 40 residual blocks, 5 frames) and ``exp1_x4_tpu.yaml``
     (bf16, ``dcn_max_offset: 2``) through ``main.test_from_config`` on
@@ -155,8 +157,9 @@ non-zero and no result is printed:
     launch, one fp32 window on the card against the CPU within 1e-4 of its
     largest value, the bf16 run's PSNR/SSIM within the stated bound of the
     fp32 run's and its four ``dcn_offset_window`` sites printed; the warm ms
-    a window, frames/s, peak memory, the device's busy share and the
-    arithmetic bound (the DCN GEMMs counted).
+    a window, frames/s, peak memory, the device's busy share, the DCN
+    kernels' share of the device time (traced) and the arithmetic bound
+    (the DCN GEMMs counted).
 21. EDVR training: ``configs/train/edvr_net/exp1_x4.yaml`` (batch 16 × 5
     frames, 32×32 LR patches, Charbonnier, Adam at 4e-4) and
     ``exp1_x4_tpu.yaml`` (bf16, ``grad_accum_steps: 2``, ``dcn_max_offset:
@@ -164,9 +167,11 @@ non-zero and no result is printed:
     30-window valid slice an epoch: every logged value finite, the DCN
     launches of 20 im2col + 20 col2im + 20 col2im_coord a microbatch step
     and 20 im2col a valid window, no gate launch, ``model_best.pth``
-    written and reloaded; one fp32 step through the kernels against the
-    same step through the plain versions (loss and every gradient); ms a
-    step, LR frames/s, peak memory and the bound.
+    written and reloaded; the DCN kernels' launches, per-launch time and
+    share of an fp32 forward and backward's device time (traced); one fp32
+    step through the kernels against the same step through the plain
+    versions (loss and every gradient); ms a step, LR frames/s, peak memory
+    and the bound.
 
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
@@ -367,13 +372,14 @@ def time_graph_ms(fns) -> float:
     return start.elapsed_time(end) / (reps * len(fns))
 
 
-def device_busy(fn, reps: int = 3) -> tuple[float, float, int, dict]:
+def device_busy(fn, reps: int = 3) -> tuple[float, float, int, dict, dict]:
     """(median host wall ms of ``fn()`` to the device's drain over ``reps``
     warm calls without a profiler; device ms of the kernels of one more call
     from a ``torch.profiler`` trace; their number; the launches of the
-    kernels named in ``TRACE_COUNTS`` in that trace).  The kernels run on one
-    stream, so their sum is the busy time; host tracing slows the host, not
-    the kernels, so the wall is taken untraced."""
+    kernels named in ``TRACE_COUNTS`` in that trace; device ms and launches
+    by kernel name).  The kernels run on one stream, so their sum is the
+    busy time; host tracing slows the host, not the kernels, so the wall is
+    taken untraced."""
     import torch
 
     fn()
@@ -391,8 +397,12 @@ def device_busy(fn, reps: int = 3) -> tuple[float, float, int, dict]:
     if not kernels:
         raise AssertionError("the profiler traced no device activity")
     counts = {key: sum(part in e.name for e in kernels) for key, part in TRACE_COUNTS.items()}
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return (sorted(walls)[reps // 2], sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-            len(kernels), counts)
+            len(kernels), counts, by_name)
 
 
 def gate_operands(shape_c, fmt, dtype, dev, gen):
@@ -1446,6 +1456,23 @@ DCN_OPS = {"deform_im2col": 23, "deform_col2im": 23, "deform_col2im_coord": 30}
 # different order every run); bf16 rounds col (and d_weight's product) to
 # 8 bits where the plain version stays fp32
 TOL_DCN_FP32, TOL_DCN_BF16 = 1e-5, 2e-2
+# the first designs' per-launch times at these shapes, recorded from three
+# runs of this phase on an H100 80GB HBM3 at 700.00 W (a thread per output
+# element, fp32 atomics in col2im), in us: printed beside the redesigned
+# kernels' times as recorded values, not measured by this script
+FIRST_DESIGN_US = {
+    ("deform_im2col", "serving", "torch.float32"): (43.95, 44.14),
+    ("deform_im2col", "serving", "torch.bfloat16"): (43.67, 44.03),
+    ("deform_im2col", "training", "torch.float32"): (170.3, 170.7),
+    ("deform_im2col", "training", "torch.bfloat16"): (167.6, 168.7),
+    ("deform_col2im", "serving", "torch.float32"): (187.65, 188.17),
+    ("deform_col2im", "serving", "torch.bfloat16"): (187.76, 188.44),
+    ("deform_col2im", "training", "torch.float32"): (702.8, 704.5),
+    ("deform_col2im", "training", "torch.bfloat16"): (702.9, 703.8),
+}
+# offsets far beyond the 3x3 taps' reach (up to 12 px): corners land far from
+# their output position, in any tile
+DCN_WIDE_OFFSET = 12.0
 # EDVR offsets drawn off the zero init: conv_offset_mask ~ N(0, 0.1), so
 # the offsets are fractional (up to ~1.5 px at the published width) and
 # mostly inside the 2 px window
@@ -1505,6 +1532,8 @@ def dcn_operands(dcn, shape, dtype, dev, gen, offsets="fractional", R=None):
         off = torch.zeros(oshape, device=dev)
     elif offsets == "fractional":  # reaches outside the image from the border taps
         off = (torch.rand(oshape, device=dev, generator=gen) * 2 - 1) * 3.5
+    elif offsets == "wide":
+        off = (torch.rand(oshape, device=dev, generator=gen) * 2 - 1) * DCN_WIDE_OFFSET
     else:  # "beyond": |o| >= R + 1: every corner out of the window
         off = (R + 1 + 2 * torch.rand(oshape, device=dev, generator=gen)) * torch.sign(
             torch.randn(oshape, device=dev, generator=gen))
@@ -1513,14 +1542,22 @@ def dcn_operands(dcn, shape, dtype, dev, gen, offsets="fractional", R=None):
     return x, off, mask, grad_col, g
 
 
-def dcn_times_line(name, shape, dtype, t) -> str:
-    return (f"{name} {dtype} x {tuple(shape)} dg {DCN_DG}: kernel {t['ms'] * 1e3:.2f} us, plain "
+def dcn_times_line(name, shape_name, shape, dtype, t) -> str:
+    first = FIRST_DESIGN_US.get((name, shape_name, str(dtype)))
+    line = (f"{name} {dtype} x {tuple(shape)} dg {DCN_DG}: kernel {t['ms'] * 1e3:.2f} us, plain "
             f"{t['plain_ms'] * 1e3:.2f} us ({t['plain_ms'] / t['ms']:.1f}x), bound "
             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} bytes, {t['ops']} "
             f"operations), {t['bound_ms'] / t['ms']:.0%} of the bound; {t['sets']} operand sets")
+    if "ms_gather_only" in t:
+        line += (f"; the gather alone on channels-last x {t['ms_gather_only'] * 1e3:.2f} us "
+                 f"({t['bound_ms'] / t['ms_gather_only']:.0%} of the bound)")
+    if first:
+        line += (f"; the first design's recorded time {first[0]:.2f}-{first[1]:.2f} us "
+                 f"(not measured here; {first[0] / (t['ms'] * 1e3):.1f}x this one's time)")
+    return line
 
 
-def dcn_kernels(dcn, dev, rates, card_line) -> dict:
+def dcn_kernels(dcn, dev, rates, card_line, bf16_peak: float) -> dict:
     """Phase 19: the three DCN kernels against their plain versions at EDVR's
     serving and training L1 shapes, in fp32 and bf16 (zero offsets with a
     unit mask against the dense conv; fractional offsets reaching outside
@@ -1543,25 +1580,28 @@ def dcn_kernels(dcn, dev, rates, card_line) -> dict:
     for shape_name, shape in DCN_SHAPES.items():
         C = shape[1]
         for dtype, tol in ((f32, TOL_DCN_FP32), (b16, TOL_DCN_BF16)):
-            # each kernel against its plain version on the same inputs
-            x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen)
-            got = {"deform_im2col": dcn.deform_im2col(x, off, mask, g),
-                   "deform_col2im": dcn.deform_col2im(grad_col, off, mask, g),
-                   "deform_col2im_coord": dcn.deform_col2im_coord(grad_col, x, off, mask, g)}
-            want = {"deform_im2col": dcn.deform_im2col_reference(x, off, mask, g),
-                    "deform_col2im": dcn.deform_col2im_reference(grad_col, off, mask, g),
-                    "deform_col2im_coord": dcn.deform_col2im_coord_reference(
-                        grad_col, x, off, mask, g)}
-            for k in dcn.KERNELS:
-                pairs = list(zip(*(v if isinstance(v, tuple) else (v,) for v in (got[k], want[k]))))
-                err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
-                r = max(rel(a, b) for a, b in pairs)
-                errors[k][str(dtype)] = max(err, errors[k].get(str(dtype), 0.0))
-                log("dcn", f"{k} {dtype} {shape_name} x {tuple(shape)} fractional offsets: max abs "
-                           f"err {err:.3e}, {r:.3e} of the largest element (tol {tol})")
-                if not r <= tol:
-                    raise AssertionError(f"{k} disagrees with its plain version: {r}")
-            del got, want, grad_col
+            # each kernel against its plain version on the same inputs, at
+            # offsets of up to 3.5 px and of up to DCN_WIDE_OFFSET px
+            for offsets in ("fractional", "wide"):
+                x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen, offsets)
+                got = {"deform_im2col": dcn.deform_im2col(x, off, mask, g),
+                       "deform_col2im": dcn.deform_col2im(grad_col, off, mask, g),
+                       "deform_col2im_coord": dcn.deform_col2im_coord(grad_col, x, off, mask, g)}
+                want = {"deform_im2col": dcn.deform_im2col_reference(x, off, mask, g),
+                        "deform_col2im": dcn.deform_col2im_reference(grad_col, off, mask, g),
+                        "deform_col2im_coord": dcn.deform_col2im_coord_reference(
+                            grad_col, x, off, mask, g)}
+                for k in dcn.KERNELS:
+                    pairs = list(zip(*(v if isinstance(v, tuple) else (v,)
+                                       for v in (got[k], want[k]))))
+                    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+                    r = max(rel(a, b) for a, b in pairs)
+                    errors[k][str(dtype)] = max(err, errors[k].get(str(dtype), 0.0))
+                    log("dcn", f"{k} {dtype} {shape_name} x {tuple(shape)} {offsets} offsets: max "
+                               f"abs err {err:.3e}, {r:.3e} of the largest element (tol {tol})")
+                    if not r <= tol:
+                        raise AssertionError(f"{k} disagrees with its plain version: {r}")
+                del got, want, grad_col
             # the autograd function: forward and the five gradients
             w = (torch.randn(C, C, 3, 3, device=dev, generator=gen) / 34).to(dtype)
             b = torch.randn(C, device=dev, generator=gen).to(dtype)
@@ -1602,10 +1642,10 @@ def dcn_kernels(dcn, dev, rates, card_line) -> dict:
                     raise AssertionError(f"the DCN autograd function disagrees: {case} {rels}")
                 del leaves, ref, out, want
             # times
-            times = time_dcn(dcn, shape, dtype, dev, gen, rates, w, b)
+            times = time_dcn(dcn, shape, dtype, dev, gen, rates, w, b, bf16_peak)
             results["times"][f"{shape_name} {dtype}"] = times
             for k in dcn.KERNELS:
-                print(f"times {dcn_times_line(k, shape, dtype, times[k])}", flush=True)
+                print(f"times {dcn_times_line(k, shape_name, shape, dtype, times[k])}", flush=True)
             t = times["dcn"]
             print(f"times deform_conv2d (im2col + GEMM) {dtype} {shape_name} x {tuple(shape)}: "
                   f"{t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}); "
@@ -1615,7 +1655,7 @@ def dcn_kernels(dcn, dev, rates, card_line) -> dict:
     return results
 
 
-def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b) -> dict:
+def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b, bf16_peak: float) -> dict:
     """Per launch, CUDA graphs over operand sets larger than L2: each kernel
     and its plain version, with the bound; the whole DCN forward and a dense
     conv of the same shapes."""
@@ -1644,6 +1684,12 @@ def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b) -> dict:
         t["plain_ms"] = time_graph_ms([lambda a=a: plain(a) for a in _cycled(sets, 20)])
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"], *rates)
         out[k] = t
+    # im2col's gather alone: on a channels-last x its entry point skips the
+    # transpose
+    cl = [(a[0].contiguous(memory_format=torch.channels_last), *a[1:]) for a in sets]
+    out["deform_im2col"]["ms_gather_only"] = time_graph_ms(
+        [lambda a=a: dcn.deform_im2col(a[0], a[1], a[2], g) for a in _cycled(cl)])
+    del cl
     # the whole forward (im2col + the GEMM in the promoted dtype) and the
     # dense conv it would be at zero offsets
     Cout = w.shape[0]
@@ -1654,8 +1700,12 @@ def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b) -> dict:
     t["dense_conv_ms"] = time_graph_ms([lambda a=a: F.conv2d(a[0], w, b, padding=1)
                                         for a in _cycled(sets)])
     dcn_bytes = el * (n_x + n_mask + w.numel() + Cout + g.B * Cout * g.Ho * g.Wo) + 4 * n_off
-    t["bound_ms"], t["bound_by"] = bound_ms(dcn_bytes, gemm_ops + DCN_OPS["deform_im2col"] * n_col,
-                                            *rates)
+    # the GEMM at the tensor cores' rate in bf16, the sampling at the fp32 rate
+    gemm_peak = bf16_peak if dtype == torch.bfloat16 else rates[1]
+    bytes_ms = dcn_bytes / rates[0] * 1e3
+    ops_ms = (gemm_ops / gemm_peak + DCN_OPS["deform_im2col"] * n_col / rates[1]) * 1e3
+    t["bound_ms"], t["bound_by"] = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                                            else "operations")
     out["dcn"] = t
     del sets
     return out
@@ -1762,16 +1812,23 @@ def edvr_serving(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, dev, ra
                          f"{bound / warm_ms:.1%} of it; card vs CPU "
                          f"{'not run (bf16)' if gap is None else f'{gap:.3e}'} of the largest "
                          f"value (tol {TOL_SISR_CARD_CPU})")
+        dcn_share = dcn.trace_share(busy[4])
+        dcn_ms = sum(t for t, _ in dcn_share.values())
         log("edvr eval", f"{key}: predictor step on a warm window: wall {busy[0]:.3f} ms, "
                          f"{busy[2]} kernels {busy[1]:.3f} ms, device busy {busy[1] / busy[0]:.1%}; "
-                         f"the bound is {bound / busy[1]:.1%} of the kernel time")
+                         f"the bound is {bound / busy[1]:.1%} of the kernel time; the DCN's kernels "
+                         f"{dcn_ms:.3f} ms ({dcn_ms / busy[1]:.1%} of the device time): "
+                         f"{ {k: f'{n} launches, {t:.4f} ms' for k, (t, n) in dcn_share.items()} }")
         results[key] = {"frames_per_sec": pred.throughput["frames_per_sec"], "warm_ms": warm_ms,
                         "item_ms": [t * 1e3 for t in pred.item_seconds], "peak_gib": peak / 2**30,
                         "held_gib": held / 2**30, "flops_per_window": flops, "bound_ms": bound,
                         "bound_by": bound_by, "card_vs_cpu_rel": gap, "log": pred.log,
                         "wall_s": wall, "step_wall_ms": busy[0], "step_kernel_ms": busy[1],
                         "step_kernels": busy[2], "telemetry": pred.telemetry_summary,
-                        "dcn_launches": counts}
+                        "dcn_launches": counts, "dcn_step_ms": dcn_ms,
+                        "dcn_share_of_device": dcn_ms / busy[1],
+                        "dcn_by_kernel": {k: {"ms": t, "launches": n}
+                                          for k, (t, n) in dcn_share.items()}}
         del pred
     fp32, b16 = results["EDVRNet"]["log"], results["EDVRNet_tpu"]["log"]
     gaps = {k: b16[k] - fp32[k] for k in ("PSNR", "SSIM", "CardiacPSNR", "CardiacSSIM")}
@@ -1916,6 +1973,24 @@ def edvr_training(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, dev, r
                 loss.backward()
                 return loss.item(), {n: p.grad.clone() for n, p in net.named_parameters()}
 
+            def train_pass():
+                net.zero_grad(set_to_none=True)
+                loss_fn(net(lr_b), hr_b).backward()
+
+            # the DCN's share of a forward and backward's device time
+            busy = device_busy(train_pass)
+            dcn_share = dcn.trace_share(busy[4])
+            dcn_ms = sum(t for t, _ in dcn_share.values())
+            log("edvr train", f"fp32 forward + backward on batch {tuple(lr_b.shape)}: wall "
+                              f"{busy[0]:.2f} ms, {busy[2]} kernels {busy[1]:.2f} ms; the DCN's "
+                              f"kernels {dcn_ms:.3f} ms ({dcn_ms / busy[1]:.1%} of the device "
+                              f"time): " + "; ".join(
+                                  f"{k} {n} launches, {t:.3f} ms, {t / n * 1e3:.1f} us a launch"
+                                  for k, (t, n) in dcn_share.items()))
+            results[key].update({"pass_kernel_ms": busy[1], "dcn_pass_ms": dcn_ms,
+                                 "dcn_share_of_device": dcn_ms / busy[1],
+                                 "dcn_by_kernel": {k: {"ms": t, "launches": n}
+                                                   for k, (t, n) in dcn_share.items()}})
             dcn.reset_launches()
             loss_k, grads_k = step()
             step_counts = dcn_launches(dcn)
@@ -2532,7 +2607,7 @@ def main() -> int:
     vsr_training(port_main, Cfg, lstm_gates, tree, tmp, dev, rates, card_line)
 
     # --------------------------------------------- 19-21 EDVR and its DCN kernels
-    dcn_res = dcn_kernels(deform_conv, dev, rates, card_line)
+    dcn_res = dcn_kernels(deform_conv, dev, rates, card_line, bf16_peak)
     edvr_eval = edvr_serving(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, dev, rates,
                              card_line)
     edvr_train = edvr_training(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, dev, rates,
@@ -2660,6 +2735,9 @@ def main() -> int:
             "ms_bf16_train_shape": train16[k]["ms"],
             "plain_ms_bf16_train_shape": train16[k]["plain_ms"],
             "bound_ms_bf16_train_shape": train16[k]["bound_ms"],
+            "ms_gather_only": {f"{shape} {dtype}": dcn_res["times"][f"{shape} {dtype}"][k]
+                               .get("ms_gather_only")
+                               for shape in DCN_SHAPES for dtype in (f32, b16)},
         })
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

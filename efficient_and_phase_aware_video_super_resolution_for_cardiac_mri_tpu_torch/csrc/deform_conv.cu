@@ -10,12 +10,12 @@
 // products and one contraction.  The contraction stays a GEMM of the caller
 // (weight (Cout, C*K) @ col), as it is an einsum there.
 //
-// Layouts (NCHW, K = kh*kw, tap = i*kw + j, Cg = C / dg, P = Ho*Wo,
-// p = ho*Wo + wo):
-//   x        (B, C, H, W)          T
+// Layouts (K = kh*kw, tap = i*kw + j, Cg = C / dg, P = Ho*Wo, p = ho*Wo + wo):
+//   x        (B, C, H, W)          T (im2col: also (B, H, W, C))
 //   offset   (B, dg*2K, Ho, Wo)    float; channel g*2K + 2*tap is y, +1 is x
 //   mask     (B, dg*K, Ho, Wo)     T, or null (DCNv1: 1)
 //   col      (B, C*K, P)           T; row c*K + tap
+//   d_x      (B, C, H, W)          float
 // Sample of (b, c, tap, p), c in group g = c / Cg:
 //   py = ho*stride - pad + i*dil + offset_y,  px likewise
 //   col = mask * bilinear(x[b, c], py, px), 0 unless -1 < py < H, -1 < px < W
@@ -26,28 +26,64 @@
 // floor(oy) + {0,1} (or x's) lies outside [-R, R] is dropped.  Coordinates
 // and sums are fp32 whatever T; a result is rounded once, at its store.
 //
-// Kernels (one simple design each; a thread per output element, a
-// grid-stride loop, 256 threads a block):
-//   deform_im2col        thread per (b, c, p), loops over the K taps: reads
-//                        the tap's offsets and mask (coalesced along p) and
-//                        up to 4 corners of x, writes col (coalesced).
-//   deform_col2im        thread per (b, c, p), loops over the taps: scatters
-//                        grad_col * mask * corner weight onto d_x (fp32) with
-//                        atomicAdd, so the order of the sums, and the last
-//                        bits of d_x, change from run to run.
-//   deform_col2im_coord  thread per (b, g, tap, p): sums over the group's Cg
+// What bounds them.  im2col writes col (C*K*P elements an image, 18.9 MB in
+// fp32 at EDVR's serving L1 shape) and reads x, the offsets and the mask
+// once: it is bound by bytes.  col2im reads as many bytes of grad_col and
+// adds 4 corners a sample onto d_x.  The first designs (a thread per (b, c, p),
+// 64-bit index arithmetic) ran at 4-17% of that bound: they computed every
+// sample's corners again for each of a group's Cg channels, gathered x one
+// plane a channel (neighbouring threads shared no sector), and col2im sent
+// one scalar fp32 atomic a corner a channel to a different sector of d_x
+// (~19 M at the serving L1 shape, ~100 G a second on an H100).
+//
+// The designs.  A block takes 16 (fp32) or 32 (bf16) consecutive
+// positions of one (b, group, chunk of 16 channels), all K taps: it reads
+// each sample's offsets and mask once, coalesced, and computes its corners
+// once for all the chunk's channels (32-bit arithmetic; the wrapper refuses
+// shapes whose element counts reach 2^31) into a table in shared memory.
+// Then lanes walk the channels with the corners in channels-last layout,
+// where a corner's 16 channels are one 64 B (fp32) or 32 B (bf16) run:
+//   deform_im2col        4 (fp32) or 2 (bf16) lanes a sample, one 16-byte
+//                        load a corner each; a warp covers neighbouring
+//                        positions of one tap, so its col stores fill 32-byte
+//                        sectors of 4 or 8 rows.  The table is all the shared
+//                        memory a block takes (5 KB), which leaves L1 to the
+//                        gathers: neighbouring samples share corners.  A
+//                        first version staged the block's col rows in shared
+//                        memory for 16-byte stores; it measured slower, its
+//                        31 KB a block crowding L1.
+//                        x comes channels-last: the entry point first
+//                        transposes (and casts) an NCHW x through shared
+//                        memory (transpose_kernel), unless the caller's x is
+//                        channels-last already.
+//   deform_col2im        4 lanes a sample, 4 channels a lane: grad_col loads
+//                        fill sectors as im2col's stores do, and each kept
+//                        corner is one float4 atomicAdd (sm_90's vector
+//                        reduction in L2)
+//                        into a zeroed channels-last fp32 d_x, which the
+//                        entry point then transposes to NCHW.  4x fewer
+//                        atomics than the first design's, and a warp's 8
+//                        samples touch 16 sectors an instruction where its
+//                        32 lanes touched 32.
+//                        Kept against the design of an output tile summed in
+//                        a shared-memory footprint and flushed once: sm_90
+//                        has no native shared-memory fp32 atomic add (the
+//                        compiler emits an ATOMS.CAST.SPIN compare-and-swap
+//                        loop), and every footprint design tried measured
+//                        slower at both of EDVR's L1 shapes.  Atomics
+//                        keep a run-to-run summation order, so the last bits
+//                        of d_x change from run to run.
+//   deform_col2im_coord  the first design, on the shared 32-bit corner code: a
+//                        thread per (b, g, tap, p) sums over the group's Cg
 //                        channels d_mask = sum grad_col * sample and
 //                        d_off_{y,x} = mask * sum grad_col * d sample/d p{y,x},
 //                        the derivative through the fraction only (a dropped
-//                        corner and a sample outside add nothing), writes fp32.
+//                        corner and a sample outside add nothing), writes
+//                        fp32.
 //
-// Bound, per launch: im2col reads x, the offsets and the mask once and writes
-// col; col (C*K*P elements an image) dominates.  At EDVR's serving L1 shape
-// (B 1, C 128, 64x64, dg 8, K 9) col is 18.9 MB in fp32: the kernel is bound
-// by the bytes it writes (~19 operations an element of col).
-//
-// The kernels run on the caller's stream, allocate nothing and assume
-// contiguous operands; each entry point returns cudaGetLastError().
+// The kernels run on the caller's stream, allocate nothing (the wrapper
+// passes the channels-last buffers) and assume contiguous operands; each
+// entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,10 +92,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLanes = 16;  // a block's channels: a group's, in chunks of 16
 
 struct Geom {
-  int64_t B, C, H, W, Ho, Wo;
-  int64_t kh, kw, stride, pad, dil, dg, R;
+  int B, C, H, W, Ho, Wo, kh, kw, stride, pad, dil, dg, R;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -70,17 +106,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// The four corners of one sample: flat index into the H*W plane, weight and
-// its derivatives in py and px, all 0 for a dropped corner.
+// The four corners of one sample: corner k at row y0 + (k >> 1), column
+// x0 + (k & 1), kept or dropped, its weight and the weight's derivatives in
+// py and px (all 0 for a dropped corner).
 struct Corners {
-  int64_t idx[4];
+  int y0, x0;  // meaningful where a corner is kept
+  bool any;    // the sample passes the outer test
+  bool ok[4];
   float w[4], wy[4], wx[4];
-  bool any;  // the sample passes the outer test
 };
 
-__device__ __forceinline__ void corners(const Geom& g, int64_t ho, int64_t wo, int64_t tap,
-                                        float oy, float ox, Corners& c) {
-  const int64_t i = tap / g.kw, j = tap % g.kw;
+__device__ __forceinline__ Corners corners(const Geom& g, int ho, int wo, int tap, float oy,
+                                           float ox) {
+  Corners c;
+  const int i = tap / g.kw, j = tap % g.kw;
   const float by = static_cast<float>(ho * g.stride - g.pad + i * g.dil);
   const float bx = static_cast<float>(wo * g.stride - g.pad + j * g.dil);
   const float py = by + oy, px = bx + ox;
@@ -100,6 +139,9 @@ __device__ __forceinline__ void corners(const Geom& g, int64_t ho, int64_t wo, i
     y0 = by + fly;
     x0 = bx + flx;
   }
+  // inside the outer test y0 and x0 are small integers
+  c.y0 = c.any ? static_cast<int>(y0) : 0;
+  c.x0 = c.any ? static_cast<int>(x0) : 0;
   const float R = static_cast<float>(g.R);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -108,75 +150,248 @@ __device__ __forceinline__ void corners(const Geom& g, int64_t ho, int64_t wo, i
     bool ok = c.any && yc >= 0.f && yc <= H - 1.f && xc >= 0.f && xc <= W - 1.f;
     if (g.R >= 0) ok = ok && fabsf(fly + dy) <= R && fabsf(flx + dx) <= R;
     const float ay = dy ? fy : 1.f - fy, ax = dx ? fx : 1.f - fx;
+    c.ok[k] = ok;
     c.w[k] = ok ? ay * ax : 0.f;
     c.wy[k] = ok ? (dy ? ax : -ax) : 0.f;
     c.wx[k] = ok ? (dx ? ay : -ay) : 0.f;
-    c.idx[k] = ok ? static_cast<int64_t>(yc) * g.W + static_cast<int64_t>(xc) : -1;
+  }
+  return c;
+}
+
+// ------------------------------------------------------------------ im2col
+
+// The positions of a block of either kernel (a 64-byte run of a col row)
+// and its shared-memory table of K * kPos samples.
+template <typename T>
+struct Tile {
+  static constexpr int kPos = 64 / sizeof(T);
+  static size_t smem(int K) { return (sizeof(int4) + sizeof(float4) + sizeof(float)) * K * kPos; }
+};
+
+// The block's (b, group, channel chunk) and first position.
+struct Block {
+  int b, grp, c0, nc, p0;
+};
+
+template <int kPos>
+__device__ __forceinline__ Block block_of(const Geom& g) {
+  const int Cg = g.C / g.dg, chunks = (Cg + kLanes - 1) / kLanes;
+  Block k;
+  k.b = blockIdx.z;
+  k.grp = blockIdx.y / chunks;
+  const int cg0 = blockIdx.y % chunks * kLanes;
+  k.nc = min(kLanes, Cg - cg0);
+  k.c0 = k.grp * Cg + cg0;
+  k.p0 = blockIdx.x * kPos;
+  return k;
+}
+
+// Step 1 of both kernels: the corners of the block's samples (tap s / kPos,
+// position p0 + s % kPos), once for all its channels: a kept corner's element
+// offset of channel 0 in a channels-last (B, H, W, C) tensor, or -1; the
+// corner weights; the mask (1 without one).
+template <typename T, int kPos>
+__device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* offset,
+                                             const T* mask, int4* corner, float4* weight,
+                                             float* mk) {
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  const float* op = offset + (k.b * g.dg + k.grp) * 2 * K * P;
+  const T* mp = mask ? mask + (k.b * g.dg + k.grp) * K * P : nullptr;
+  for (int s = threadIdx.x; s < K * kPos; s += kThreads) {
+    const int tap = s / kPos, p = k.p0 + s % kPos;
+    int e[4] = {-1, -1, -1, -1};
+    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+    float m = 0.f;
+    if (p < P) {
+      const Corners cr =
+          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p], op[(2 * tap + 1) * P + p]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (cr.ok[c]) e[c] = ((k.b * g.H + cr.y0 + (c >> 1)) * g.W + cr.x0 + (c & 1)) * g.C;
+      w = make_float4(cr.w[0], cr.w[1], cr.w[2], cr.w[3]);
+      m = mp ? to_f(mp[tap * P + p]) : 1.f;
+    }
+    corner[s] = make_int4(e[0], e[1], e[2], e[3]);
+    weight[s] = w;
+    mk[s] = m;
   }
 }
 
-int grid_for(int64_t n) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 16;
-  return static_cast<int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+// ------------------------------------------------------------------ im2col
+
+// v[j] += w * x[i + j] for the 16 bytes at x + i (i >= 0; a dropped corner
+// has i = -1 and adds nothing)
+__device__ __forceinline__ void accumulate(float (&v)[4], const float* x, int i, float w) {
+  if (i < 0) return;
+  const float4 q = __ldg(reinterpret_cast<const float4*>(x + i));
+  v[0] += w * q.x;
+  v[1] += w * q.y;
+  v[2] += w * q.z;
+  v[3] += w * q.w;
+}
+
+__device__ __forceinline__ void accumulate(float (&v)[8], const __nv_bfloat16* x, int i, float w) {
+  if (i < 0) return;
+  const int4 q = __ldg(reinterpret_cast<const int4*>(x + i));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] += w * f.x;
+    v[2 * j + 1] += w * f.y;
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                      const T* __restrict__ mask, T* __restrict__ col, Geom g) {
-  const int64_t P = g.Ho * g.Wo, K = g.kh * g.kw, Cg = g.C / g.dg;
-  const int64_t n = g.B * g.C * P;
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t p = t % P, bc = t / P, c = bc % g.C, b = bc / g.C, grp = c / Cg;
-    const int64_t ho = p / g.Wo, wo = p % g.Wo;
-    const T* xp = x + bc * g.H * g.W;
-    const float* op = offset + (b * g.dg + grp) * 2 * K * P + p;
-    const T* mp = mask ? mask + (b * g.dg + grp) * K * P + p : nullptr;
-    T* cp = col + bc * K * P + p;
-    for (int64_t tap = 0; tap < K; ++tap) {
-      Corners cr;
-      corners(g, ho, wo, tap, op[2 * tap * P], op[(2 * tap + 1) * P], cr);
-      float v = 0.f;
+  constexpr int kPos = Tile<T>::kPos, kVec = 16 / sizeof(T);
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo, n = K * kPos;
+  const Block k = block_of<kPos>(g);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* corner = reinterpret_cast<int4*>(smem);            // [n]
+  float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
+  float* mk = reinterpret_cast<float*>(weight + n);        // [n]
+  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  __syncthreads();
+
+  // 2. kLanes / kVec lanes a sample, kVec channels a lane, one 16-byte load a
+  //    corner (a lane a channel when Cg is not a multiple of kVec): the kept
+  //    corners summed in fp32, times the mask, rounded once into col; a warp
+  //    covers neighbouring positions of one tap, so each of its stores fills
+  //    32-byte sectors of kVec rows
+  T* cp = col + (k.b * g.C + k.c0) * K * P;
+  if ((g.C / g.dg) % kVec == 0) {
+    constexpr int kPer = kLanes / kVec;
+    const int c = threadIdx.x % kPer * kVec;
+    if (c >= k.nc) return;
+    const T* xc = x + k.c0 + c;
+    for (int s = threadIdx.x / kPer; s < n; s += kThreads / kPer) {
+      const int tap = s / kPos, p = k.p0 + s % kPos;
+      if (p >= P) continue;
+      const int4 id = corner[s];
+      const float4 w = weight[s];
+      float v[kVec] = {};
+      accumulate(v, xc, id.x, w.x);
+      accumulate(v, xc, id.y, w.y);
+      accumulate(v, xc, id.z, w.z);
+      accumulate(v, xc, id.w, w.w);
+      T* dst = cp + (c * K + tap) * P + p;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (cr.idx[k] >= 0) v += cr.w[k] * to_f(xp[cr.idx[k]]);
-      if (mp) v *= to_f(mp[tap * P]);
-      cp[tap * P] = from_f<T>(v);
+      for (int j = 0; j < kVec; ++j) dst[j * K * P] = from_f<T>(v[j] * mk[s]);
+    }
+  } else {
+    const int c = threadIdx.x % kLanes;
+    if (c >= k.nc) return;
+    const T* xc = x + k.c0 + c;
+    for (int s = threadIdx.x / kLanes; s < n; s += kThreads / kLanes) {
+      const int tap = s / kPos, p = k.p0 + s % kPos;
+      if (p >= P) continue;
+      const int4 id = corner[s];
+      const float4 w = weight[s];
+      float v = 0.f;
+      if (id.x >= 0) v += w.x * to_f(xc[id.x]);
+      if (id.y >= 0) v += w.y * to_f(xc[id.y]);
+      if (id.z >= 0) v += w.z * to_f(xc[id.z]);
+      if (id.w >= 0) v += w.w * to_f(xc[id.w]);
+      cp[(c * K + tap) * P + p] = from_f<T>(v * mk[s]);
     }
   }
+}
+
+// ------------------------------------------------------------------ col2im
+
+// d[j] += v[j] * w for the 4 floats at d (16-byte aligned): one vector
+// reduction in L2
+__device__ __forceinline__ void add4(float* d, const float (&v)[4], float w) {
+  atomicAdd(reinterpret_cast<float4*>(d), make_float4(v[0] * w, v[1] * w, v[2] * w, v[3] * w));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 deform_col2im_kernel(const T* __restrict__ grad_col, const float* __restrict__ offset,
                      const T* __restrict__ mask, float* __restrict__ grad_x, Geom g) {
-  const int64_t P = g.Ho * g.Wo, K = g.kh * g.kw, Cg = g.C / g.dg;
-  const int64_t n = g.B * g.C * P;
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t p = t % P, bc = t / P, c = bc % g.C, b = bc / g.C, grp = c / Cg;
-    const int64_t ho = p / g.Wo, wo = p % g.Wo;
-    float* dxp = grad_x + bc * g.H * g.W;
-    const float* op = offset + (b * g.dg + grp) * 2 * K * P + p;
-    const T* mp = mask ? mask + (b * g.dg + grp) * K * P + p : nullptr;
-    const T* gp = grad_col + bc * K * P + p;
-    for (int64_t tap = 0; tap < K; ++tap) {
-      Corners cr;
-      corners(g, ho, wo, tap, op[2 * tap * P], op[(2 * tap + 1) * P], cr);
-      if (!cr.any) continue;
-      float gv = to_f(gp[tap * P]);
-      if (mp) gv *= to_f(mp[tap * P]);
+  constexpr int kPos = Tile<T>::kPos;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo, n = K * kPos;
+  const Block k = block_of<kPos>(g);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* corner = reinterpret_cast<int4*>(smem);            // [n]
+  float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
+  float* mk = reinterpret_cast<float*>(weight + n);        // [n]
+  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  __syncthreads();
+
+  // 2. 4 lanes a sample, 4 channels a lane: grad * mask (grad_col loads fill
+  //    32-byte sectors of 4 rows, as im2col's stores do) times each kept
+  //    corner's weight, one float4 reduction a corner into channels-last d_x
+  //    (a lane a channel and scalar atomics when Cg is not a multiple of 4)
+  const T* gp = grad_col + (k.b * g.C + k.c0) * K * P;
+  if ((g.C / g.dg) % 4 == 0) {
+    const int c = threadIdx.x % 4 * 4;
+    if (c >= k.nc) return;
+    float* dx = grad_x + k.c0 + c;
+    for (int s = threadIdx.x / 4; s < n; s += kThreads / 4) {
+      const int tap = s / kPos, p = k.p0 + s % kPos;
+      if (p >= P) continue;
+      const int4 id = corner[s];
+      if ((id.x & id.y & id.z & id.w) == -1) continue;  // every corner dropped
+      const float4 w = weight[s];
+      const T* src = gp + (c * K + tap) * P + p;
+      float gv[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (cr.idx[k] >= 0) atomicAdd(dxp + cr.idx[k], gv * cr.w[k]);
+      for (int j = 0; j < 4; ++j) gv[j] = to_f(src[j * K * P]) * mk[s];
+      if (id.x >= 0) add4(dx + id.x, gv, w.x);
+      if (id.y >= 0) add4(dx + id.y, gv, w.y);
+      if (id.z >= 0) add4(dx + id.z, gv, w.z);
+      if (id.w >= 0) add4(dx + id.w, gv, w.w);
+    }
+  } else {
+    const int c = threadIdx.x % kLanes;
+    if (c >= k.nc) return;
+    float* dx = grad_x + k.c0 + c;
+    for (int s = threadIdx.x / kLanes; s < n; s += kThreads / kLanes) {
+      const int tap = s / kPos, p = k.p0 + s % kPos;
+      if (p >= P) continue;
+      const int4 id = corner[s];
+      const float4 w = weight[s];
+      const float gv = to_f(gp[(c * K + tap) * P + p]) * mk[s];
+      if (id.x >= 0) atomicAdd(dx + id.x, gv * w.x);
+      if (id.y >= 0) atomicAdd(dx + id.y, gv * w.y);
+      if (id.z >= 0) atomicAdd(dx + id.z, gv * w.z);
+      if (id.w >= 0) atomicAdd(dx + id.w, gv * w.w);
     }
   }
 }
+
+// ---------------------------------------------------------------- transpose
+
+// (B, R, S) -> (B, S, R), cast from Ti to To: 32 x 32 tiles through shared
+// memory, loads and stores along the contiguous axis.  Turns x channels-last
+// for im2col and col2im's channels-last d_x back into NCHW.
+template <typename Ti, typename To>
+__global__ void __launch_bounds__(kThreads)
+transpose_kernel(const Ti* __restrict__ in, To* __restrict__ out, int R, int S) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.y * 32, s0 = blockIdx.x * 32, tx = threadIdx.x % 32;
+  const Ti* ip = in + blockIdx.z * R * S;
+  To* op = out + blockIdx.z * R * S;
+  for (int r = threadIdx.x / 32; r < 32; r += kThreads / 32)
+    if (r0 + r < R && s0 + tx < S) tile[r][tx] = to_f(ip[(r0 + r) * S + s0 + tx]);
+  __syncthreads();
+  for (int s = threadIdx.x / 32; s < 32; s += kThreads / 32)
+    if (s0 + s < S && r0 + tx < R) op[(s0 + s) * R + r0 + tx] = from_f<To>(tile[tx][s]);
+}
+
+template <typename Ti, typename To>
+cudaError_t transpose(const void* in, void* out, int B, int R, int S, cudaStream_t stream) {
+  const dim3 grid((S + 31) / 32, (R + 31) / 32, B);
+  transpose_kernel<Ti, To>
+      <<<grid, kThreads, 0, stream>>>(static_cast<const Ti*>(in), static_cast<To*>(out), R, S);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ col2im_coord
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -184,19 +399,22 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
                            const float* __restrict__ offset, const T* __restrict__ mask,
                            float* __restrict__ grad_offset, float* __restrict__ grad_mask,
                            Geom g) {
-  const int64_t P = g.Ho * g.Wo, K = g.kh * g.kw, Cg = g.C / g.dg;
-  const int64_t n = g.B * g.dg * K * P;
+  const int64_t P = static_cast<int64_t>(g.Ho) * g.Wo, K = g.kh * g.kw, Cg = g.C / g.dg;
+  const int64_t n = static_cast<int64_t>(g.B) * g.dg * K * P;
   for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; t < n;
        t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t p = t % P, r = t / P, tap = r % K, bg = r / K, grp = bg % g.dg,
                   b = bg / g.dg;
-    const int64_t ho = p / g.Wo, wo = p % g.Wo;
     const float* op = offset + bg * 2 * K * P + p;
     float* dop = grad_offset + bg * 2 * K * P + p;
-    Corners cr;
-    corners(g, ho, wo, tap, op[2 * tap * P], op[(2 * tap + 1) * P], cr);
+    const Corners cr = corners(g, static_cast<int>(p / g.Wo), static_cast<int>(p % g.Wo),
+                               static_cast<int>(tap), op[2 * tap * P], op[(2 * tap + 1) * P]);
     float dm = 0.f, dy = 0.f, dx = 0.f;
     if (cr.any) {
+      int64_t idx[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        idx[k] = cr.ok[k] ? static_cast<int64_t>(cr.y0 + (k >> 1)) * g.W + cr.x0 + (k & 1) : -1;
       const int64_t c0 = b * g.C + grp * Cg;
       for (int64_t cg = 0; cg < Cg; ++cg) {
         const float gv = to_f(grad_col[((c0 + cg) * K + tap) * P + p]);
@@ -204,8 +422,8 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
         float s = 0.f, sy = 0.f, sx = 0.f;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          if (cr.idx[k] >= 0) {
-            const float v = to_f(xp[cr.idx[k]]);
+          if (idx[k] >= 0) {
+            const float v = to_f(xp[idx[k]]);
             s += cr.w[k] * v;
             sy += cr.wy[k] * v;
             sx += cr.wx[k] * v;
@@ -223,39 +441,88 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
   }
 }
 
+// ------------------------------------------------------------------ launch
+
 Geom geom_of(const int64_t* v) {
-  return Geom{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], v[9], v[10], v[11], v[12]};
+  return Geom{static_cast<int>(v[0]), static_cast<int>(v[1]), static_cast<int>(v[2]),
+              static_cast<int>(v[3]), static_cast<int>(v[4]), static_cast<int>(v[5]),
+              static_cast<int>(v[6]), static_cast<int>(v[7]), static_cast<int>(v[8]),
+              static_cast<int>(v[9]), static_cast<int>(v[10]), static_cast<int>(v[11]),
+              static_cast<int>(v[12])};
 }
 
-template <typename T>
-int im2col(const void* x, const void* offset, const void* mask, void* col, const int64_t* gv,
-           void* stream) {
-  const Geom g = geom_of(gv);
-  const int64_t n = g.B * g.C * g.Ho * g.Wo;
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  deform_im2col_kernel<T><<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(offset), static_cast<const T*>(mask),
-      static_cast<T*>(col), g);
-  return static_cast<int>(cudaGetLastError());
+// dynamic shared memory above the 48 KB default needs the kernel's opt-in
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
+int grid_for(int64_t n) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * 16;
+  return static_cast<int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+}
+
+// one of im2col's and col2im's blocks a (position tile, group's channel
+// chunk, image)
+template <typename T, typename Out>
+cudaError_t launch_tiles(void (*kernel)(const T*, const float*, const T*, Out*, Geom),
+                         const Geom& g, cudaStream_t stream, const void* in, const void* offset,
+                         const void* mask, Out* out) {
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  const size_t smem = Tile<T>::smem(K);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (g.C / g.dg + kLanes - 1) / kLanes;
+  const dim3 grid((P + Tile<T>::kPos - 1) / Tile<T>::kPos, g.dg * chunks, g.B);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(in),
+                                           static_cast<const float*>(offset),
+                                           static_cast<const T*>(mask), out, g);
+  return cudaGetLastError();
+}
+
+// x_nchw (x_bf16: bfloat16, else float), when given, is first transposed
+// and cast into x_cl; the gathers read x_cl
 template <typename T>
-int col2im(const void* grad_col, const void* offset, const void* mask, void* grad_x,
-           const int64_t* gv, void* stream) {
+int im2col(const void* x_nchw, int x_bf16, void* x_cl, const void* offset, const void* mask,
+           void* col, const int64_t* gv, void* stream) {
   const Geom g = geom_of(gv);
-  const int64_t n = g.B * g.C * g.Ho * g.Wo;
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  deform_col2im_kernel<T><<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(grad_col), static_cast<const float*>(offset),
-      static_cast<const T*>(mask), static_cast<float*>(grad_x), g);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.B == 0 || g.C == 0 || g.Ho * g.Wo == 0) return static_cast<int>(cudaSuccess);
+  if (x_nchw) {
+    const cudaError_t err =
+        x_bf16 ? transpose<__nv_bfloat16, T>(x_nchw, x_cl, g.B, g.C, g.H * g.W, st)
+               : transpose<float, T>(x_nchw, x_cl, g.B, g.C, g.H * g.W, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_tiles<T>(deform_im2col_kernel<T>, g, st, x_cl, offset, mask,
+                                          static_cast<T*>(col)));
+}
+
+// grad_x_cl: a zeroed channels-last fp32 buffer the scatter adds into, then
+// transposed into grad_x (NCHW, fp32)
+template <typename T>
+int col2im(const void* grad_col, const void* offset, const void* mask, void* grad_x_cl,
+           void* grad_x, const int64_t* gv, void* stream) {
+  const Geom g = geom_of(gv);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.B == 0 || g.C == 0 || g.Ho * g.Wo == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = launch_tiles<T>(deform_col2im_kernel<T>, g, st, grad_col, offset, mask,
+                                    static_cast<float*>(grad_x_cl));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(transpose<float, float>(grad_x_cl, grad_x, g.B, g.H * g.W, g.C, st));
 }
 
 template <typename T>
 int col2im_coord(const void* grad_col, const void* x, const void* offset, const void* mask,
                  void* grad_offset, void* grad_mask, const int64_t* gv, void* stream) {
   const Geom g = geom_of(gv);
-  const int64_t n = g.B * g.dg * g.kh * g.kw * g.Ho * g.Wo;
+  const int64_t n = static_cast<int64_t>(g.B) * g.dg * g.kh * g.kw * g.Ho * g.Wo;
   if (n == 0) return static_cast<int>(cudaSuccess);
   deform_col2im_coord_kernel<T>
       <<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -267,24 +534,27 @@ int col2im_coord(const void* grad_col, const void* x, const void* offset, const 
 
 }  // namespace
 
-extern "C" int deform_im2col_f32(const void* x, const void* offset, const void* mask, void* col,
-                                 const int64_t* geom, void* stream) {
-  return im2col<float>(x, offset, mask, col, geom, stream);
+extern "C" int deform_im2col_f32(const void* x_nchw, int x_bf16, void* x_cl, const void* offset,
+                                 const void* mask, void* col, const int64_t* geom, void* stream) {
+  return im2col<float>(x_nchw, x_bf16, x_cl, offset, mask, col, geom, stream);
 }
 
-extern "C" int deform_im2col_bf16(const void* x, const void* offset, const void* mask, void* col,
-                                  const int64_t* geom, void* stream) {
-  return im2col<__nv_bfloat16>(x, offset, mask, col, geom, stream);
+extern "C" int deform_im2col_bf16(const void* x_nchw, int x_bf16, void* x_cl, const void* offset,
+                                  const void* mask, void* col, const int64_t* geom,
+                                  void* stream) {
+  return im2col<__nv_bfloat16>(x_nchw, x_bf16, x_cl, offset, mask, col, geom, stream);
 }
 
 extern "C" int deform_col2im_f32(const void* grad_col, const void* offset, const void* mask,
-                                 void* grad_x, const int64_t* geom, void* stream) {
-  return col2im<float>(grad_col, offset, mask, grad_x, geom, stream);
+                                 void* grad_x_cl, void* grad_x, const int64_t* geom,
+                                 void* stream) {
+  return col2im<float>(grad_col, offset, mask, grad_x_cl, grad_x, geom, stream);
 }
 
 extern "C" int deform_col2im_bf16(const void* grad_col, const void* offset, const void* mask,
-                                  void* grad_x, const int64_t* geom, void* stream) {
-  return col2im<__nv_bfloat16>(grad_col, offset, mask, grad_x, geom, stream);
+                                  void* grad_x_cl, void* grad_x, const int64_t* geom,
+                                  void* stream) {
+  return col2im<__nv_bfloat16>(grad_col, offset, mask, grad_x_cl, grad_x, geom, stream);
 }
 
 extern "C" int deform_col2im_coord_f32(const void* grad_col, const void* x, const void* offset,

@@ -13,6 +13,7 @@ implementation is registered under both the Acdc and the Dsb15 name.
 """
 from __future__ import annotations
 
+import os
 import pickle
 import threading
 from collections import OrderedDict
@@ -25,9 +26,22 @@ from ..utils import nifti
 from .transforms import Normalize, compose
 
 
+def _file_key(path) -> tuple:
+    """The key of a process-wide cache entry: the file itself, not the string
+    the caller named it by.  Its resolved absolute path (so a relative path
+    read after a ``chdir`` reaches the other tree) with the ``st_mtime_ns``
+    and ``st_size`` of one ``stat`` (so a file rewritten in place is read
+    again).  The JAX package keys its caches by ``str(path)``
+    (``..._tpu/data/datasets.py:32-88``); the port deliberately does not."""
+    real = os.path.realpath(path)
+    st = os.stat(real)
+    return real, st.st_mtime_ns, st.st_size
+
+
 class _VolumeCache:
     """Process-wide LRU of decoded NIfTI volumes, shared by the loader
-    threads (a window or an epoch re-reads the same sequence file)."""
+    threads (a window or an epoch re-reads the same sequence file), keyed by
+    :func:`_file_key`."""
 
     def __init__(self, capacity: int = 512):
         self.capacity = capacity
@@ -36,12 +50,12 @@ class _VolumeCache:
         self._lock = threading.Lock()
 
     def get(self, path: Path) -> np.ndarray:
-        key = str(path)
+        key = _file_key(path)
         with self._lock:
             if key in self._cache:
                 self._cache.move_to_end(key)
                 return self._cache[key]
-        data = np.asarray(nifti.load(path).get_data())
+        data = np.asarray(nifti.load(key[0]).get_data())
         with self._lock:
             self._cache[key] = data
             if len(self._cache) > self.capacity:
@@ -50,15 +64,16 @@ class _VolumeCache:
 
 
 _VOLUMES = _VolumeCache()
-_PICKLES: dict[str, dict] = {}
+_PICKLES: dict[tuple, dict] = {}
 _PICKLES_LOCK = threading.Lock()
 
 
 def _load_pickle(path) -> dict:
-    key = str(path)
+    """A pickle read once per file (:func:`_file_key`)."""
+    key = _file_key(path)
     with _PICKLES_LOCK:
         if key not in _PICKLES:
-            with open(key, "rb") as f:
+            with open(key[0], "rb") as f:
                 _PICKLES[key] = pickle.load(f)
         return _PICKLES[key]
 

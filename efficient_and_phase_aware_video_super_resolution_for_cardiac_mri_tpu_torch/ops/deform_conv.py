@@ -26,9 +26,12 @@ contraction is one ``torch.matmul``:
 Gradients flow only through the fractional part, as the reference's
 ``col2im_coord`` and JAX's autodiff compute them.  The backward recomputes
 nothing: the forward saves col (``weight``'s gradient is ``grad_out ·
-colᵀ``), and the two backward kernels give d_x (``deform_col2im``, an
-atomic scatter into an fp32 buffer, cast once) and d_offset, d_mask
-(``deform_col2im_coord``, a sum over the group's channels).
+colᵀ``), and the two backward kernels give d_x (``deform_col2im``, float4
+atomic adds into a channels-last fp32 buffer, transposed to NCHW, cast
+once) and d_offset, d_mask (``deform_col2im_coord``, a sum over the group's
+channels).  The im2col kernel gathers from a channels-last x, which its
+entry point transposes into a buffer of the wrapper's unless x is
+channels-last already; col keeps the layout above.
 
 Dtypes follow the JAX package's promotion: col is in the promoted dtype of
 x and the mask (an fp32 mask from an fp32 offset conv makes a bf16 x's col
@@ -59,8 +62,28 @@ KERNELS = ("deform_im2col", "deform_col2im", "deform_col2im_coord")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 #: of those launches, the ones on bfloat16 operands
 BF16_LAUNCHES = dict.fromkeys(KERNELS, 0)
+#: the CUDA kernels behind these wrappers, as a profiler trace names them
+#: (im2col's and col2im's entry points also run the transpose)
+TRACE_NAMES = ("deform_im2col_kernel", "deform_col2im_kernel", "deform_col2im_coord_kernel",
+               "transpose_kernel")
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the kernels index in 32 bits; the grid's y and z axes take at most 65535
+# blocks (the image on z, 32 pixels a block on the transposes' y)
+_MAX_ELEMENTS, _MAX_GRID = 2**31 - 1, 65535
+
+
+def trace_share(by_name: dict) -> dict:
+    """This module's kernels in a profiler trace: ``by_name`` maps a traced
+    kernel name to its (device ms, launches); the result maps each of
+    ``TRACE_NAMES`` that occurs to its summed (device ms, launches)."""
+    out = {}
+    for name, (ms, n) in by_name.items():
+        key = next((k for k in TRACE_NAMES if k in name), None)
+        if key:
+            t, c = out.get(key, (0.0, 0))
+            out[key] = (t + ms, c + n)
+    return out
 
 
 def reset_launches() -> None:
@@ -240,17 +263,21 @@ def deform_conv2d_reference(x, offset, weight, mask=None, bias=None, stride=1, p
 def build() -> _build.Built:
     """Compile (first call only) and load the kernel library."""
     built = _build.build("deform_conv.cu")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    args = {"deform_im2col": [ptr, i32, ptr, ptr, ptr, ptr], "deform_col2im": [ptr] * 5,
+            "deform_col2im_coord": [ptr] * 6}
     for sfx in _SUFFIX.values():
-        for name, n_ptr in (("deform_im2col", 4), ("deform_col2im", 4), ("deform_col2im_coord", 6)):
+        for name, operands in args.items():
             f = getattr(built.lib, f"{name}_{sfx}")
-            f.argtypes = [ctypes.c_void_p] * (n_ptr + 2)  # + the geometry, the stream
+            f.argtypes = [*operands, ptr, ptr]  # + the geometry, the stream
             f.restype = ctypes.c_int
     return built
 
 
 def _check(g: Geometry, dev: torch.device, dtype: torch.dtype, **operands) -> None:
     """Refuse operands the kernels do not take: another dtype than fp32 or
-    bf16, another device than one card, shapes that are not ``g``'s."""
+    bf16, another device than one card, shapes that are not ``g``'s, sizes
+    beyond 32-bit indexing."""
     if dtype not in _SUFFIX:
         raise TypeError(f"the deformable conv kernels take float32 or bfloat16, got {dtype}")
     want = {"x": (g.B, g.C, g.H, g.W), "offset": (g.B, g.dg * 2 * g.K, g.Ho, g.Wo),
@@ -264,6 +291,13 @@ def _check(g: Geometry, dev: torch.device, dtype: torch.dtype, **operands) -> No
             raise ValueError(f"{name} {tuple(t.shape)} is not {want[name]}")
     if min(g.Ho, g.Wo) <= 0:
         raise ValueError(f"empty output {g.Ho}x{g.Wo}")
+    P = g.Ho * g.Wo
+    if (g.B > _MAX_GRID or -(-g.H * g.W // 32) > _MAX_GRID
+            or max(g.B * g.C * g.H * g.W, g.B * g.C * g.K * P,
+                   g.B * g.dg * 2 * g.K * P) > _MAX_ELEMENTS):
+        raise ValueError(f"{g} is too large for the kernels' 32-bit indexing and grid (at most "
+                         f"{_MAX_ELEMENTS} elements an operand, {_MAX_GRID} images and "
+                         f"{_MAX_GRID * 32} pixels an image)")
 
 
 def _launch(name: str, dtype: torch.dtype, x: torch.Tensor, g: Geometry, *ptrs) -> None:
@@ -290,18 +324,27 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor | No
         return deform_im2col_reference(x, offset, mask, g)
     dtype = col_dtype(x, mask)
     _check(g, x.device, dtype, x=x, offset=offset, mask=mask)
-    xc = x.to(dtype).contiguous()
+    col = torch.empty(g.B, g.C * g.K, g.Ho * g.Wo, device=x.device, dtype=dtype)
+    if x.dtype not in _SUFFIX:
+        x = x.to(dtype)
+    x_cl = x.permute(0, 2, 3, 1)  # the kernel gathers channels-last: (B, H, W, C)
+    if x.dtype == dtype and x_cl.is_contiguous():
+        x_nchw = None  # already channels-last
+    else:  # the entry point transposes (and casts) x into x_cl first
+        x_nchw = x.contiguous()
+        x_cl = torch.empty(x_cl.shape, device=x.device, dtype=dtype)
     oc = offset.float().contiguous()
     mc = None if mask is None else mask.to(dtype).contiguous()
-    col = torch.empty(g.B, g.C * g.K, g.Ho * g.Wo, device=x.device, dtype=dtype)
-    _launch("deform_im2col", dtype, x, g, xc.data_ptr(), oc.data_ptr(), _ptr(mc), col.data_ptr())
+    _launch("deform_im2col", dtype, x, g, _ptr(x_nchw), int(x.dtype == torch.bfloat16),
+            x_cl.data_ptr(), oc.data_ptr(), _ptr(mc), col.data_ptr())
     return col
 
 
 def deform_col2im(grad_col: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor | None,
                   g: Geometry) -> torch.Tensor:
     """d_x (B, C, H, W) in fp32: the ``deform_col2im`` kernel on CUDA
-    tensors (atomic adds into a zeroed fp32 buffer),
+    tensors (float4 atomic adds into a zeroed channels-last fp32 buffer,
+    transposed to NCHW by the same entry point),
     :func:`deform_col2im_reference` on CPU ones."""
     if grad_col.device.type == "cpu":
         return deform_col2im_reference(grad_col, offset, mask, g)
@@ -310,9 +353,10 @@ def deform_col2im(grad_col: torch.Tensor, offset: torch.Tensor, mask: torch.Tens
     gc = grad_col.contiguous()
     oc = offset.float().contiguous()
     mc = None if mask is None else mask.to(dtype).contiguous()
-    d_x = torch.zeros(g.B, g.C, g.H, g.W, device=grad_col.device, dtype=torch.float32)
+    d_x_cl = torch.zeros(g.B, g.H, g.W, g.C, device=grad_col.device, dtype=torch.float32)
+    d_x = torch.empty(g.B, g.C, g.H, g.W, device=grad_col.device, dtype=torch.float32)
     _launch("deform_col2im", dtype, grad_col, g, gc.data_ptr(), oc.data_ptr(), _ptr(mc),
-            d_x.data_ptr())
+            d_x_cl.data_ptr(), d_x.data_ptr())
     return d_x
 
 
@@ -499,4 +543,4 @@ __all__ = ["deform_conv2d", "modulated_deform_conv2d", "deform_conv2d_reference"
            "deform_im2col", "deform_col2im", "deform_col2im_coord", "deform_im2col_reference",
            "deform_col2im_reference", "deform_col2im_coord_reference", "geometry", "Geometry",
            "DeformConv", "ModulatedDeformConv", "DeformConvPack", "ModulatedDeformConvPack",
-           "LAUNCHES", "BF16_LAUNCHES", "reset_launches"]
+           "LAUNCHES", "BF16_LAUNCHES", "TRACE_NAMES", "trace_share", "reset_launches"]

@@ -19,7 +19,10 @@ microbatches) and ``FRVSRNet_tpu`` ``configs/test/frvsr_net/exp1_x4_tpu.yaml``
 (``max_flow: 4``, bf16 compute); ``EDVRNet`` is
 ``configs/{test,train}/edvr_net/exp1_x4.yaml`` (5 frames, Charbonnier) and
 ``EDVRNet_tpu`` ``configs/train/edvr_net/exp1_x4_tpu.yaml`` (bf16,
-``dcn_max_offset: 2``, two microbatches).  For each it prints:
+``dcn_max_offset: 2``, two microbatches).  Each EDVR call is profiled
+twice: with its offset convs at their zero init (every offset 0) and with
+their parameters drawn from N(0, 0.1) (offsets of about a pixel, as
+``chip_smoke.py`` draws them).  For each it prints:
 
 * the wall time of a call (host clock around a synchronised call, median
   of several), with ``torch.backends.cudnn.benchmark`` off (the port's
@@ -27,6 +30,8 @@ microbatches) and ``FRVSRNet_tpu`` ``configs/test/frvsr_net/exp1_x4_tpu.yaml``
 * from ``torch.profiler`` with benchmark off: the device's busy share, the
   number of kernels, the top kernels by device time, and the top ATen ops
   by the device time of their own kernels (the op that launched them);
+* the deformable conv's kernels (``csrc/deform_conv.cu``): each one's
+  launches, device ms, µs a launch and share of the device time;
 * the operations of the call counted as ``chip_smoke.py`` counts them
   (convs, 3D convs, transposed convs, every resize product, DUF's filter
   product, the deformable convs' GEMMs; a training step as three
@@ -80,6 +85,8 @@ NETS = {
                     "charbonnier", (5, 5)),
 }
 LR_HW = {"eval": 64, "train": 32}
+#: the std of EDVR's offset-conv parameters in its two profiled calls
+EDVR_OFFSET_STDS = (0.0, 0.1)
 
 
 def _ops(net, x) -> int:
@@ -122,10 +129,17 @@ def _ops(net, x) -> int:
     return total
 
 
-def _call(name: str, mode: str, dev):
+def _call(name: str, mode: str, dev, offset_std: float):
     """The call to time: a forward (eval) or a whole training step."""
     cls, kwargs, dtype, batch, micro, loss_name, frames = NETS[name]
-    net = cls(**kwargs, generator=torch.Generator().manual_seed(0)).to(dev)
+    net = cls(**kwargs, generator=torch.Generator().manual_seed(0))
+    if offset_std:
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for pname, p in net.named_parameters():
+                if "conv_offset_mask" in pname:
+                    p.normal_(0.0, offset_std, generator=gen)
+    net = net.to(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     B = 1 if mode == "eval" else batch
     t = frames[0] if mode == "eval" else frames[1]
@@ -172,8 +186,8 @@ def _wall_ms(call) -> float:
     return statistics.median(walls)
 
 
-def profile(name: str, mode: str, dev) -> dict:
-    call, ops, net, dtype = _call(name, mode, dev)
+def profile(name: str, mode: str, dev, offset_std: float = 0.0) -> dict:
+    call, ops, net, dtype = _call(name, mode, dev, offset_std)
     walls = {}
     for benchmark in (False, True, True, False):
         torch.backends.cudnn.benchmark = benchmark
@@ -197,6 +211,7 @@ def profile(name: str, mode: str, dev) -> dict:
         by_name[e.name][1] += 1
     kernel_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    dcn = deform_conv.trace_share(by_name)
     ops_avg = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:TOP]
     top_ops = [{"op": e.key, "ms": e.self_device_time_total / 1e3, "count": e.count}
                for e in ops_avg if e.self_device_time_total > 0]
@@ -204,7 +219,9 @@ def profile(name: str, mode: str, dev) -> dict:
     params = sum(p.numel() for p in net.parameters())
     frames = NETS[name][6][0 if mode == "eval" else 1]
     shape = (1 if mode == "eval" else NETS[name][3], frames, LR_HW[mode], LR_HW[mode], 1)
-    print(f"{name} {mode} {shape} {dtype or torch.float32} ({params:,} params): wall {off:.3f} ms "
+    offsets = f", offset convs ~ N(0, {offset_std})" if NETS[name][0] is EDVRNet else ""
+    print(f"{name} {mode} {shape} {dtype or torch.float32} ({params:,} params{offsets}): wall "
+          f"{off:.3f} ms "
           f"with cudnn.benchmark off {[round(v, 3) for v in walls[False]]}, {on:.3f} ms on "
           f"{[round(v, 3) for v in walls[True]]}; {ops:.4g} operations, "
           f"{ops / off / 1e9:.2f} TFLOP/s off, {ops / on / 1e9:.2f} on", flush=True)
@@ -212,6 +229,13 @@ def profile(name: str, mode: str, dev) -> dict:
           f"{kernel_ms:.3f} ms, device busy {kernel_ms / prof_wall:.1%}")
     for kname, (ms, n) in top:
         print(f"  {ms:9.3f} ms {n:5d}x  {kname[:120]}")
+    if dcn:
+        dcn_ms = sum(t for t, _ in dcn.values())
+        print(f"  the deformable conv's kernels: {dcn_ms:.3f} ms, {dcn_ms / kernel_ms:.1%} of the "
+              f"device time")
+        for key, (ms, n) in dcn.items():
+            print(f"  {ms:9.3f} ms {n:5d}x  {ms / n * 1e3:8.1f} us a launch  "
+                  f"{ms / kernel_ms:6.1%}  {key}")
     print("  top ATen ops by the device time of their own kernels:")
     for o in top_ops:
         print(f"  {o['ms']:9.3f} ms {o['count']:5d}x  {o['op']}")
@@ -220,7 +244,8 @@ def profile(name: str, mode: str, dev) -> dict:
             "wall_ms_benchmark_off": walls[False], "wall_ms_benchmark_on": walls[True],
             "profiled_wall_ms": prof_wall, "kernel_ms": kernel_ms, "kernels": len(kernels),
             "top_kernels": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top],
-            "top_ops": top_ops}
+            "top_ops": top_ops, "offset_std": offset_std,
+            "dcn_kernels": {k: {"ms": ms, "launches": n} for k, (ms, n) in dcn.items()}}
 
 
 def _parse_args():
@@ -241,7 +266,8 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    results = [profile(name, mode, dev) for name in args.nets for mode in args.modes]
+    results = [profile(name, mode, dev, std) for name in args.nets for mode in args.modes
+               for std in (EDVR_OFFSET_STDS if NETS[name][0] is EDVRNet else (0.0,))]
     print(json.dumps({"card": card, "results": results}), flush=True)
 
 

@@ -437,6 +437,8 @@ def _dcn_operands(dev, dtype, offsets, B=2, C=16, H=13, W=11, dg=4, seed=0):
         off = torch.zeros(shape)
     elif offsets == "fractional":  # reaches outside the image from the border taps
         off = (torch.rand(shape, generator=gen) * 2 - 1) * 3.5
+    elif offsets == "wide":  # corners far from their output position
+        off = (torch.rand(shape, generator=gen) * 2 - 1) * 12
     else:  # |o| in (R, R + 2]: corners dropped, many samples wholly out of the window
         off = (2 + 2 * torch.rand(shape, generator=gen)) * torch.sign(torch.randn(shape, generator=gen))
     x = torch.randn(B, C, H, W, generator=gen)
@@ -448,15 +450,18 @@ def _dcn_operands(dev, dtype, offsets, B=2, C=16, H=13, W=11, dg=4, seed=0):
     return dcn, g, [cast(x), off.to(dev), cast(mask), cast(w), cast(b)], cot.to(dev)
 
 
-@pytest.mark.parametrize("offsets", ["zero", "fractional", "beyond"])
+@pytest.mark.parametrize("channels,dg", [(16, 4), (32, 2), (12, 2)],
+                         ids=["4_a_group", "16_a_group", "6_a_group"])
+@pytest.mark.parametrize("offsets", ["zero", "fractional", "wide", "beyond"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets):
+def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, dg):
     """The three kernels (im2col, col2im, col2im_coord) through the autograd
     function against the plain version under autograd on the same inputs
     upcast to fp32: the output and the gradients in x, offset, mask, weight
     and bias, each relative to its largest element (bf16: the kernels round
-    col and the operands once; the plain version runs in fp32)."""
-    dcn, g, ops, cot = _dcn_operands(cuda, dtype, offsets)
+    col and the operands once; the plain version runs in fp32).  Groups of
+    4, 16 and 6 channels take the kernels' 16-byte and scalar paths."""
+    dcn, g, ops, cot = _dcn_operands(cuda, dtype, offsets, C=channels, dg=dg)
     R = None if g.R < 0 else g.R
     kwargs = dict(padding=1, deformable_groups=g.dg, max_offset=R)
     leaves = [t.clone().requires_grad_() for t in ops]

@@ -5,8 +5,12 @@ equal (same numpy arithmetic on the same files), the train split with
 ``exp1_x4.yaml``'s augments too (flips and ``RandomCropPatch`` at ratio 4,
 drawn from each item's ``item_rng``), and the port's own copies of the
 numpy-only helpers (NIfTI I/O, stats, per-item RNG) must give the same
-values as the JAX package's.
+values as the JAX package's.  The port's process-wide volume and pickle
+caches serve the file a relative path names in the current working
+directory, and a file rewritten in place anew.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -31,6 +35,9 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
     Dataloader,
     VSRRefineNetDataset,
+)
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
+    datasets as port_datasets,
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
     transforms,
@@ -167,3 +174,73 @@ def test_augments_equal_jax_on_2d_and_3d(name, kwargs):
             assert len(got) == len(want) == 2
             for a, b in zip(got, want):
                 np.testing.assert_array_equal(a, b)
+
+
+# -------------------------------------------------- the path-keyed caches
+# Two trees of different frame sizes and counts under two roots with the same
+# ./data/... layout, as the YAML tests lay theirs out: a process that reads
+# one and then changes into the other must be served the other.
+REL_VIDEOS = "./data/acdc_preprocessed/videos"
+REL_POS_CODE = "./data/acdc_preprocessed/position_code.pkl"
+REL_COORDS = "./data/acdc_cropped/coordinates.pkl"
+
+
+def _same_layout_roots(tmp_path):
+    roots = []
+    for name, hr_size, frames in (("a", (24, 24), 6), ("b", (16, 16), 8)):
+        root = tmp_path / name
+        tree = make_acdc_tree(root / "fixture", patients_per_split=1, slices=1, frames=frames,
+                              hr_size=hr_size, splits=("test",))
+        (root / "data" / "acdc_preprocessed").mkdir(parents=True)
+        (root / "data" / "acdc_preprocessed" / "videos").symlink_to(tree["videos_dir"])
+        (root / "data" / "acdc_preprocessed" / "position_code.pkl").symlink_to(
+            tree["pos_code_path"])
+        (root / "data" / "acdc_cropped").mkdir(parents=True)
+        (root / "data" / "acdc_cropped" / "coordinates.pkl").symlink_to(tree["coordinates_path"])
+        roots.append(root)
+    return roots
+
+
+def _relative_item() -> dict:
+    ds = VSRRefineNetDataset(data_dir=REL_VIDEOS, type="test", downscale_factor=4,
+                             transforms=TRANSFORMS, num_frames=3, num_updated_frames=2,
+                             pos_code_path=REL_POS_CODE)
+    return ds[0]
+
+
+def _as_a_fresh_process(monkeypatch, fn):
+    """``fn()`` with the port's caches empty, as a fresh process reads."""
+    with monkeypatch.context() as m:
+        m.setattr(port_datasets, "_VOLUMES", port_datasets._VolumeCache())
+        m.setattr(port_datasets, "_PICKLES", {})
+        return fn()
+
+
+def test_caches_follow_the_working_directory(tmp_path, monkeypatch):
+    root_a, root_b = _same_layout_roots(tmp_path)
+    monkeypatch.chdir(root_a)
+    first = _relative_item()
+    coords_a = port_datasets._load_pickle(REL_COORDS)
+    monkeypatch.chdir(root_b)
+    second = _relative_item()
+    coords_b = port_datasets._load_pickle(REL_COORDS)
+    assert first["hr_imgs"].shape == (6, 24, 24, 1)
+    assert second["hr_imgs"].shape == (8, 16, 16, 1)
+    _assert_same(second, _as_a_fresh_process(monkeypatch, _relative_item))
+    assert coords_b == _as_a_fresh_process(
+        monkeypatch, lambda: port_datasets._load_pickle(REL_COORDS))
+    assert coords_b != coords_a
+
+
+def test_a_volume_rewritten_in_place_is_read_anew(tmp_path, monkeypatch):
+    root, _ = _same_layout_roots(tmp_path)
+    monkeypatch.chdir(root)
+    before = _relative_item()
+    for path in sorted((root / "fixture" / "videos" / "test").rglob("*.nii.gz")):
+        st = os.stat(path)
+        nifti.save(255 - nifti.load(path).get_data(), path)
+        # a later mtime whatever the file system's timestamp resolution
+        os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 10**9))
+    after = _relative_item()
+    _assert_same(after, _as_a_fresh_process(monkeypatch, _relative_item))
+    assert not np.array_equal(after["hr_imgs"], before["hr_imgs"])

@@ -49,6 +49,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     load_checkpoint,
 )
 from fixtures import make_acdc_tree
+from jax_data_caches import empty_jax_data_caches  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SHRINK = {"nf": 8, "groups": 2, "front_RBs": 1, "back_RBs": 1}

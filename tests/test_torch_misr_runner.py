@@ -122,6 +122,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     state_dict_from_jax_params,
 )
 from fixtures import make_acdc_tree
+from jax_data_caches import empty_jax_data_caches  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FRAMES, SCALE, LR_HW = 8, 4, 8
