@@ -137,15 +137,18 @@ non-zero and no result is printed:
     ``deform_col2im``, ``deform_col2im_coord``) against their plain
     versions at EDVR's serving L1 shape (x (1, 128, 64, 64), 8 deformable
     groups, K 9) and its training L1 shape (x (16, 128, 32, 32)), in fp32
-    and bf16: each kernel on the same inputs at offsets of up to 3.5 px
-    and of up to 12 px; the autograd function's forward and its five gradients
+    and bf16: each kernel on the same inputs at offsets of up to 3.5 px,
+    of up to 12 px and EDVR-like ones (N(0, 0.5 px) clipped to ±1.5 px),
+    col2im_coord also bit-equal across two calls; the autograd function's
+    forward and its five gradients
     at zero offsets with a unit mask (the integer knife edge, also against
     the dense conv), at fractional offsets reaching outside the image, and
     at R = 2 with offsets beyond the window (output exactly the bias,
     gradients exactly 0); each kernel's time per launch beside its plain
     version's, its bound and the first design's recorded time (CUDA graphs over
-    operand sets larger than L2; im2col also without its transpose, on a
-    channels-last x), and the whole DCN (im2col + GEMM) beside a dense
+    operand sets larger than L2; im2col and col2im_coord also without their
+    transpose, on a channels-last x), each kernel also at zero and
+    EDVR-like offsets, and the whole DCN (im2col + GEMM) beside a dense
     ``F.conv2d`` of the same shapes.
 20. EDVR serving: ``configs/test/edvr_net/exp1_x4.yaml`` (nf 128, 8
     groups, 5 + 40 residual blocks, 5 frames) and ``exp1_x4_tpu.yaml``
@@ -1458,8 +1461,10 @@ DCN_OPS = {"deform_im2col": 23, "deform_col2im": 23, "deform_col2im_coord": 30}
 TOL_DCN_FP32, TOL_DCN_BF16 = 1e-5, 2e-2
 # the first designs' per-launch times at these shapes, recorded from three
 # runs of this phase on an H100 80GB HBM3 at 700.00 W (a thread per output
-# element, fp32 atomics in col2im), in us: printed beside the redesigned
-# kernels' times as recorded values, not measured by this script
+# element, fp32 atomics in col2im; col2im_coord's a thread per (b, group,
+# tap, p) looping over the group's channels, from the three runs of the
+# commit that redesigned im2col and col2im), in us: printed beside the
+# redesigned kernels' times as recorded values, not measured by this script
 FIRST_DESIGN_US = {
     ("deform_im2col", "serving", "torch.float32"): (43.95, 44.14),
     ("deform_im2col", "serving", "torch.bfloat16"): (43.67, 44.03),
@@ -1469,6 +1474,10 @@ FIRST_DESIGN_US = {
     ("deform_col2im", "serving", "torch.bfloat16"): (187.76, 188.44),
     ("deform_col2im", "training", "torch.float32"): (702.8, 704.5),
     ("deform_col2im", "training", "torch.bfloat16"): (702.9, 703.8),
+    ("deform_col2im_coord", "serving", "torch.float32"): (28.43, 28.68),
+    ("deform_col2im_coord", "serving", "torch.bfloat16"): (28.08, 28.29),
+    ("deform_col2im_coord", "training", "torch.float32"): (95.95, 96.34),
+    ("deform_col2im_coord", "training", "torch.bfloat16"): (89.89, 90.06),
 }
 # offsets far beyond the 3x3 taps' reach (up to 12 px): corners land far from
 # their output position, in any tile
@@ -1477,6 +1486,9 @@ DCN_WIDE_OFFSET = 12.0
 # the offsets are fractional (up to ~1.5 px at the published width) and
 # mostly inside the 2 px window
 EDVR_OFFSET_STD = 0.1
+# phase 19's stand-in for such offsets, drawn directly: N(0, 0.5 px)
+# clipped to +-1.5 px
+DCN_EDVR_OFFSET_STD, DCN_EDVR_OFFSET_CLIP = 0.5, 1.5
 # bf16 + dcn_max_offset 2 EDVR serving against the fp32 exact run on the
 # same windows (most of bf16 EDVR computes in fp32, as in JAX; the window
 # drops the corners beyond 2 px).  Measured on an H100 with offsets of
@@ -1534,6 +1546,9 @@ def dcn_operands(dcn, shape, dtype, dev, gen, offsets="fractional", R=None):
         off = (torch.rand(oshape, device=dev, generator=gen) * 2 - 1) * 3.5
     elif offsets == "wide":
         off = (torch.rand(oshape, device=dev, generator=gen) * 2 - 1) * DCN_WIDE_OFFSET
+    elif offsets == "edvr":
+        off = (torch.randn(oshape, device=dev, generator=gen) * DCN_EDVR_OFFSET_STD).clamp(
+            -DCN_EDVR_OFFSET_CLIP, DCN_EDVR_OFFSET_CLIP)
     else:  # "beyond": |o| >= R + 1: every corner out of the window
         off = (R + 1 + 2 * torch.rand(oshape, device=dev, generator=gen)) * torch.sign(
             torch.randn(oshape, device=dev, generator=gen))
@@ -1549,8 +1564,10 @@ def dcn_times_line(name, shape_name, shape, dtype, t) -> str:
             f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}: {t['bytes']} bytes, {t['ops']} "
             f"operations), {t['bound_ms'] / t['ms']:.0%} of the bound; {t['sets']} operand sets")
     if "ms_gather_only" in t:
-        line += (f"; the gather alone on channels-last x {t['ms_gather_only'] * 1e3:.2f} us "
+        line += (f"; without the transpose (x channels-last) {t['ms_gather_only'] * 1e3:.2f} us "
                  f"({t['bound_ms'] / t['ms_gather_only']:.0%} of the bound)")
+    line += "; at offsets " + ", ".join(
+        f"{name} {t[f'ms_{name}_offsets'] * 1e3:.2f} us" for name in DCN_TIMED_OFFSETS[1:])
     if first:
         line += (f"; the first design's recorded time {first[0]:.2f}-{first[1]:.2f} us "
                  f"(not measured here; {first[0] / (t['ms'] * 1e3):.1f}x this one's time)")
@@ -1561,11 +1578,12 @@ def dcn_kernels(dcn, dev, rates, card_line, bf16_peak: float) -> dict:
     """Phase 19: the three DCN kernels against their plain versions at EDVR's
     serving and training L1 shapes, in fp32 and bf16 (zero offsets with a
     unit mask against the dense conv; fractional offsets reaching outside
-    the image; R = 2 with offsets beyond the window: exactly no
-    contribution; the forward and all five gradients through the autograd
-    function), then each kernel's time beside its plain version's and its
-    bound, and the whole DCN (im2col + GEMM) beside a dense ``F.conv2d`` of
-    the same shapes."""
+    the image, wide ones and EDVR-like ones; R = 2 with offsets beyond the
+    window: exactly no contribution; the forward and all five gradients
+    through the autograd function; col2im_coord bit-equal across two calls),
+    then each kernel's time beside its plain version's and its bound, at
+    three offset draws, and the whole DCN (im2col + GEMM) beside a dense
+    ``F.conv2d`` of the same shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -1581,8 +1599,9 @@ def dcn_kernels(dcn, dev, rates, card_line, bf16_peak: float) -> dict:
         C = shape[1]
         for dtype, tol in ((f32, TOL_DCN_FP32), (b16, TOL_DCN_BF16)):
             # each kernel against its plain version on the same inputs, at
-            # offsets of up to 3.5 px and of up to DCN_WIDE_OFFSET px
-            for offsets in ("fractional", "wide"):
+            # offsets of up to 3.5 px, of up to DCN_WIDE_OFFSET px and
+            # EDVR-like ones
+            for offsets in ("fractional", "wide", "edvr"):
                 x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen, offsets)
                 got = {"deform_im2col": dcn.deform_im2col(x, off, mask, g),
                        "deform_col2im": dcn.deform_col2im(grad_col, off, mask, g),
@@ -1601,7 +1620,14 @@ def dcn_kernels(dcn, dev, rates, card_line, bf16_peak: float) -> dict:
                                f"abs err {err:.3e}, {r:.3e} of the largest element (tol {tol})")
                     if not r <= tol:
                         raise AssertionError(f"{k} disagrees with its plain version: {r}")
-                del got, want, grad_col
+                # no atomics: the same bits from run to run
+                again = dcn.deform_col2im_coord(grad_col, x, off, mask, g)
+                same = all(torch.equal(a, b) for a, b in zip(again, got["deform_col2im_coord"]))
+                log("dcn", f"deform_col2im_coord {dtype} {shape_name} {offsets} offsets: two "
+                           f"calls bit-equal {same}")
+                if not same:
+                    raise AssertionError("deform_col2im_coord differs between two calls")
+                del got, want, grad_col, again
             # the autograd function: forward and the five gradients
             w = (torch.randn(C, C, 3, 3, device=dev, generator=gen) / 34).to(dtype)
             b = torch.randn(C, device=dev, generator=gen).to(dtype)
@@ -1655,9 +1681,15 @@ def dcn_kernels(dcn, dev, rates, card_line, bf16_peak: float) -> dict:
     return results
 
 
+# the offsets each kernel is timed at: the first also times the plain
+# version, the whole DCN and the kernels without their transpose
+DCN_TIMED_OFFSETS = ("fractional", "zero", "edvr")
+
+
 def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b, bf16_peak: float) -> dict:
     """Per launch, CUDA graphs over operand sets larger than L2: each kernel
-    and its plain version, with the bound; the whole DCN forward and a dense
+    and its plain version, with the bound (at ±3.5 px offsets), and each
+    kernel at zero and EDVR-like offsets; the whole DCN forward and a dense
     conv of the same shapes."""
     import torch
     import torch.nn.functional as F
@@ -1683,13 +1715,22 @@ def time_dcn(dcn, shape, dtype, dev, gen, rates, w, b, bf16_peak: float) -> dict
         t["ms"] = time_graph_ms([lambda a=a: kernel(a) for a in _cycled(sets)])
         t["plain_ms"] = time_graph_ms([lambda a=a: plain(a) for a in _cycled(sets, 20)])
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["ops"], *rates)
+        t["ms_fractional_offsets"] = t["ms"]
         out[k] = t
-    # im2col's gather alone: on a channels-last x its entry point skips the
-    # transpose
+    # the gathers alone: on a channels-last x the entry points of im2col and
+    # col2im_coord skip the transpose
     cl = [(a[0].contiguous(memory_format=torch.channels_last), *a[1:]) for a in sets]
-    out["deform_im2col"]["ms_gather_only"] = time_graph_ms(
-        [lambda a=a: dcn.deform_im2col(a[0], a[1], a[2], g) for a in _cycled(cl)])
+    for k in ("deform_im2col", "deform_col2im_coord"):
+        out[k]["ms_gather_only"] = time_graph_ms(
+            [lambda a=a, f=calls[k][0]: f(a) for a in _cycled(cl)])
     del cl
+    # the kernels at the other offsets, on operand sets of the same size
+    for offsets in DCN_TIMED_OFFSETS[1:]:
+        other = [dcn_operands(dcn, shape, dtype, dev, gen, offsets)[:4] for _ in sets]
+        for k, (kernel, _) in calls.items():
+            out[k][f"ms_{offsets}_offsets"] = time_graph_ms(
+                [lambda a=a: kernel(a) for a in _cycled(other)])
+        del other
     # the whole forward (im2col + the GEMM in the promoted dtype) and the
     # dense conv it would be at zero offsets
     Cout = w.shape[0]

@@ -11,7 +11,7 @@
 // (weight (Cout, C*K) @ col), as it is an einsum there.
 //
 // Layouts (K = kh*kw, tap = i*kw + j, Cg = C / dg, P = Ho*Wo, p = ho*Wo + wo):
-//   x        (B, C, H, W)          T (im2col: also (B, H, W, C))
+//   x        (B, C, H, W)          T (the gathers read it as (B, H, W, C))
 //   offset   (B, dg*2K, Ho, Wo)    float; channel g*2K + 2*tap is y, +1 is x
 //   mask     (B, dg*K, Ho, Wo)     T, or null (DCNv1: 1)
 //   col      (B, C*K, P)           T; row c*K + tap
@@ -29,7 +29,9 @@
 // What bounds them.  im2col writes col (C*K*P elements an image, 18.9 MB in
 // fp32 at EDVR's serving L1 shape) and reads x, the offsets and the mask
 // once: it is bound by bytes.  col2im reads as many bytes of grad_col and
-// adds 4 corners a sample onto d_x.  The first designs (a thread per (b, c, p),
+// adds 4 corners a sample onto d_x; col2im_coord reads grad_col and x and
+// writes 3 fp32 values a (b, group, tap, p), bound by bytes too.  The first
+// designs of im2col and col2im (a thread per (b, c, p),
 // 64-bit index arithmetic) ran at 4-17% of that bound: they computed every
 // sample's corners again for each of a group's Cg channels, gathered x one
 // plane a channel (neighbouring threads shared no sector), and col2im sent
@@ -73,13 +75,30 @@
 //                        slower at both of EDVR's L1 shapes.  Atomics
 //                        keep a run-to-run summation order, so the last bits
 //                        of d_x change from run to run.
-//   deform_col2im_coord  the first design, on the shared 32-bit corner code: a
-//                        thread per (b, g, tap, p) sums over the group's Cg
-//                        channels d_mask = sum grad_col * sample and
-//                        d_off_{y,x} = mask * sum grad_col * d sample/d p{y,x},
-//                        the derivative through the fraction only (a dropped
-//                        corner and a sample outside add nothing), writes
-//                        fp32.
+//   deform_col2im_coord  a block takes the same positions of one (b, group)
+//                        and walks all the group's channels in chunks of 16
+//                        itself, so the sum over Cg ends inside the block:
+//                        no atomics, no zeroed output, the same bits from
+//                        run to run.  Its table also keeps each sample's two
+//                        fractions, from which a kept corner's derivative
+//                        weights follow as corners() gives them.  Lanes as
+//                        col2im's (fp32: 4 a sample, 4 channels a lane; bf16:
+//                        2 and 8, 16-byte loads; a lane a channel when Cg is
+//                        not a multiple of the vector): a lane keeps one dot
+//                        product a corner, D_k = sum_c grad_col * x_k, across
+//                        its chunks, __shfl_xor_sync sums them over the
+//                        sample's lanes, and one lane writes
+//                        d_mask = sum_k w_k D_k and d_off_{y,x} =
+//                        mask * sum_k w{y,x}_k D_k (the derivative through the
+//                        fraction only: a dropped corner and a sample outside
+//                        add nothing), fp32, in runs along p.  x comes
+//                        channels-last as for im2col (the entry point's
+//                        transpose).  9 warps a block: at 3x3 taps each pass
+//                        of the block covers whole taps, 2 passes a block in
+//                        both dtypes.  The first design (a thread per (b, g,
+//                        tap, p), a serial loop over the group's channels
+//                        with 4 scalar gathers from NCHW planes each, a capped
+//                        grid) ran at 18-35% of the byte bound.
 //
 // The kernels run on the caller's stream, allocate nothing (the wrapper
 // passes the channels-last buffers) and assume contiguous operands; each
@@ -107,13 +126,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // The four corners of one sample: corner k at row y0 + (k >> 1), column
-// x0 + (k & 1), kept or dropped, its weight and the weight's derivatives in
-// py and px (all 0 for a dropped corner).
+// x0 + (k & 1), kept or dropped, and its weight (0 for a dropped corner);
+// the sample's fractions fy, fx, on which the weights' derivatives in py
+// and px depend (col2im_coord).
 struct Corners {
   int y0, x0;  // meaningful where a corner is kept
   bool any;    // the sample passes the outer test
   bool ok[4];
-  float w[4], wy[4], wx[4];
+  float w[4];
+  float fy, fx;
 };
 
 __device__ __forceinline__ Corners corners(const Geom& g, int ho, int wo, int tap, float oy,
@@ -142,6 +163,8 @@ __device__ __forceinline__ Corners corners(const Geom& g, int ho, int wo, int ta
   // inside the outer test y0 and x0 are small integers
   c.y0 = c.any ? static_cast<int>(y0) : 0;
   c.x0 = c.any ? static_cast<int>(x0) : 0;
+  c.fy = fy;
+  c.fx = fx;
   const float R = static_cast<float>(g.R);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -152,16 +175,14 @@ __device__ __forceinline__ Corners corners(const Geom& g, int ho, int wo, int ta
     const float ay = dy ? fy : 1.f - fy, ax = dx ? fx : 1.f - fx;
     c.ok[k] = ok;
     c.w[k] = ok ? ay * ax : 0.f;
-    c.wy[k] = ok ? (dy ? ax : -ax) : 0.f;
-    c.wx[k] = ok ? (dx ? ay : -ay) : 0.f;
   }
   return c;
 }
 
 // ------------------------------------------------------------------ im2col
 
-// The positions of a block of either kernel (a 64-byte run of a col row)
-// and its shared-memory table of K * kPos samples.
+// The positions of a block of im2col and col2im (a 64-byte run of a col
+// row) and its shared-memory table of K * kPos samples.
 template <typename T>
 struct Tile {
   static constexpr int kPos = 64 / sizeof(T);
@@ -172,6 +193,17 @@ struct Tile {
 struct Block {
   int b, grp, c0, nc, p0;
 };
+
+// the block's group's offset and mask rows at its first position
+__device__ __forceinline__ const float* offset_rows(const Geom& g, const Block& k,
+                                                    const float* offset) {
+  return offset + (k.b * g.dg + k.grp) * 2 * g.kh * g.kw * g.Ho * g.Wo + k.p0;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* mask_rows(const Geom& g, const Block& k, const T* mask) {
+  return mask ? mask + (k.b * g.dg + k.grp) * g.kh * g.kw * g.Ho * g.Wo + k.p0 : nullptr;
+}
 
 template <int kPos>
 __device__ __forceinline__ Block block_of(const Geom& g) {
@@ -186,34 +218,38 @@ __device__ __forceinline__ Block block_of(const Geom& g) {
   return k;
 }
 
-// Step 1 of both kernels: the corners of the block's samples (tap s / kPos,
-// position p0 + s % kPos), once for all its channels: a kept corner's element
-// offset of channel 0 in a channels-last (B, H, W, C) tensor, or -1; the
-// corner weights; the mask (1 without one).
+// Step 1 of the three kernels: the corners of the block's samples (tap
+// s / kPos, position p0 + s % kPos), once for all its channels: a kept
+// corner's element offset of channel 0 in a channels-last (B, H, W, C)
+// tensor, or -1; the mask (1 without one); where given, the corner weights
+// (im2col, col2im) or the fractions (fy, fx) (col2im_coord).  op and mp
+// point at the block's first position in its group's offset and mask rows
+// (row stride ld: P in device memory, kPos in a staged copy).
 template <typename T, int kPos>
-__device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* offset,
-                                             const T* mask, int4* corner, float4* weight,
-                                             float* mk) {
+__device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* op,
+                                             const T* mp, int ld, int4* corner, float4* weight,
+                                             float* mk, float2* frac = nullptr) {
   const int K = g.kh * g.kw, P = g.Ho * g.Wo;
-  const float* op = offset + (k.b * g.dg + k.grp) * 2 * K * P;
-  const T* mp = mask ? mask + (k.b * g.dg + k.grp) * K * P : nullptr;
-  for (int s = threadIdx.x; s < K * kPos; s += kThreads) {
-    const int tap = s / kPos, p = k.p0 + s % kPos;
+  for (int s = threadIdx.x; s < K * kPos; s += blockDim.x) {
+    const int tap = s / kPos, q = s % kPos, p = k.p0 + q;
     int e[4] = {-1, -1, -1, -1};
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    float m = 0.f;
+    float m = 0.f, fy = 0.f, fx = 0.f;
     if (p < P) {
       const Corners cr =
-          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p], op[(2 * tap + 1) * P + p]);
+          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * ld + q], op[(2 * tap + 1) * ld + q]);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (cr.ok[c]) e[c] = ((k.b * g.H + cr.y0 + (c >> 1)) * g.W + cr.x0 + (c & 1)) * g.C;
       w = make_float4(cr.w[0], cr.w[1], cr.w[2], cr.w[3]);
-      m = mp ? to_f(mp[tap * P + p]) : 1.f;
+      m = mp ? to_f(mp[tap * ld + q]) : 1.f;
+      fy = cr.fy;
+      fx = cr.fx;
     }
     corner[s] = make_int4(e[0], e[1], e[2], e[3]);
-    weight[s] = w;
+    if (weight) weight[s] = w;
     mk[s] = m;
+    if (frac) frac[s] = make_float2(fy, fx);
   }
 }
 
@@ -253,7 +289,8 @@ deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
+                        weight, mk);
   __syncthreads();
 
   // 2. kLanes / kVec lanes a sample, kVec channels a lane, one 16-byte load a
@@ -319,7 +356,8 @@ deform_col2im_kernel(const T* __restrict__ grad_col, const float* __restrict__ o
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
+                        weight, mk);
   __syncthreads();
 
   // 2. 4 lanes a sample, 4 channels a lane: grad * mask (grad_col loads fill
@@ -368,7 +406,7 @@ deform_col2im_kernel(const T* __restrict__ grad_col, const float* __restrict__ o
 
 // (B, R, S) -> (B, S, R), cast from Ti to To: 32 x 32 tiles through shared
 // memory, loads and stores along the contiguous axis.  Turns x channels-last
-// for im2col and col2im's channels-last d_x back into NCHW.
+// for im2col and col2im_coord, and col2im's channels-last d_x back into NCHW.
 template <typename Ti, typename To>
 __global__ void __launch_bounds__(kThreads)
 transpose_kernel(const Ti* __restrict__ in, To* __restrict__ out, int R, int S) {
@@ -393,51 +431,160 @@ cudaError_t transpose(const void* in, void* out, int B, int R, int S, cudaStream
 
 // ------------------------------------------------------------ col2im_coord
 
+constexpr int kCoordThreads = 9 * 32;
+// the staged grad_col tile of a group up to this size; a larger group reads
+// grad_col from device memory where the lanes need it
+constexpr int kMaxStagedBytes = 48 * 1024;
+
+// A col2im_coord block: kPos positions (a 128-byte run of an fp32 grad_col
+// row, 64 bytes in bf16), kVec channels a lane (16 bytes), and the row
+// stride of its staged grad_col rows: fp32 rows get one 16-byte pad, which
+// spreads a warp's rows over both halves of the banks.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct CoordTile {
+  static constexpr int kPos = 32;
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kStride = kPos + (sizeof(T) == 4 ? 4 : 0);
+};
+
+// rows x kCols elements from src (row stride ld; zeros from column avail
+// on) into dst (row stride kLd): one 16-byte cp.async a run (through L2
+// only) where every run is 16-byte aligned, else element by element.
+// Completion is waited for with cp.async.wait_all.
+template <typename T, int kCols, int kLd>
+__device__ __forceinline__ void stage_rows(const T* src, int rows, int ld, int avail,
+                                           bool aligned, T* dst) {
+  constexpr int kVec = 16 / sizeof(T), kRuns = kCols / kVec;
+  if (aligned) {
+    for (int i = threadIdx.x; i < rows * kRuns; i += blockDim.x) {
+      const int r = i / kRuns, q = i % kRuns * kVec;
+      const int bytes = q < avail ? 16 : 0;
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * kLd + q));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                   "l"(bytes ? src + r * ld + q : src), "r"(bytes));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int i = threadIdx.x; i < rows * kCols; i += blockDim.x) {
+      const int r = i / kCols, q = i % kCols;
+      dst[r * kLd + q] = q < avail ? src[r * ld + q] : from_f<T>(0.f);
+    }
+  }
+}
+
+// the 16 bytes at x + i as floats
+__device__ __forceinline__ void load16(const float* x, int i, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(x + i));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* x, int i, float (&v)[8]) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(x + i));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// sum_j g[j] * x[i + j] over a lane's kVec channels: 16-byte loads, or one
+// element at a time (the scalar path, kVec 1)
+template <typename T, int kVec>
+__device__ __forceinline__ float dot(const T* x, int i, const float (&g)[kVec]) {
+  constexpr int kPiece = 16 / sizeof(T);
+  float d = 0.f;
+  if constexpr (kVec % kPiece == 0) {
+#pragma unroll
+    for (int j0 = 0; j0 < kVec; j0 += kPiece) {
+      float v[kPiece];
+      load16(x, i + j0, v);
+#pragma unroll
+      for (int j = 0; j < kPiece; ++j) d += g[j0 + j] * v[j];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) d += g[j] * to_f(x[i + j]);
+  }
+  return d;
+}
+
+// kVec channels a lane (CoordTile's, or 1 when Cg is not a multiple of
+// it), kLanes / kVec lanes a sample; kStaged: the group's grad_col rows are
+// copied into shared memory while the corner table is built, else read
+// straight from device memory
+template <typename T, int kVec, bool kStaged>
+__global__ void __launch_bounds__(kCoordThreads)
 deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__ x,
                            const float* __restrict__ offset, const T* __restrict__ mask,
                            float* __restrict__ grad_offset, float* __restrict__ grad_mask,
-                           Geom g) {
-  const int64_t P = static_cast<int64_t>(g.Ho) * g.Wo, K = g.kh * g.kw, Cg = g.C / g.dg;
-  const int64_t n = static_cast<int64_t>(g.B) * g.dg * K * P;
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; t < n;
-       t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t p = t % P, r = t / P, tap = r % K, bg = r / K, grp = bg % g.dg,
-                  b = bg / g.dg;
-    const float* op = offset + bg * 2 * K * P + p;
-    float* dop = grad_offset + bg * 2 * K * P + p;
-    const Corners cr = corners(g, static_cast<int>(p / g.Wo), static_cast<int>(p % g.Wo),
-                               static_cast<int>(tap), op[2 * tap * P], op[(2 * tap + 1) * P]);
-    float dm = 0.f, dy = 0.f, dx = 0.f;
-    if (cr.any) {
-      int64_t idx[4];
+                           Geom g, int aligned) {
+  constexpr int kPos = CoordTile<T>::kPos, kPer = kLanes / kVec;
+  constexpr int kStride = CoordTile<T>::kStride;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo, n = K * kPos, Cg = g.C / g.dg;
+  Block k;  // all the group's channels
+  k.b = blockIdx.z;
+  k.grp = blockIdx.y;
+  k.c0 = k.grp * Cg;
+  k.nc = Cg;
+  k.p0 = blockIdx.x * kPos;
+  const T* gp = grad_col + (k.b * g.C + k.c0) * K * P;  // the group's first row
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* corner = reinterpret_cast<int4*>(smem);          // [n]
+  float2* frac = reinterpret_cast<float2*>(corner + n);  // [n]
+  float* mk = reinterpret_cast<float*>(frac + n);        // [n]
+  T* tile = reinterpret_cast<T*>(mk + n);                // [Cg * K][kStride] when staged
+  if (kStaged) stage_rows<T, kPos, kStride>(gp + k.p0, Cg * K, P, P - k.p0, aligned, tile);
+  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
+                        nullptr, mk, frac);
+  if (kStaged && aligned) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. each lane sums its channels' grad_col * x at each kept corner; the
+  //    sample's lanes share their sums and one lane writes.  kPer divides 32
+  //    and a warp's samples have the same trip count, so every lane reaches
+  //    the shuffles.
+  const int lane = threadIdx.x % kPer;
+  const int bg = k.b * g.dg + k.grp;
+  const T* xc = x + k.c0;
+  float* dop = grad_offset + bg * 2 * K * P;
+  float* dmp = grad_mask ? grad_mask + bg * K * P : nullptr;
+  for (int s = threadIdx.x / kPer; s < n; s += kCoordThreads / kPer) {
+    const int tap = s / kPos, q = s % kPos, p = k.p0 + q;
+    const int4 id = corner[s];
+    float d[4] = {0.f, 0.f, 0.f, 0.f};  // D_k = sum_c grad_col * x at corner k
+    if ((id.x & id.y & id.z & id.w) != -1) {  // some corner kept (none past P)
+#pragma unroll 1
+      for (int c = lane * kVec; c < Cg; c += kLanes) {
+        float gv[kVec];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        idx[k] = cr.ok[k] ? static_cast<int64_t>(cr.y0 + (k >> 1)) * g.W + cr.x0 + (k & 1) : -1;
-      const int64_t c0 = b * g.C + grp * Cg;
-      for (int64_t cg = 0; cg < Cg; ++cg) {
-        const float gv = to_f(grad_col[((c0 + cg) * K + tap) * P + p]);
-        const T* xp = x + (c0 + cg) * g.H * g.W;
-        float s = 0.f, sy = 0.f, sx = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (idx[k] >= 0) {
-            const float v = to_f(xp[idx[k]]);
-            s += cr.w[k] * v;
-            sy += cr.wy[k] * v;
-            sx += cr.wx[k] * v;
-          }
-        }
-        dm += gv * s;
-        dy += gv * sy;
-        dx += gv * sx;
+        for (int j = 0; j < kVec; ++j)
+          gv[j] = to_f(kStaged ? tile[((c + j) * K + tap) * kStride + q]
+                               : gp[((c + j) * K + tap) * P + p]);
+        if (id.x >= 0) d[0] += dot<T, kVec>(xc + c, id.x, gv);
+        if (id.y >= 0) d[1] += dot<T, kVec>(xc + c, id.y, gv);
+        if (id.z >= 0) d[2] += dot<T, kVec>(xc + c, id.z, gv);
+        if (id.w >= 0) d[3] += dot<T, kVec>(xc + c, id.w, gv);
       }
     }
-    const float m = mask ? to_f(mask[bg * K * P + tap * P + p]) : 1.f;
-    dop[2 * tap * P] = dy * m;
-    dop[(2 * tap + 1) * P] = dx * m;
-    if (grad_mask) grad_mask[bg * K * P + tap * P + p] = dm;
+    // the sum over the sample's lanes
+#pragma unroll
+    for (int o = 1; o < kPer; o <<= 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) d[c] += __shfl_xor_sync(0xffffffffu, d[c], o);
+    if (lane != 0 || p >= P) continue;
+    // corner k's weight is ay * ax and its derivatives -+ax (in py) and
+    // -+ay (in px), + for the far corner (ay0 = 1 - fy, ay1 = fy; ax
+    // likewise); a dropped corner's D_k is 0
+    const float2 f = frac[s];
+    const float ay1 = f.x, ay0 = 1.f - ay1, ax1 = f.y, ax0 = 1.f - ax1, m = mk[s];
+    dop[2 * tap * P + p] = m * (ax0 * (d[2] - d[0]) + ax1 * (d[3] - d[1]));
+    dop[(2 * tap + 1) * P + p] = m * (ay0 * (d[1] - d[0]) + ay1 * (d[3] - d[2]));
+    if (dmp) dmp[tap * P + p] = ay0 * (ax0 * d[0] + ax1 * d[1]) + ay1 * (ax0 * d[2] + ax1 * d[3]);
   }
 }
 
@@ -457,15 +604,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-int grid_for(int64_t n) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 16;
-  return static_cast<int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
 // one of im2col's and col2im's blocks a (position tile, group's channel
@@ -518,18 +656,61 @@ int col2im(const void* grad_col, const void* offset, const void* mask, void* gra
   return static_cast<int>(transpose<float, float>(grad_x_cl, grad_x, g.B, g.H * g.W, g.C, st));
 }
 
+// one block a (position tile, group, image), all the group's channels; the
+// group's grad_col rows staged in shared memory when they fit
+template <typename T, int kVec, bool kStaged>
+cudaError_t launch_coord(const Geom& g, cudaStream_t stream, const void* grad_col, const void* x,
+                         const void* offset, const void* mask, void* grad_offset,
+                         void* grad_mask) {
+  constexpr int kPos = CoordTile<T>::kPos;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo, Cg = g.C / g.dg;
+  const auto kernel = deform_col2im_coord_kernel<T, kVec, kStaged>;
+  const size_t smem = (sizeof(int4) + sizeof(float2) + sizeof(float)) * K * kPos +
+                      (kStaged ? sizeof(T) * Cg * K * CoordTile<T>::kStride : 0);
+  const int aligned =
+      P % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(grad_col) % 16 == 0;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P + kPos - 1) / kPos, g.dg, g.B);
+  kernel<<<grid, kCoordThreads, smem, stream>>>(
+      static_cast<const T*>(grad_col), static_cast<const T*>(x),
+      static_cast<const float*>(offset), static_cast<const T*>(mask),
+      static_cast<float*>(grad_offset), static_cast<float*>(grad_mask), g, aligned);
+  return cudaGetLastError();
+}
+
+template <typename T, int kVec>
+cudaError_t launch_coord(const Geom& g, cudaStream_t stream, const void* grad_col, const void* x,
+                         const void* offset, const void* mask, void* grad_offset,
+                         void* grad_mask) {
+  const size_t tile = sizeof(T) * (g.C / g.dg) * g.kh * g.kw * CoordTile<T>::kStride;
+  return tile <= kMaxStagedBytes
+             ? launch_coord<T, kVec, true>(g, stream, grad_col, x, offset, mask, grad_offset,
+                                           grad_mask)
+             : launch_coord<T, kVec, false>(g, stream, grad_col, x, offset, mask, grad_offset,
+                                            grad_mask);
+}
+
+// x_nchw, when given, is first transposed and cast into x_cl, as for im2col
 template <typename T>
-int col2im_coord(const void* grad_col, const void* x, const void* offset, const void* mask,
-                 void* grad_offset, void* grad_mask, const int64_t* gv, void* stream) {
+int col2im_coord(const void* grad_col, const void* x_nchw, int x_bf16, void* x_cl,
+                 const void* offset, const void* mask, void* grad_offset, void* grad_mask,
+                 const int64_t* gv, void* stream) {
   const Geom g = geom_of(gv);
-  const int64_t n = static_cast<int64_t>(g.B) * g.dg * g.kh * g.kw * g.Ho * g.Wo;
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  deform_col2im_coord_kernel<T>
-      <<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(grad_col), static_cast<const T*>(x),
-          static_cast<const float*>(offset), static_cast<const T*>(mask),
-          static_cast<float*>(grad_offset), static_cast<float*>(grad_mask), g);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g.B == 0 || g.Ho * g.Wo == 0) return static_cast<int>(cudaSuccess);
+  if (x_nchw && g.C > 0) {
+    const cudaError_t err =
+        x_bf16 ? transpose<__nv_bfloat16, T>(x_nchw, x_cl, g.B, g.C, g.H * g.W, st)
+               : transpose<float, T>(x_nchw, x_cl, g.B, g.C, g.H * g.W, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  constexpr int kVec = CoordTile<T>::kVec;
+  return static_cast<int>((g.C / g.dg) % kVec == 0
+                              ? launch_coord<T, kVec>(g, st, grad_col, x_cl, offset, mask,
+                                                      grad_offset, grad_mask)
+                              : launch_coord<T, 1>(g, st, grad_col, x_cl, offset, mask,
+                                                   grad_offset, grad_mask));
 }
 
 }  // namespace
@@ -557,15 +738,18 @@ extern "C" int deform_col2im_bf16(const void* grad_col, const void* offset, cons
   return col2im<__nv_bfloat16>(grad_col, offset, mask, grad_x_cl, grad_x, geom, stream);
 }
 
-extern "C" int deform_col2im_coord_f32(const void* grad_col, const void* x, const void* offset,
-                                       const void* mask, void* grad_offset, void* grad_mask,
-                                       const int64_t* geom, void* stream) {
-  return col2im_coord<float>(grad_col, x, offset, mask, grad_offset, grad_mask, geom, stream);
+extern "C" int deform_col2im_coord_f32(const void* grad_col, const void* x_nchw, int x_bf16,
+                                       void* x_cl, const void* offset, const void* mask,
+                                       void* grad_offset, void* grad_mask, const int64_t* geom,
+                                       void* stream) {
+  return col2im_coord<float>(grad_col, x_nchw, x_bf16, x_cl, offset, mask, grad_offset,
+                             grad_mask, geom, stream);
 }
 
-extern "C" int deform_col2im_coord_bf16(const void* grad_col, const void* x, const void* offset,
-                                        const void* mask, void* grad_offset, void* grad_mask,
-                                        const int64_t* geom, void* stream) {
-  return col2im_coord<__nv_bfloat16>(grad_col, x, offset, mask, grad_offset, grad_mask, geom,
-                                     stream);
+extern "C" int deform_col2im_coord_bf16(const void* grad_col, const void* x_nchw, int x_bf16,
+                                        void* x_cl, const void* offset, const void* mask,
+                                        void* grad_offset, void* grad_mask, const int64_t* geom,
+                                        void* stream) {
+  return col2im_coord<__nv_bfloat16>(grad_col, x_nchw, x_bf16, x_cl, offset, mask, grad_offset,
+                                     grad_mask, geom, stream);
 }

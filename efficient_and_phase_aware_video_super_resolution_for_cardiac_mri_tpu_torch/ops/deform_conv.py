@@ -29,9 +29,10 @@ nothing: the forward saves col (``weight``'s gradient is ``grad_out ·
 colᵀ``), and the two backward kernels give d_x (``deform_col2im``, float4
 atomic adds into a channels-last fp32 buffer, transposed to NCHW, cast
 once) and d_offset, d_mask (``deform_col2im_coord``, a sum over the group's
-channels).  The im2col kernel gathers from a channels-last x, which its
-entry point transposes into a buffer of the wrapper's unless x is
-channels-last already; col keeps the layout above.
+channels inside one block, so its bits repeat from run to run).  The im2col
+and col2im_coord kernels gather from a channels-last x, which their entry
+points transpose into a buffer of the wrapper's unless x is channels-last
+already; col keeps the layout above.
 
 Dtypes follow the JAX package's promotion: col is in the promoted dtype of
 x and the mask (an fp32 mask from an fp32 offset conv makes a bf16 x's col
@@ -63,7 +64,7 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 #: of those launches, the ones on bfloat16 operands
 BF16_LAUNCHES = dict.fromkeys(KERNELS, 0)
 #: the CUDA kernels behind these wrappers, as a profiler trace names them
-#: (im2col's and col2im's entry points also run the transpose)
+#: (each wrapper's entry point also runs the transpose)
 TRACE_NAMES = ("deform_im2col_kernel", "deform_col2im_kernel", "deform_col2im_coord_kernel",
                "transpose_kernel")
 
@@ -259,19 +260,23 @@ def deform_conv2d_reference(x, offset, weight, mask=None, bias=None, stride=1, p
 # ------------------------------------------------------------------ kernels
 
 
-@functools.lru_cache(maxsize=None)
-def build() -> _build.Built:
-    """Compile (first call only) and load the kernel library."""
-    built = _build.build("deform_conv.cu")
+def bind(built: _build.Built) -> _build.Built:
+    """Declare the argument types of a loaded kernel library's entry points."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     args = {"deform_im2col": [ptr, i32, ptr, ptr, ptr, ptr], "deform_col2im": [ptr] * 5,
-            "deform_col2im_coord": [ptr] * 6}
+            "deform_col2im_coord": [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]}
     for sfx in _SUFFIX.values():
         for name, operands in args.items():
             f = getattr(built.lib, f"{name}_{sfx}")
             f.argtypes = [*operands, ptr, ptr]  # + the geometry, the stream
             f.restype = ctypes.c_int
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> _build.Built:
+    """Compile (first call only) and load the kernel library."""
+    return bind(_build.build("deform_conv.cu"))
 
 
 def _check(g: Geometry, dev: torch.device, dtype: torch.dtype, **operands) -> None:
@@ -316,6 +321,24 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _channels_last(x: torch.Tensor, dtype: torch.dtype):
+    """(x_nchw, x_cl) for an entry point that gathers from x channels-last
+    (B, H, W, C) in ``dtype``: x itself and no x_nchw where it is such a
+    tensor already (contiguous channels-last, 16-byte aligned); else the
+    contiguous NCHW x, which the entry point transposes (and casts) into the
+    new buffer x_cl."""
+    if x.dtype not in _SUFFIX:
+        x = x.to(dtype)
+    x_cl = x.permute(0, 2, 3, 1)
+    if x.dtype == dtype and x_cl.is_contiguous() and x_cl.data_ptr() % 16 == 0:
+        return None, x_cl
+    return x.contiguous(), torch.empty(x_cl.shape, device=x.device, dtype=dtype)
+
+
+def _is_bf16(t: torch.Tensor | None) -> int:
+    return int(t is not None and t.dtype == torch.bfloat16)
+
+
 def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor | None,
                   g: Geometry) -> torch.Tensor:
     """col (B, C·K, Ho·Wo) in :func:`col_dtype`: the ``deform_im2col``
@@ -325,18 +348,11 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor | No
     dtype = col_dtype(x, mask)
     _check(g, x.device, dtype, x=x, offset=offset, mask=mask)
     col = torch.empty(g.B, g.C * g.K, g.Ho * g.Wo, device=x.device, dtype=dtype)
-    if x.dtype not in _SUFFIX:
-        x = x.to(dtype)
-    x_cl = x.permute(0, 2, 3, 1)  # the kernel gathers channels-last: (B, H, W, C)
-    if x.dtype == dtype and x_cl.is_contiguous():
-        x_nchw = None  # already channels-last
-    else:  # the entry point transposes (and casts) x into x_cl first
-        x_nchw = x.contiguous()
-        x_cl = torch.empty(x_cl.shape, device=x.device, dtype=dtype)
+    x_nchw, x_cl = _channels_last(x, dtype)
     oc = offset.float().contiguous()
     mc = None if mask is None else mask.to(dtype).contiguous()
-    _launch("deform_im2col", dtype, x, g, _ptr(x_nchw), int(x.dtype == torch.bfloat16),
-            x_cl.data_ptr(), oc.data_ptr(), _ptr(mc), col.data_ptr())
+    _launch("deform_im2col", dtype, x, g, _ptr(x_nchw), _is_bf16(x_nchw), x_cl.data_ptr(),
+            oc.data_ptr(), _ptr(mc), col.data_ptr())
     return col
 
 
@@ -363,19 +379,21 @@ def deform_col2im(grad_col: torch.Tensor, offset: torch.Tensor, mask: torch.Tens
 def deform_col2im_coord(grad_col: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor | None, g: Geometry):
     """(d_offset, d_mask or None), fp32: the ``deform_col2im_coord`` kernel
-    on CUDA tensors, :func:`deform_col2im_coord_reference` on CPU ones."""
+    on CUDA tensors (a block sums a group's channels itself: no atomics, the
+    same bits from run to run; x gathered channels-last as for im2col),
+    :func:`deform_col2im_coord_reference` on CPU ones."""
     if grad_col.device.type == "cpu":
         return deform_col2im_coord_reference(grad_col, x, offset, mask, g)
     dtype = grad_col.dtype
     _check(g, grad_col.device, dtype, grad_col=grad_col, x=x, offset=offset, mask=mask)
     gc = grad_col.contiguous()
-    xc = x.to(dtype).contiguous()
+    x_nchw, x_cl = _channels_last(x, dtype)
     oc = offset.float().contiguous()
     mc = None if mask is None else mask.to(dtype).contiguous()
     d_offset = torch.empty(g.B, g.dg * 2 * g.K, g.Ho, g.Wo, device=x.device)
     d_mask = None if mask is None else torch.empty(g.B, g.dg * g.K, g.Ho, g.Wo, device=x.device)
-    _launch("deform_col2im_coord", dtype, x, g, gc.data_ptr(), xc.data_ptr(), oc.data_ptr(),
-            _ptr(mc), d_offset.data_ptr(), _ptr(d_mask))
+    _launch("deform_col2im_coord", dtype, x, g, gc.data_ptr(), _ptr(x_nchw), _is_bf16(x_nchw),
+            x_cl.data_ptr(), oc.data_ptr(), _ptr(mc), d_offset.data_ptr(), _ptr(d_mask))
     return d_offset, d_mask
 
 

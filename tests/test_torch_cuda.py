@@ -7,7 +7,8 @@ through the plain gate tail, and the single-image, multi-frame and plain
 video nets (no hand-written kernel) on the card against the CPU; the
 deformable conv's three kernels (im2col, col2im, col2im_coord) against
 their plain versions, fp32 and bf16, at zero, fractional and out-of-window
-offsets, what they refuse, and a small EDVR on the card against the CPU.
+offsets, col2im_coord's bits repeated across calls, what they refuse, and a
+small EDVR on the card against the CPU.
 
 Marked ``cuda``: they skip where there is no card.  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -450,8 +451,8 @@ def _dcn_operands(dev, dtype, offsets, B=2, C=16, H=13, W=11, dg=4, seed=0):
     return dcn, g, [cast(x), off.to(dev), cast(mask), cast(w), cast(b)], cot.to(dev)
 
 
-@pytest.mark.parametrize("channels,dg", [(16, 4), (32, 2), (12, 2)],
-                         ids=["4_a_group", "16_a_group", "6_a_group"])
+@pytest.mark.parametrize("channels,dg", [(16, 4), (32, 2), (64, 2), (128, 2), (12, 2)],
+                         ids=["4_a_group", "16_a_group", "32_a_group", "64_a_group", "6_a_group"])
 @pytest.mark.parametrize("offsets", ["zero", "fractional", "wide", "beyond"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, dg):
@@ -460,7 +461,10 @@ def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, d
     upcast to fp32: the output and the gradients in x, offset, mask, weight
     and bias, each relative to its largest element (bf16: the kernels round
     col and the operands once; the plain version runs in fp32).  Groups of
-    4, 16 and 6 channels take the kernels' 16-byte and scalar paths."""
+    4, 16, 32, 64 and 6 channels take the kernels' 16-byte and scalar
+    paths; at 32 and 64, col2im_coord's block walks two and four chunks of
+    16 channels, reading grad_col from its shared tile at 32 and from
+    device memory at 64 (a tile beyond its 24 KB)."""
     dcn, g, ops, cot = _dcn_operands(cuda, dtype, offsets, C=channels, dg=dg)
     R = None if g.R < 0 else g.R
     kwargs = dict(padding=1, deformable_groups=g.dg, max_offset=R)
@@ -484,6 +488,23 @@ def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, d
         with torch.no_grad():
             zero = dcn.deform_conv2d(ops[0], far, ops[3], ops[2], ops[4], **kwargs)
         assert torch.equal(zero, ops[4].view(1, -1, 1, 1).expand_as(zero).to(zero.dtype))
+
+
+@pytest.mark.parametrize("channels,dg", [(32, 2), (64, 2), (128, 2), (12, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dcn_col2im_coord_repeats_its_bits(cuda, dtype, channels, dg):
+    """col2im_coord sums a group's channels inside one block, without
+    atomics: two calls on the same inputs give the same d_offset and d_mask,
+    bit for bit."""
+    dcn, g, ops, _ = _dcn_operands(cuda, dtype, "fractional", C=channels, dg=dg)
+    x, off, mask = ops[:3]
+    gen = torch.Generator().manual_seed(1)
+    grad_col = torch.randn(g.B, g.C * g.K, g.Ho * g.Wo, generator=gen).to(cuda, dtype)
+    first = dcn.deform_col2im_coord(grad_col, x, off, mask, g)
+    second = dcn.deform_col2im_coord(grad_col, x, off, mask, g)
+    torch.cuda.synchronize()
+    assert first[0].abs().max() > 0
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_dcn_kernels_refuse_what_they_do_not_take(cuda):

@@ -141,6 +141,10 @@ GATHER_CASES = {
     "zero-offsets": dict(offsets="zero"),
     "zero-offsets-nomask": dict(offsets="zero", with_mask=False, dg=1),
     "outside-image": dict(offsets="outside"),
+    # EDVR's group width (16 channels) and two of its 16-channel chunks:
+    # the widths the card's col2im_coord block walks
+    "s1p1d1-dg2-c32": dict(dg=2, C=32),
+    "s1p1d1-dg2-c64": dict(dg=2, C=64),
 }
 
 
@@ -156,6 +160,8 @@ WINDOW_CASES = {
     "zero-offsets": dict(offsets="zero"),
     "beyond-window": dict(offsets="beyond"),
     "pad0-dg2": dict(pad=0, offsets="beyond"),
+    "in-window-dg2-c32": dict(dg=2, C=32, offsets="fractional"),
+    "in-window-dg2-c64": dict(dg=2, C=64, offsets="fractional"),
 }
 
 
