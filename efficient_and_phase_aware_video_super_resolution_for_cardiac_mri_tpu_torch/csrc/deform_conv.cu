@@ -75,30 +75,37 @@
 //                        slower at both of EDVR's L1 shapes.  Atomics
 //                        keep a run-to-run summation order, so the last bits
 //                        of d_x change from run to run.
-//   deform_col2im_coord  a block takes the same positions of one (b, group)
-//                        and walks all the group's channels in chunks of 16
-//                        itself, so the sum over Cg ends inside the block:
-//                        no atomics, no zeroed output, the same bits from
-//                        run to run.  Its table also keeps each sample's two
-//                        fractions, from which a kept corner's derivative
-//                        weights follow as corners() gives them.  Lanes as
+//   deform_col2im_coord  a block takes 32 positions of one (b, group), all K
+//                        taps, and walks all the group's channels itself, in
+//                        chunks of 16, so the sum over Cg ends inside the
+//                        block: no atomics, no zeroed output, the same bits
+//                        from run to run.  Its table keeps each sample's two
+//                        fractions in place of the weights.  Lanes as
 //                        col2im's (fp32: 4 a sample, 4 channels a lane; bf16:
-//                        2 and 8, 16-byte loads; a lane a channel when Cg is
-//                        not a multiple of the vector): a lane keeps one dot
-//                        product a corner, D_k = sum_c grad_col * x_k, across
-//                        its chunks, __shfl_xor_sync sums them over the
-//                        sample's lanes, and one lane writes
-//                        d_mask = sum_k w_k D_k and d_off_{y,x} =
-//                        mask * sum_k w{y,x}_k D_k (the derivative through the
-//                        fraction only: a dropped corner and a sample outside
-//                        add nothing), fp32, in runs along p.  x comes
-//                        channels-last as for im2col (the entry point's
-//                        transpose).  9 warps a block: at 3x3 taps each pass
-//                        of the block covers whole taps, 2 passes a block in
-//                        both dtypes.  The first design (a thread per (b, g,
-//                        tap, p), a serial loop over the group's channels
-//                        with 4 scalar gathers from NCHW planes each, a capped
-//                        grid) ran at 18-35% of the byte bound.
+//                        2 and 8; 16-byte loads of a channels-last x, which
+//                        the entry point transposes as im2col's does; a lane
+//                        a channel when Cg is not a multiple of the vector):
+//                        a lane keeps one dot product a corner, D_k = sum_c
+//                        grad_col * x at corner k, across its chunks,
+//                        __shfl_xor_sync sums them over the sample's lanes,
+//                        and one lane writes d_mask = sum_k w_k D_k and
+//                        d_off_{y,x} = mask * sum_k dw_k/dp{y,x} D_k, fp32
+//                        (the derivative through the fraction only: a
+//                        dropped corner and a sample outside add nothing).
+//                        grad_col comes straight from device memory: a
+//                        warp's loads fill 32-byte sectors of 4 (fp32) or 2
+//                        (bf16) rows, and 32 positions make 128-byte fp32
+//                        rows a block.  9 warps: at 3x3 taps a block has
+//                        9 * 32 samples, so every pass over them is full.
+//                        Measured against this design (tools/dcn_ab.py):
+//                        16 positions, grad_col staged in shared memory by
+//                        cp.async while the table is built, 6 warps, 32
+//                        registers, wider lanes and a persistent block
+//                        double-buffering the next tile's rows were all
+//                        slower.  What is left is the corner table (the
+//                        offsets' load latency and the corners, a thread a
+//                        sample, as in the other two kernels), then
+//                        grad_col's stream and the gathers.
 //
 // The kernels run on the caller's stream, allocate nothing (the wrapper
 // passes the channels-last buffers) and assume contiguous operands; each
@@ -194,17 +201,6 @@ struct Block {
   int b, grp, c0, nc, p0;
 };
 
-// the block's group's offset and mask rows at its first position
-__device__ __forceinline__ const float* offset_rows(const Geom& g, const Block& k,
-                                                    const float* offset) {
-  return offset + (k.b * g.dg + k.grp) * 2 * g.kh * g.kw * g.Ho * g.Wo + k.p0;
-}
-
-template <typename T>
-__device__ __forceinline__ const T* mask_rows(const Geom& g, const Block& k, const T* mask) {
-  return mask ? mask + (k.b * g.dg + k.grp) * g.kh * g.kw * g.Ho * g.Wo + k.p0 : nullptr;
-}
-
 template <int kPos>
 __device__ __forceinline__ Block block_of(const Geom& g) {
   const int Cg = g.C / g.dg, chunks = (Cg + kLanes - 1) / kLanes;
@@ -222,27 +218,27 @@ __device__ __forceinline__ Block block_of(const Geom& g) {
 // s / kPos, position p0 + s % kPos), once for all its channels: a kept
 // corner's element offset of channel 0 in a channels-last (B, H, W, C)
 // tensor, or -1; the mask (1 without one); where given, the corner weights
-// (im2col, col2im) or the fractions (fy, fx) (col2im_coord).  op and mp
-// point at the block's first position in its group's offset and mask rows
-// (row stride ld: P in device memory, kPos in a staged copy).
+// (im2col, col2im) or the fractions (fy, fx) (col2im_coord).
 template <typename T, int kPos>
-__device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* op,
-                                             const T* mp, int ld, int4* corner, float4* weight,
+__device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* offset,
+                                             const T* mask, int4* corner, float4* weight,
                                              float* mk, float2* frac = nullptr) {
   const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  const float* op = offset + (k.b * g.dg + k.grp) * 2 * K * P;
+  const T* mp = mask ? mask + (k.b * g.dg + k.grp) * K * P : nullptr;
   for (int s = threadIdx.x; s < K * kPos; s += blockDim.x) {
-    const int tap = s / kPos, q = s % kPos, p = k.p0 + q;
+    const int tap = s / kPos, p = k.p0 + s % kPos;
     int e[4] = {-1, -1, -1, -1};
     float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
     float m = 0.f, fy = 0.f, fx = 0.f;
     if (p < P) {
       const Corners cr =
-          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * ld + q], op[(2 * tap + 1) * ld + q]);
+          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p], op[(2 * tap + 1) * P + p]);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (cr.ok[c]) e[c] = ((k.b * g.H + cr.y0 + (c >> 1)) * g.W + cr.x0 + (c & 1)) * g.C;
       w = make_float4(cr.w[0], cr.w[1], cr.w[2], cr.w[3]);
-      m = mp ? to_f(mp[tap * ld + q]) : 1.f;
+      m = mp ? to_f(mp[tap * P + p]) : 1.f;
       fy = cr.fy;
       fx = cr.fx;
     }
@@ -289,8 +285,7 @@ deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
-                        weight, mk);
+  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
   __syncthreads();
 
   // 2. kLanes / kVec lanes a sample, kVec channels a lane, one 16-byte load a
@@ -356,8 +351,7 @@ deform_col2im_kernel(const T* __restrict__ grad_col, const float* __restrict__ o
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
-                        weight, mk);
+  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
   __syncthreads();
 
   // 2. 4 lanes a sample, 4 channels a lane: grad * mask (grad_col loads fill
@@ -432,45 +426,14 @@ cudaError_t transpose(const void* in, void* out, int B, int R, int S, cudaStream
 // ------------------------------------------------------------ col2im_coord
 
 constexpr int kCoordThreads = 9 * 32;
-// the staged grad_col tile of a group up to this size; a larger group reads
-// grad_col from device memory where the lanes need it
-constexpr int kMaxStagedBytes = 48 * 1024;
 
 // A col2im_coord block: kPos positions (a 128-byte run of an fp32 grad_col
-// row, 64 bytes in bf16), kVec channels a lane (16 bytes), and the row
-// stride of its staged grad_col rows: fp32 rows get one 16-byte pad, which
-// spreads a warp's rows over both halves of the banks.
+// row, 64 bytes in bf16) and kVec channels a lane (16 bytes).
 template <typename T>
 struct CoordTile {
   static constexpr int kPos = 32;
   static constexpr int kVec = 16 / sizeof(T);
-  static constexpr int kStride = kPos + (sizeof(T) == 4 ? 4 : 0);
 };
-
-// rows x kCols elements from src (row stride ld; zeros from column avail
-// on) into dst (row stride kLd): one 16-byte cp.async a run (through L2
-// only) where every run is 16-byte aligned, else element by element.
-// Completion is waited for with cp.async.wait_all.
-template <typename T, int kCols, int kLd>
-__device__ __forceinline__ void stage_rows(const T* src, int rows, int ld, int avail,
-                                           bool aligned, T* dst) {
-  constexpr int kVec = 16 / sizeof(T), kRuns = kCols / kVec;
-  if (aligned) {
-    for (int i = threadIdx.x; i < rows * kRuns; i += blockDim.x) {
-      const int r = i / kRuns, q = i % kRuns * kVec;
-      const int bytes = q < avail ? 16 : 0;
-      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * kLd + q));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                   "l"(bytes ? src + r * ld + q : src), "r"(bytes));
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  } else {
-    for (int i = threadIdx.x; i < rows * kCols; i += blockDim.x) {
-      const int r = i / kCols, q = i % kCols;
-      dst[r * kLd + q] = q < avail ? src[r * ld + q] : from_f<T>(0.f);
-    }
-  }
-}
 
 // the 16 bytes at x + i as floats
 __device__ __forceinline__ void load16(const float* x, int i, float (&v)[4]) {
@@ -514,34 +477,25 @@ __device__ __forceinline__ float dot(const T* x, int i, const float (&g)[kVec]) 
 }
 
 // kVec channels a lane (CoordTile's, or 1 when Cg is not a multiple of
-// it), kLanes / kVec lanes a sample; kStaged: the group's grad_col rows are
-// copied into shared memory while the corner table is built, else read
-// straight from device memory
-template <typename T, int kVec, bool kStaged>
+// it), kLanes / kVec lanes a sample
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kCoordThreads)
 deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__ x,
                            const float* __restrict__ offset, const T* __restrict__ mask,
                            float* __restrict__ grad_offset, float* __restrict__ grad_mask,
-                           Geom g, int aligned) {
+                           Geom g) {
   constexpr int kPos = CoordTile<T>::kPos, kPer = kLanes / kVec;
-  constexpr int kStride = CoordTile<T>::kStride;
   const int K = g.kh * g.kw, P = g.Ho * g.Wo, n = K * kPos, Cg = g.C / g.dg;
   Block k;  // all the group's channels
   k.b = blockIdx.z;
   k.grp = blockIdx.y;
   k.c0 = k.grp * Cg;
-  k.nc = Cg;
   k.p0 = blockIdx.x * kPos;
-  const T* gp = grad_col + (k.b * g.C + k.c0) * K * P;  // the group's first row
   extern __shared__ __align__(16) unsigned char smem[];
   int4* corner = reinterpret_cast<int4*>(smem);          // [n]
   float2* frac = reinterpret_cast<float2*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(frac + n);        // [n]
-  T* tile = reinterpret_cast<T*>(mk + n);                // [Cg * K][kStride] when staged
-  if (kStaged) stage_rows<T, kPos, kStride>(gp + k.p0, Cg * K, P, P - k.p0, aligned, tile);
-  corner_table<T, kPos>(g, k, offset_rows(g, k, offset), mask_rows(g, k, mask), P, corner,
-                        nullptr, mk, frac);
-  if (kStaged && aligned) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  corner_table<T, kPos>(g, k, offset, mask, corner, nullptr, mk, frac);
   __syncthreads();
 
   // 2. each lane sums its channels' grad_col * x at each kept corner; the
@@ -550,11 +504,12 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
   //    the shuffles.
   const int lane = threadIdx.x % kPer;
   const int bg = k.b * g.dg + k.grp;
+  const T* gp = grad_col + (k.b * g.C + k.c0) * K * P;  // the group's first row
   const T* xc = x + k.c0;
   float* dop = grad_offset + bg * 2 * K * P;
   float* dmp = grad_mask ? grad_mask + bg * K * P : nullptr;
   for (int s = threadIdx.x / kPer; s < n; s += kCoordThreads / kPer) {
-    const int tap = s / kPos, q = s % kPos, p = k.p0 + q;
+    const int tap = s / kPos, p = k.p0 + s % kPos;
     const int4 id = corner[s];
     float d[4] = {0.f, 0.f, 0.f, 0.f};  // D_k = sum_c grad_col * x at corner k
     if ((id.x & id.y & id.z & id.w) != -1) {  // some corner kept (none past P)
@@ -562,9 +517,7 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
       for (int c = lane * kVec; c < Cg; c += kLanes) {
         float gv[kVec];
 #pragma unroll
-        for (int j = 0; j < kVec; ++j)
-          gv[j] = to_f(kStaged ? tile[((c + j) * K + tap) * kStride + q]
-                               : gp[((c + j) * K + tap) * P + p]);
+        for (int j = 0; j < kVec; ++j) gv[j] = to_f(gp[((c + j) * K + tap) * P + p]);
         if (id.x >= 0) d[0] += dot<T, kVec>(xc + c, id.x, gv);
         if (id.y >= 0) d[1] += dot<T, kVec>(xc + c, id.y, gv);
         if (id.z >= 0) d[2] += dot<T, kVec>(xc + c, id.z, gv);
@@ -656,39 +609,22 @@ int col2im(const void* grad_col, const void* offset, const void* mask, void* gra
   return static_cast<int>(transpose<float, float>(grad_x_cl, grad_x, g.B, g.H * g.W, g.C, st));
 }
 
-// one block a (position tile, group, image), all the group's channels; the
-// group's grad_col rows staged in shared memory when they fit
-template <typename T, int kVec, bool kStaged>
-cudaError_t launch_coord(const Geom& g, cudaStream_t stream, const void* grad_col, const void* x,
-                         const void* offset, const void* mask, void* grad_offset,
-                         void* grad_mask) {
-  constexpr int kPos = CoordTile<T>::kPos;
-  const int K = g.kh * g.kw, P = g.Ho * g.Wo, Cg = g.C / g.dg;
-  const auto kernel = deform_col2im_coord_kernel<T, kVec, kStaged>;
-  const size_t smem = (sizeof(int4) + sizeof(float2) + sizeof(float)) * K * kPos +
-                      (kStaged ? sizeof(T) * Cg * K * CoordTile<T>::kStride : 0);
-  const int aligned =
-      P % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(grad_col) % 16 == 0;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((P + kPos - 1) / kPos, g.dg, g.B);
-  kernel<<<grid, kCoordThreads, smem, stream>>>(
-      static_cast<const T*>(grad_col), static_cast<const T*>(x),
-      static_cast<const float*>(offset), static_cast<const T*>(mask),
-      static_cast<float*>(grad_offset), static_cast<float*>(grad_mask), g, aligned);
-  return cudaGetLastError();
-}
-
+// one block a (position tile, group, image), all the group's channels
 template <typename T, int kVec>
 cudaError_t launch_coord(const Geom& g, cudaStream_t stream, const void* grad_col, const void* x,
                          const void* offset, const void* mask, void* grad_offset,
                          void* grad_mask) {
-  const size_t tile = sizeof(T) * (g.C / g.dg) * g.kh * g.kw * CoordTile<T>::kStride;
-  return tile <= kMaxStagedBytes
-             ? launch_coord<T, kVec, true>(g, stream, grad_col, x, offset, mask, grad_offset,
-                                           grad_mask)
-             : launch_coord<T, kVec, false>(g, stream, grad_col, x, offset, mask, grad_offset,
-                                            grad_mask);
+  constexpr int kPos = CoordTile<T>::kPos;
+  const int K = g.kh * g.kw, P = g.Ho * g.Wo;
+  const size_t smem = (sizeof(int4) + sizeof(float2) + sizeof(float)) * K * kPos;
+  const cudaError_t err = allow_smem(deform_col2im_coord_kernel<T, kVec>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P + kPos - 1) / kPos, g.dg, g.B);
+  deform_col2im_coord_kernel<T, kVec><<<grid, kCoordThreads, smem, stream>>>(
+      static_cast<const T*>(grad_col), static_cast<const T*>(x),
+      static_cast<const float*>(offset), static_cast<const T*>(mask),
+      static_cast<float*>(grad_offset), static_cast<float*>(grad_mask), g);
+  return cudaGetLastError();
 }
 
 // x_nchw, when given, is first transposed and cast into x_cl, as for im2col

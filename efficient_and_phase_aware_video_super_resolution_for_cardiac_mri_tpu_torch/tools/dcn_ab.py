@@ -1,7 +1,7 @@
 """A/B of edited builds of the deformable conv's col2im_coord kernel on the card.
 
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.dcn_ab \
-        [--variants rows16 unstaged regs32 warps6 lanes2x no_grad table_only]
+        [--variants rows16 regs32 warps6 lanes2x no_grad table_only]
 
 Builds ``csrc/deform_conv.cu`` as it is ("base") and once for each variant
 with its text edits applied (``ops/_build.build(edits=...)``), one nvcc a
@@ -9,16 +9,14 @@ build, all at once.  Each variant changes one design choice of
 ``deform_col2im_coord_kernel``:
 
 * ``rows16``: 16 positions a block (64-byte fp32 grad_col rows, 32 in bf16);
-* ``unstaged``: grad_col read from device memory where the lanes need it,
-  not copied into shared memory while the corner table is built;
 * ``regs32``: at most 32 registers a thread (7 blocks an SM);
 * ``warps6``: blocks of 6 warps, not 9;
 * ``lanes2x``: 32 bytes of channels a lane (fp32: 2 lanes a sample, 8
   channels a lane; bf16: 1 lane, 16 channels), not 16;
-* ``no_grad`` and ``table_only``: what the kernel costs without grad_col
-  (neither staged nor read; ones in its place), and without the corner
-  gathers too: the corner table and the stores alone.  Their outputs are
-  wrong by construction; they time the parts.
+* ``no_grad`` and ``table_only``: what the kernel costs without reading
+  grad_col (ones in its place), and without the corner gathers too: the
+  corner table and the stores alone.  Their outputs are wrong by
+  construction; they time the parts.
 
 Each build's col2im_coord is timed per launch at ``chip_smoke.py`` phase
 19's shapes (EDVR's L1 DCN call at the serving window (1, 128, 64, 64) and
@@ -43,17 +41,14 @@ from ..ops import _build, deform_conv
 
 SHAPES = {"serving": (1, 128, 64, 64), "training": (16, 128, 32, 32)}
 DG = 8
-_GV = """          gv[j] = to_f(kStaged ? tile[((c + j) * K + tap) * kStride + q]
-                               : gp[((c + j) * K + tap) * P + p]);"""
+_GV = "gv[j] = to_f(gp[((c + j) * K + tap) * P + p]);"
 _DOTS = """        if (id.x >= 0) d[0] += dot<T, kVec>(xc + c, id.x, gv);
         if (id.y >= 0) d[1] += dot<T, kVec>(xc + c, id.y, gv);
         if (id.z >= 0) d[2] += dot<T, kVec>(xc + c, id.z, gv);
         if (id.w >= 0) d[3] += dot<T, kVec>(xc + c, id.w, gv);"""
-_UNSTAGED = ("constexpr int kMaxStagedBytes = 48 * 1024;", "constexpr int kMaxStagedBytes = 0;")
-_NO_GRAD = (_UNSTAGED, (_GV, "          gv[j] = 1.f + j;"))
+_NO_GRAD = ((_GV, "gv[j] = 1.f + j;"),)
 PRESETS = {
     "rows16": (("  static constexpr int kPos = 32;", "  static constexpr int kPos = 16;"),),
-    "unstaged": (_UNSTAGED,),
     "regs32": (("__launch_bounds__(kCoordThreads)\ndeform_col2im_coord_kernel",
                 "__launch_bounds__(kCoordThreads, 7)\ndeform_col2im_coord_kernel"),),
     "warps6": (("constexpr int kCoordThreads = 9 * 32;", "constexpr int kCoordThreads = 6 * 32;"),),
@@ -94,13 +89,14 @@ def _operands(shape, dtype, dev, gen):
 
 
 def _registers(built) -> str:
-    """ptxas's register and spill lines for the 16-byte staged col2im_coord kernels."""
+    """ptxas's register and spill lines for the 16-byte col2im_coord kernels."""
     lines = built.log.splitlines()
     out = []
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "coord" in line and "Lb1E" in line and "Li1E" not in line:
-            out += [f"{'bf16' if 'bfloat16' in line else 'fp32'}: "
-                    + "; ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3])]
+        if "Compiling entry" in line and "coord" in line and "Li1E" not in line:
+            out += [f"{'bf16' if 'bfloat16' in line else 'fp32'}: " + "; ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                if "registers" in x or "spill" in x)]
     return " | ".join(out)
 
 

@@ -451,8 +451,8 @@ def _dcn_operands(dev, dtype, offsets, B=2, C=16, H=13, W=11, dg=4, seed=0):
     return dcn, g, [cast(x), off.to(dev), cast(mask), cast(w), cast(b)], cot.to(dev)
 
 
-@pytest.mark.parametrize("channels,dg", [(16, 4), (32, 2), (64, 2), (128, 2), (12, 2)],
-                         ids=["4_a_group", "16_a_group", "32_a_group", "64_a_group", "6_a_group"])
+@pytest.mark.parametrize("channels,dg", [(16, 4), (32, 2), (64, 2), (12, 2)],
+                         ids=["4_a_group", "16_a_group", "32_a_group", "6_a_group"])
 @pytest.mark.parametrize("offsets", ["zero", "fractional", "wide", "beyond"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, dg):
@@ -461,10 +461,8 @@ def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, d
     upcast to fp32: the output and the gradients in x, offset, mask, weight
     and bias, each relative to its largest element (bf16: the kernels round
     col and the operands once; the plain version runs in fp32).  Groups of
-    4, 16, 32, 64 and 6 channels take the kernels' 16-byte and scalar
-    paths; at 32 and 64, col2im_coord's block walks two and four chunks of
-    16 channels, reading grad_col from its shared tile at 32 and from
-    device memory at 64 (a tile beyond its 24 KB)."""
+    4, 16, 32 and 6 channels take the kernels' 16-byte and scalar paths;
+    at 32, col2im_coord's block walks two chunks of 16 channels."""
     dcn, g, ops, cot = _dcn_operands(cuda, dtype, offsets, C=channels, dg=dg)
     R = None if g.R < 0 else g.R
     kwargs = dict(padding=1, deformable_groups=g.dg, max_offset=R)
@@ -490,7 +488,7 @@ def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, d
         assert torch.equal(zero, ops[4].view(1, -1, 1, 1).expand_as(zero).to(zero.dtype))
 
 
-@pytest.mark.parametrize("channels,dg", [(32, 2), (64, 2), (128, 2), (12, 2)])
+@pytest.mark.parametrize("channels,dg", [(32, 2), (64, 2), (12, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dcn_col2im_coord_repeats_its_bits(cuda, dtype, channels, dg):
     """col2im_coord sums a group's channels inside one block, without

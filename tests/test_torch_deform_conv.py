@@ -42,7 +42,11 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     deform_conv as dcn,
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+    _build,
     telemetry,
+)
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import (
+    dcn_ab,
 )
 from dcn_oracle import modulated_deform_conv_naive
 
@@ -347,3 +351,33 @@ def test_pack_modules_start_at_zero_offsets():
         if bias is not None:
             want = want + bias.view(1, -1, 1, 1)
         np.testing.assert_allclose(mod(x).detach().numpy(), want.detach().numpy(), atol=TOL_OUT)
+
+
+@pytest.mark.parametrize("memory_format", [torch.contiguous_format, torch.channels_last])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gathers_take_x_channels_last_or_a_transposed_copy(memory_format, dtype):
+    """The im2col and col2im_coord entry points gather from x in (B, H, W,
+    C) of the kernel's dtype: a channels-last fp32 x is used as it is, any
+    other goes to the entry point's transpose with a new buffer."""
+    x = torch.randn(2, 16, 5, 7).to(memory_format=memory_format)
+    x_nchw, x_cl = dcn._channels_last(x, dtype)
+    assert tuple(x_cl.shape) == (2, 5, 7, 16) and x_cl.dtype == dtype and x_cl.is_contiguous()
+    if memory_format == torch.channels_last and dtype == torch.float32:
+        assert x_nchw is None and x_cl.data_ptr() == x.data_ptr()
+    else:
+        assert x_nchw.is_contiguous() and torch.equal(x_nchw, x)
+        assert x_cl.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("variant", list(dcn_ab.PRESETS))
+def test_ab_tool_edits_find_their_text_in_the_kernel_source(variant):
+    """``tools/dcn_ab.py`` builds copies of ``csrc/deform_conv.cu`` with
+    text edits; each variant's text occurs exactly once in the source."""
+    source = (_build.CSRC_DIR / "deform_conv.cu").read_text()
+    for old, _ in dcn_ab.PRESETS[variant]:
+        assert source.count(old) == 1, old
+
+
+def test_build_refuses_an_edit_whose_text_is_missing():
+    with pytest.raises(ValueError, match="is not in"):
+        _build.build("deform_conv.cu", (("no such text", ""),))
