@@ -97,7 +97,7 @@
 //                        (bf16) rows, and 32 positions make 128-byte fp32
 //                        rows a block.  9 warps: at 3x3 taps a block has
 //                        9 * 32 samples, so every pass over them is full.
-//                        Measured against this design (tools/dcn_ab.py):
+//                        Measured against this design (PERF.md section 6):
 //                        16 positions, grad_col staged in shared memory by
 //                        cp.async while the table is built, 6 warps, 32
 //                        registers, wider lanes and a persistent block
@@ -114,6 +114,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -217,35 +219,38 @@ __device__ __forceinline__ Block block_of(const Geom& g) {
 // Step 1 of the three kernels: the corners of the block's samples (tap
 // s / kPos, position p0 + s % kPos), once for all its channels: a kept
 // corner's element offset of channel 0 in a channels-last (B, H, W, C)
-// tensor, or -1; the mask (1 without one); where given, the corner weights
-// (im2col, col2im) or the fractions (fy, fx) (col2im_coord).
-template <typename T, int kPos>
+// tensor, or -1; the mask (1 without one); and a sample's four corner weights
+// (W float4: im2col, col2im) or its fractions (fy, fx) (W float2:
+// col2im_coord).  The stride kStride (the block's thread count) and the
+// choice W are compile-time: with blockDim.x and a null test in their place
+// bf16 im2col took more registers and ran 14-26% longer.
+template <typename T, int kPos, int kStride, typename W>
 __device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* offset,
-                                             const T* mask, int4* corner, float4* weight,
-                                             float* mk, float2* frac = nullptr) {
+                                             const T* mask, int4* corner, W* weight, float* mk) {
+  static_assert(std::is_same_v<W, float4> || std::is_same_v<W, float2>, "weights or fractions");
   const int K = g.kh * g.kw, P = g.Ho * g.Wo;
   const float* op = offset + (k.b * g.dg + k.grp) * 2 * K * P;
   const T* mp = mask ? mask + (k.b * g.dg + k.grp) * K * P : nullptr;
-  for (int s = threadIdx.x; s < K * kPos; s += blockDim.x) {
+  for (int s = threadIdx.x; s < K * kPos; s += kStride) {
     const int tap = s / kPos, p = k.p0 + s % kPos;
     int e[4] = {-1, -1, -1, -1};
-    float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-    float m = 0.f, fy = 0.f, fx = 0.f;
+    W w{};
+    float m = 0.f;
     if (p < P) {
       const Corners cr =
           corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p], op[(2 * tap + 1) * P + p]);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (cr.ok[c]) e[c] = ((k.b * g.H + cr.y0 + (c >> 1)) * g.W + cr.x0 + (c & 1)) * g.C;
-      w = make_float4(cr.w[0], cr.w[1], cr.w[2], cr.w[3]);
+      if constexpr (std::is_same_v<W, float4>)
+        w = make_float4(cr.w[0], cr.w[1], cr.w[2], cr.w[3]);
+      else
+        w = make_float2(cr.fy, cr.fx);
       m = mp ? to_f(mp[tap * P + p]) : 1.f;
-      fy = cr.fy;
-      fx = cr.fx;
     }
     corner[s] = make_int4(e[0], e[1], e[2], e[3]);
-    if (weight) weight[s] = w;
+    weight[s] = w;
     mk[s] = m;
-    if (frac) frac[s] = make_float2(fy, fx);
   }
 }
 
@@ -285,7 +290,7 @@ deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  corner_table<T, kPos, kThreads>(g, k, offset, mask, corner, weight, mk);
   __syncthreads();
 
   // 2. kLanes / kVec lanes a sample, kVec channels a lane, one 16-byte load a
@@ -351,7 +356,7 @@ deform_col2im_kernel(const T* __restrict__ grad_col, const float* __restrict__ o
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos>(g, k, offset, mask, corner, weight, mk);
+  corner_table<T, kPos, kThreads>(g, k, offset, mask, corner, weight, mk);
   __syncthreads();
 
   // 2. 4 lanes a sample, 4 channels a lane: grad * mask (grad_col loads fill
@@ -495,7 +500,7 @@ deform_col2im_coord_kernel(const T* __restrict__ grad_col, const T* __restrict__
   int4* corner = reinterpret_cast<int4*>(smem);          // [n]
   float2* frac = reinterpret_cast<float2*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(frac + n);        // [n]
-  corner_table<T, kPos>(g, k, offset, mask, corner, nullptr, mk, frac);
+  corner_table<T, kPos, kCoordThreads>(g, k, offset, mask, corner, frac, mk);
   __syncthreads();
 
   // 2. each lane sums its channels' grad_col * x at each kept corner; the

@@ -50,24 +50,14 @@ def find_nvcc() -> str:
     )
 
 
-def build(source_name: str, edits: tuple = ()) -> Built:
-    """Compile ``csrc/<source_name>`` (if not built yet) and load it.
-    ``edits``, pairs of (old, new) text, are applied to the source first:
-    the variants of an A/B tool, built beside the source's own library."""
+def build(source_name: str) -> Built:
+    """Compile ``csrc/<source_name>`` (if not built yet) and load it."""
     source = CSRC_DIR / source_name
-    text = source.read_bytes()
-    for old, new in edits:
-        if old.encode() not in text:
-            raise ValueError(f"{old!r} is not in {source}")
-        text = text.replace(old.encode(), new.encode())
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        if edits:
-            source = BUILD_DIR / f"{source.stem}-{digest}{source.suffix}"
-            source.write_bytes(text)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         t0 = time.perf_counter()

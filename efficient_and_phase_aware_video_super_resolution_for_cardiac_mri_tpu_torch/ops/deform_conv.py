@@ -260,8 +260,10 @@ def deform_conv2d_reference(x, offset, weight, mask=None, bias=None, stride=1, p
 # ------------------------------------------------------------------ kernels
 
 
-def bind(built: _build.Built) -> _build.Built:
-    """Declare the argument types of a loaded kernel library's entry points."""
+@functools.lru_cache(maxsize=None)
+def build() -> _build.Built:
+    """Compile (first call only) and load the kernel library."""
+    built = _build.build("deform_conv.cu")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     args = {"deform_im2col": [ptr, i32, ptr, ptr, ptr, ptr], "deform_col2im": [ptr] * 5,
             "deform_col2im_coord": [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]}
@@ -271,12 +273,6 @@ def bind(built: _build.Built) -> _build.Built:
             f.argtypes = [*operands, ptr, ptr]  # + the geometry, the stream
             f.restype = ctypes.c_int
     return built
-
-
-@functools.lru_cache(maxsize=None)
-def build() -> _build.Built:
-    """Compile (first call only) and load the kernel library."""
-    return bind(_build.build("deform_conv.cu"))
 
 
 def _check(g: Geometry, dev: torch.device, dtype: torch.dtype, **operands) -> None:

@@ -42,11 +42,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     deform_conv as dcn,
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
-    _build,
     telemetry,
-)
-from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import (
-    dcn_ab,
 )
 from dcn_oracle import modulated_deform_conv_naive
 
@@ -75,6 +71,8 @@ def _case(seed, stride=1, pad=1, dil=1, dg=2, with_mask=True, offsets="fractiona
         off = np.zeros(shape_off)
     elif offsets == "outside":  # most samples land outside the image
         off = rng.uniform(-9.0, 9.0, shape_off)
+    elif offsets == "edvr":  # EDVR-like: N(0, 0.5 px) clipped to +-1.5 px
+        off = np.clip(rng.normal(0.0, 0.5, shape_off), -1.5, 1.5)
     elif offsets == "beyond":  # |o| in (R, R + 1.5): partly or wholly out of the window
         off = rng.uniform(2.0, 3.5, shape_off) * rng.choice([-1.0, 1.0], shape_off)
     else:
@@ -149,6 +147,11 @@ GATHER_CASES = {
     # the widths the card's col2im_coord block walks
     "s1p1d1-dg2-c32": dict(dg=2, C=32),
     "s1p1d1-dg2-c64": dict(dg=2, C=64),
+    # the offsets a trained EDVR draws, as chip_smoke.py phase 19 holds the
+    # kernels at them; dg 8 of 16 channels is EDVR's own group layout
+    "edvr-offsets-dg2-c32": dict(dg=2, C=32, offsets="edvr"),
+    "edvr-offsets-dg2-c64-nomask": dict(dg=2, C=64, offsets="edvr", with_mask=False),
+    "edvr-offsets-dg8-c128": dict(dg=8, C=128, offsets="edvr"),
 }
 
 
@@ -166,6 +169,8 @@ WINDOW_CASES = {
     "pad0-dg2": dict(pad=0, offsets="beyond"),
     "in-window-dg2-c32": dict(dg=2, C=32, offsets="fractional"),
     "in-window-dg2-c64": dict(dg=2, C=64, offsets="fractional"),
+    "edvr-offsets-dg2-c32": dict(dg=2, C=32, offsets="edvr"),
+    "edvr-offsets-dg8-c128": dict(dg=8, C=128, offsets="edvr"),
 }
 
 
@@ -354,30 +359,18 @@ def test_pack_modules_start_at_zero_offsets():
 
 
 @pytest.mark.parametrize("memory_format", [torch.contiguous_format, torch.channels_last])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gathers_take_x_channels_last_or_a_transposed_copy(memory_format, dtype):
+def test_gathers_take_x_channels_last_or_a_transposed_copy(memory_format, x_dtype, dtype):
     """The im2col and col2im_coord entry points gather from x in (B, H, W,
-    C) of the kernel's dtype: a channels-last fp32 x is used as it is, any
-    other goes to the entry point's transpose with a new buffer."""
-    x = torch.randn(2, 16, 5, 7).to(memory_format=memory_format)
+    C) of the kernel's dtype: a channels-last x of that dtype is used as it
+    is, any other goes to the entry point's transpose with a new buffer."""
+    x = torch.randn(2, 16, 5, 7).to(x_dtype).to(memory_format=memory_format)
     x_nchw, x_cl = dcn._channels_last(x, dtype)
     assert tuple(x_cl.shape) == (2, 5, 7, 16) and x_cl.dtype == dtype and x_cl.is_contiguous()
-    if memory_format == torch.channels_last and dtype == torch.float32:
+    if memory_format == torch.channels_last and x_dtype == dtype:
         assert x_nchw is None and x_cl.data_ptr() == x.data_ptr()
     else:
         assert x_nchw.is_contiguous() and torch.equal(x_nchw, x)
         assert x_cl.data_ptr() != x.data_ptr()
 
-
-@pytest.mark.parametrize("variant", list(dcn_ab.PRESETS))
-def test_ab_tool_edits_find_their_text_in_the_kernel_source(variant):
-    """``tools/dcn_ab.py`` builds copies of ``csrc/deform_conv.cu`` with
-    text edits; each variant's text occurs exactly once in the source."""
-    source = (_build.CSRC_DIR / "deform_conv.cu").read_text()
-    for old, _ in dcn_ab.PRESETS[variant]:
-        assert source.count(old) == 1, old
-
-
-def test_build_refuses_an_edit_whose_text_is_missing():
-    with pytest.raises(ValueError, match="is not in"):
-        _build.build("deform_conv.cu", (("no such text", ""),))
