@@ -176,10 +176,40 @@ non-zero and no result is printed:
     versions (loss and every gradient); ms a step, LR frames/s, peak memory
     and the bound.
 
+22. serving daemon, RefineNet: ``python -m <torch pkg>.tools.serve``'s
+    ``serve`` on ``cuda:0`` with ``configs/test/refine_net/exp1_x4.yaml``'s
+    net and phase 4's seeded weights (``--ckpt``) over a fresh LR
+    ``videos/`` tree (2 patients × 2 slices × 30 frames of 64×64, one
+    (H, W, 1, T) file a slice, plus one file stacking patient001's slices as
+    (H, W, 2, T)), ``--pos-code`` holding patient001's code only, so
+    patient002's is generated: exactly 756 gate launches a clip, each served
+    slice within 1 gray level of the same clip through the net's forward on
+    the card, a second run serving 0 volumes; then timed fp32 and
+    ``--dtype bfloat16`` runs (ms a volume, frames/s).
+23. serving daemon, EDVR: ``configs/test/edvr_net/exp1_x4.yaml``'s net in
+    the window workload on one slice of 30 frames (30 windows of 5 in one
+    forward): exactly 20 im2col launches, the output within 1 gray level of
+    the same windows' direct forward on the card; timed.
+24. the predictor's double-buffered loop against ``EVSR_EAGER_EVAL=1`` on
+    phase 10's bf16 RefineNet config and phase 20's EDVR config, both with
+    ``export_nifti``: equal Test logs, byte-equal NIfTI files; frames/s and
+    the device's busy share (traced kernel time over the untraced wall of a
+    whole ``predict``) of each mode, beside each other.
+25. one epoch of phase 7's training (a 16-feature, one-stage net) with
+    ``EVSR_PROFILE_DIR`` set: a ``torch.profiler`` trace holding device
+    kernels for ``train_epoch_1`` and ``valid_epoch_1``.
+
+Phase 4 also checks the data path's native NIfTI reader
+(``utils/native_io.py``, built by g++ at first use): it is enabled, it
+equals the Python reader on the tree's test files, and the eval's dataset
+reads through it.
+
 Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
-record; the last is ``{"ok": true, "device": {...}}``.  Needs only torch
-and numpy: no PyYAML, no imageio, nothing of JAX.
+record; the last is ``{"ok": true, "device": {...}}``.  Needs torch, numpy
+and PyYAML (the daemon reads its net from a config file; phases 22–23 write
+theirs as JSON), a C++ compiler with zlib for the native reader; no
+imageio, nothing of JAX.
 """
 from __future__ import annotations
 
@@ -2070,6 +2100,401 @@ def edvr_training(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, dev, r
     return results
 
 
+# ------------------------------------------------------ 22-25 serving daemon
+SERVE_SPLITS = {"test": (2, SLICES)}  # 2 patients x 2 slices, one (H, W, 1, T) file a slice
+SERVE_CLIPS = 2 * SLICES + SLICES  # + one file stacking patient001's slices as (H, W, 2, T)
+TOL_SERVE_GRAY = 1  # a served frame against the same clip's direct forward, gray levels
+PROFILE_NET = {**NET_KWARGS, "num_features": [16], "num_stages": 1}  # phase 25's cheap net
+
+
+class _InfoRecords(logging.Handler):
+    """Keeps the INFO (and higher) records of one logger while attached."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.records, self.logger = [], logging.getLogger(name)
+
+    def __enter__(self):
+        self.level_before = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level_before)
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def native_reader_check(tree: dict) -> dict:
+    """Phase 4's data path: the native NIfTI reader is built, enabled, and
+    gives the Python reader's arrays on every file of the tree's test
+    split (both trees)."""
+    import numpy as np
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import (
+        native_io,
+        nifti,
+    )
+
+    if not native_io.enabled():
+        raise AssertionError("the native NIfTI reader is not built or not enabled")
+    paths = sorted((Path(tree["videos"]) / "test").rglob("*.nii.gz")) + sorted(
+        (Path(tree["imgs"]) / "test").rglob("*.nii.gz"))[:8]
+    t0 = time.perf_counter()
+    native = native_io.load_volumes(paths)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [np.asarray(nifti.load(q).get_data(), np.float32) for q in paths]
+    t_python = time.perf_counter() - t0
+    for q, a, b in zip(paths, native, python):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"native reader disagrees with the Python reader on {q}")
+    log("main", f"native NIfTI reader {native_io.library_path().name}: {len(paths)} files equal "
+                f"to the Python reader's ({t_native * 1e3:.1f} ms threaded vs "
+                f"{t_python * 1e3:.1f} ms)")
+    return {"files": len(paths), "native_ms": t_native * 1e3, "python_ms": t_python * 1e3}
+
+
+class count_native_reads:
+    """Counts the datasets' reads through the native reader while open."""
+
+    def __enter__(self):
+        from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import (
+            native_io,
+        )
+
+        self.module, self.original, self.count = native_io, native_io.load_volume, 0
+
+        def counted(path):
+            self.count += 1
+            return self.original(path)
+
+        native_io.load_volume = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.load_volume = self.original
+
+
+def _serve(serve, argv) -> tuple[int, float, list]:
+    """The daemon once, as its CLI runs it (without its logging setup) →
+    (volumes served, seconds from the first volume's load to the last
+    write, which leaves out the server's start, its log lines)."""
+    import re
+
+    with _InfoRecords("evsr.serve") as rec:
+        t0 = time.perf_counter()
+        n = serve.serve(serve._parse_args(argv))
+        wall = time.perf_counter() - t0
+    busy = [float(m.group(1)) for m in (re.search(r"in ([0-9.]+)s busy", x) for x in rec.records)
+            if m]
+    return n, busy[0] if busy else wall, rec.records
+
+
+def _served_slices(nifti, path: Path):
+    """(S, T, H, W) uint8 of a served (H, W, S, T) float32 volume."""
+    import numpy as np
+
+    sr = nifti.load(path).get_data()
+    if sr.dtype != np.float32 or not np.array_equal(sr, np.round(sr)):
+        raise AssertionError(f"{path}: served values are not float32 integers")
+    return np.transpose(sr, (2, 3, 0, 1)).astype(np.uint8)
+
+
+def serve_refine(lstm_gates, tmp: Path, dev, net, card_line) -> dict:
+    """Phase 22: the daemon serves RefineNet x4 at full width on a fresh LR
+    tree; each served slice against the same clip's direct forward."""
+    import pickle
+    import re
+
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import (
+        common,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import (
+        serve,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.synthetic_tree import (
+        write_acdc_tree,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import (
+        nifti,
+    )
+
+    tree = write_acdc_tree(tmp / "serve_tree", SERVE_SPLITS, cycle=CYCLE, hr=HR, scale=SCALE, seed=2)
+    lr_dir = Path(tree["videos"]) / "test" / "LR" / f"X{SCALE}"
+    stack = [nifti.load(lr_dir / "patient001" / f"patient001_2d+1d_sequence{s:0>2d}.nii.gz").get_data()
+             for s in range(1, SLICES + 1)]
+    nifti.save(np.concatenate(stack, axis=2), lr_dir / "stacked" / "patient001_2d+1d_stack.nii.gz")
+    with open(tree["pos_code"], "rb") as f:
+        codes = pickle.load(f)
+    pos_pkl = tmp / "serve_pos_code.pkl"  # patient001's code; patient002's is generated
+    with open(pos_pkl, "wb") as f:
+        pickle.dump({"patient001": codes["patient001"]}, f)
+    cfg = tmp / "serve_refine.json"  # the YAML loader reads JSON, a YAML subset
+    cfg.write_text(json.dumps({"net": {"name": "RefineNet", "kwargs": NET_KWARGS}}))
+    ckpt = tmp / "model.pth"
+    out = tmp / "served_refine"
+    argv = [str(cfg), "--in", str(lr_dir), "--out", str(out), "--ckpt", str(ckpt),
+            "--pos-code", str(pos_pkl), "--device", str(dev)]
+
+    reset_launches(lstm_gates)
+    n, wall, lines = _serve(serve, argv)
+    counts = launches(lstm_gates)
+    want = (LAUNCHES_PER_CLIP * SERVE_CLIPS, 0, 0, 0)
+    log("serve", f"RefineNet x4: served {n} volumes ({SERVE_CLIPS} clips of {CYCLE} frames, LR "
+                 f"{HR // SCALE}x{HR // SCALE}) in {wall:.3f} s; gate launches (forward, backward, "
+                 f"bf16 forward, bf16 backward) {counts}, expected {want} ({LAUNCHES_PER_CLIP} a clip)")
+    if n != 2 * SLICES + 1 or counts != want:
+        raise AssertionError(f"serving RefineNet: {n} volumes, launches {counts}")
+    generated = [m for m in lines if "generating" in m]
+    if len(generated) != SLICES or not all("patient002" in m for m in generated):
+        raise AssertionError(f"expected patient002's code generated per slice: {generated}")
+
+    # each served slice against the same clip through the net on the card
+    mean, std = serve._parse_stats("acdc")
+    worst, equal, total = 0, 0, 0
+    for src in sorted(lr_dir.rglob("*.nii.gz")):
+        vol = np.asarray(nifti.load(src).get_data(), np.float32)
+        served = _served_slices(nifti, out / src.relative_to(lr_dir))
+        if served.shape != (vol.shape[2], CYCLE, HR, HR):
+            raise AssertionError(f"{src.name}: served shape {served.shape}")
+        patient = src.name.split("_")[0]
+        for s in range(vol.shape[2]):
+            raw = vol[:, :, s:s + 1, :]
+            core = (np.transpose(raw, (3, 0, 1, 2)) - mean) / std
+            clip = np.concatenate([core[-U:], core, core[:U]])[None].astype(np.float32)
+            code = (np.asarray(codes[patient], np.float32) if patient == "patient001"
+                    else serve.generate_phase_code(raw))
+            pos = np.concatenate([code[-U:], code, code[:U]])[None, :, None].astype(np.float32)
+            with torch.inference_mode():
+                direct = common.denorm_uint8(
+                    net(torch.from_numpy(clip).to(dev), torch.from_numpy(pos).to(dev))[-1],
+                    mean, std).to(torch.uint8).cpu().numpy()[0, ..., 0]
+            diff = np.abs(direct.astype(np.int16) - served[s])
+            worst = max(worst, int(diff.max()))
+            equal += int((diff == 0).sum())
+            total += diff.size
+    log("serve", f"served slices vs the direct forward on the card: max {worst} gray levels "
+                 f"(tol {TOL_SERVE_GRAY}), {equal / total:.6%} of voxels equal")
+    if worst > TOL_SERVE_GRAY:
+        raise AssertionError(f"a served slice is {worst} gray levels off the direct forward")
+
+    again, _, _ = _serve(serve, argv)
+    log("serve", f"second run: served {again} volumes (expected 0)")
+    if again != 0:
+        raise AssertionError(f"the second run served {again} volumes")
+
+    # timed runs into fresh directories: fp32, then --dtype bfloat16
+    frames = CYCLE * SERVE_CLIPS
+    times = {}
+    for key, extra in (("fp32", []), ("bf16", ["--dtype", "bfloat16"])):
+        reset_launches(lstm_gates)
+        argv_t = [*argv[:4], str(tmp / f"served_refine_{key}"), *argv[5:], *extra]
+        n_t, wall_t, lines_t = _serve(serve, argv_t)
+        counts_t = launches(lstm_gates)
+        want_t = (want if key == "fp32" else
+                  (LAUNCHES_PER_CLIP * SERVE_CLIPS, 0, LAUNCHES_PER_CLIP * SERVE_CLIPS, 0))
+        if n_t != 2 * SLICES + 1 or counts_t != want_t:
+            raise AssertionError(f"timed {key} serving: {n_t} volumes, launches {counts_t}")
+        per_file = [float(m.group(1)) * 1e3 for m in
+                    (re.search(r"frames in ([0-9.]+)s", x) for x in lines_t) if m]
+        times[key] = {"wall_s": wall_t, "ms_per_volume": wall_t * 1e3 / n_t,
+                      "frames_per_sec": frames / wall_t, "volume_latency_ms": per_file,
+                      "launches": counts_t}
+        log("serve", f"RefineNet x4 {key}: {n_t} volumes ({frames} frames) in {wall_t:.3f} s, "
+                     f"{wall_t * 1e3 / n_t:.1f} ms a volume, {frames / wall_t:.2f} frames/s "
+                     f"(server start excluded); launch-to-write latency a volume "
+                     f"{', '.join(f'{x:.0f}' for x in per_file)} ms; gate launches {counts_t}")
+    bf16_gap = 0
+    for src in sorted(lr_dir.rglob("*.nii.gz")):
+        rel = src.relative_to(lr_dir)
+        a = _served_slices(nifti, tmp / "served_refine_fp32" / rel).astype(np.int16)
+        b = _served_slices(nifti, tmp / "served_refine_bf16" / rel).astype(np.int16)
+        bf16_gap = max(bf16_gap, int(np.abs(a - b).max()))
+    log("serve", f"bf16 against fp32 serving: max {bf16_gap} gray levels")
+    result = {"volumes": n, "clips": SERVE_CLIPS, "launches": counts[0], "max_gray_vs_direct": worst,
+              "equal_share": equal / total, "bf16_launches": times["bf16"]["launches"][2],
+              "bf16_max_gray_vs_fp32": bf16_gap, "times": times, "card": card_line}
+    print(json.dumps({"serve_refine": result}), flush=True)
+    return result
+
+
+def serve_edvr(dcn, tree: dict, tmp: Path, dev, card_line) -> dict:
+    """Phase 23: the daemon serves EDVR x4 at full width in the window
+    workload: one slice's 30 windows of 5 frames as one batched forward."""
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import (
+        common,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import (
+        serve,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import (
+        nifti,
+    )
+
+    net = seeded_edvr(EDVR_NET)
+    ckpt = tmp / "EDVRNet_serve.pth"
+    torch.save({"net": net.state_dict()}, ckpt)
+    net.to(dev).eval()
+    cfg = tmp / "serve_edvr.json"
+    cfg.write_text(json.dumps({"net": {"name": "EDVRNet", "kwargs": EDVR_NET}}))
+    lr_dir = Path(tree["videos"]) / "test" / "LR" / f"X{SCALE}"
+    name = "patient001_2d+1d_sequence01.nii.gz"
+    out = tmp / "served_edvr"
+    argv = [str(cfg), "--in", str(lr_dir), "--out", str(out), "--ckpt", str(ckpt),
+            "--glob", f"**/{name}", "--device", str(dev)]
+    dcn.reset_launches()
+    n, wall, lines = _serve(serve, argv)
+    counts = dcn_launches(dcn)
+    want = (DCN_PER_FORWARD, 0, 0, 0, 0, 0)
+    log("serve", f"EDVR x4 window workload: served {n} volume ({CYCLE} windows of {EDVR_T} frames "
+                 f"in one forward) in {wall:.3f} s, {CYCLE / wall:.2f} frames/s (server start "
+                 f"included); DCN launches {counts}, expected {want}")
+    if n != 1 or counts != want:
+        raise AssertionError(f"serving EDVR: {n} volumes, DCN launches {counts}")
+    mean, std = serve._parse_stats("acdc")
+    vol = np.asarray(nifti.load(lr_dir / "patient001" / name).get_data(), np.float32)
+    core = (np.transpose(vol[:, :, :1, :], (3, 0, 1, 2)) - mean) / std
+    half = (EDVR_T - 1) // 2
+    windows = np.stack([core[np.arange(t - half, t + EDVR_T - half) % CYCLE] for t in range(CYCLE)])
+    with torch.inference_mode():
+        direct = common.denorm_uint8(net(torch.from_numpy(windows.astype(np.float32)).to(dev)),
+                                     mean, std).to(torch.uint8).cpu().numpy()[..., 0]
+    served = _served_slices(nifti, out / "patient001" / name)[0]
+    diff = np.abs(direct.astype(np.int16) - served)
+    log("serve", f"EDVR served windows vs the direct forward on the card: max {int(diff.max())} gray "
+                 f"levels (tol {TOL_SERVE_GRAY}), {(diff == 0).mean():.6%} of voxels equal")
+    if served.shape != (CYCLE, HR, HR) or diff.max() > TOL_SERVE_GRAY:
+        raise AssertionError(f"EDVR serving: shape {served.shape}, max gray diff {diff.max()}")
+    # timed: the same volume into a fresh directory
+    argv_t = [*argv[:4], str(tmp / "served_edvr_timed"), *argv[5:]]
+    n_t, wall_t, _ = _serve(serve, argv_t)
+    result = {"launches": counts[0], "max_gray_vs_direct": int(diff.max()),
+              "equal_share": float((diff == 0).mean()), "ms_per_volume": wall_t * 1e3,
+              "frames_per_sec": CYCLE / wall_t, "card": card_line}
+    log("serve", f"EDVR x4 timed: {wall_t * 1e3:.1f} ms a volume of {CYCLE} frames, "
+                 f"{CYCLE / wall_t:.2f} frames/s (server start excluded)")
+    print(json.dumps({"serve_edvr": result}), flush=True)
+    del net
+    return result
+
+
+def eval_loop_ab(port_main, Cfg, lstm_gates, dcn, tree: dict, tmp: Path, card_line) -> dict:
+    """Phase 24: the predictor's double-buffered loop against
+    ``EVSR_EAGER_EVAL=1`` on phase 10's bf16 RefineNet clips and phase 20's
+    EDVR windows: equal Test logs and byte-equal NIfTI exports, then each
+    mode's frames/s and the device's busy share over a whole ``predict``."""
+    import os
+
+    import torch
+
+    ckpt_edvr = tmp / "EDVRNet_serve.pth"
+    configs = {
+        "refine_bf16": lambda d: {**eval_config(tree, tmp / "model.pth", d),
+                                  "predictor": {"name": "AcdcVSRRefineNetPredictor", "kwargs": {
+                                      "device": "cuda:0", "saved_dir": str(d), "exported": False,
+                                      "compute_dtype": "bfloat16", "t_bucket": T_BUCKET,
+                                      "export_nifti": True}}},
+        "edvr": lambda d: misr_eval_config(tree, "EDVRNet", EDVR_NET, ckpt_edvr, d,
+                                           num_frames=EDVR_T, loss=EDVR_LOSS, export_nifti=True),
+    }
+    results, counts = {}, {}
+    for key, make in configs.items():
+        preds, runs = {}, {}
+        reset_launches(lstm_gates)
+        dcn.reset_launches()
+        for mode in ("eager", "double", "eager", "double"):
+            if mode == "eager":
+                os.environ["EVSR_EAGER_EVAL"] = "1"
+            try:
+                if mode not in preds:  # first run: through main, exports compared
+                    preds[mode] = port_main.test_from_config(Cfg(make(tmp / f"ab_{key}_{mode}")))
+                    continue
+                pred = preds[mode]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred.predict()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    pred.predict()
+                    torch.cuda.synchronize()
+                kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                runs[mode] = {"frames_per_sec": pred.throughput["frames"] / wall,
+                              "wall_ms": wall * 1e3, "kernel_ms": kernel_ms,
+                              "busy": kernel_ms / (wall * 1e3)}
+            finally:
+                os.environ.pop("EVSR_EAGER_EVAL", None)
+        counts[key] = (launches(lstm_gates), dcn_launches(dcn))
+        a, b = preds["eager"], preds["double"]
+        if a.log != b.log:
+            raise AssertionError(f"{key}: eager and double-buffered Test logs differ: {a.log} vs {b.log}")
+        files = {m: sorted(q.relative_to(tmp / f"ab_{key}_{m}")
+                           for q in (tmp / f"ab_{key}_{m}" / "nifti").rglob("*.nii.gz"))
+                 for m in ("eager", "double")}
+        if not files["eager"] or files["eager"] != files["double"] or any(
+                (tmp / f"ab_{key}_eager" / f).read_bytes() != (tmp / f"ab_{key}_double" / f).read_bytes()
+                for f in files["eager"]):
+            raise AssertionError(f"{key}: the NIfTI exports differ between the modes: {files}")
+        if len(a.item_seconds) != len(b.item_seconds):
+            raise AssertionError(f"{key}: item_seconds {len(a.item_seconds)} vs {len(b.item_seconds)}")
+        log("eval loop", f"{key}: Test logs equal, {len(files['eager'])} NIfTI files byte-equal; "
+                         f"frames/s double-buffered {runs['double']['frames_per_sec']:.2f} vs eager "
+                         f"{runs['eager']['frames_per_sec']:.2f}; device busy over a whole predict "
+                         f"{runs['double']['busy']:.1%} vs {runs['eager']['busy']:.1%} "
+                         f"({runs['double']['kernel_ms']:.1f} / {runs['double']['wall_ms']:.1f} ms "
+                         f"vs {runs['eager']['kernel_ms']:.1f} / {runs['eager']['wall_ms']:.1f} ms)")
+        results[key] = {"log": a.log, "nifti_files": len(files["eager"]), **runs}
+        del preds, a, b
+    print(json.dumps({"eval_loop_ab": results, "card": card_line}), flush=True)
+    return {"results": results, "counts": counts}
+
+
+def profiled_training(port_main, Cfg, tree: dict, tmp: Path) -> dict:
+    """Phase 25: one epoch of phase 7's training (a 16-feature, one-stage
+    net) with ``EVSR_PROFILE_DIR`` set: a torch.profiler trace, with
+    device kernels, for the train and the valid epoch."""
+    import os
+
+    cfg = train_config(tree, tmp / "train_profiled")
+    cfg["net"] = {"name": "RefineNet", "kwargs": PROFILE_NET}
+    cfg["trainer"]["kwargs"]["num_epochs"] = 1
+    prof_dir = tmp / "profile"
+    os.environ["EVSR_PROFILE_DIR"] = str(prof_dir)
+    try:
+        t0 = time.perf_counter()
+        trainer = port_main.train_from_config(Cfg(cfg))
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("EVSR_PROFILE_DIR", None)
+    found = {}
+    for label in ("train_epoch_1", "valid_epoch_1"):
+        traces = sorted((prof_dir / label).glob("*.json"))
+        if not traces:
+            raise AssertionError(f"no trace under {prof_dir / label}")
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        found[label] = {"bytes": traces[0].stat().st_size, "events": len(events), "kernels": kernels}
+        if not kernels:
+            raise AssertionError(f"{traces[0]} holds no device kernel")
+    if not all(math.isfinite(v) for h in trainer.history["train"] + trainer.history["valid"]
+               for v in h.values()):
+        raise AssertionError(f"profiled training logs non-finite: {trainer.history}")
+    log("profile", f"one epoch with EVSR_PROFILE_DIR in {wall:.1f} s: {found}")
+    return found
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -2205,12 +2630,17 @@ def main() -> int:
         net(clip, pos)
     torch.cuda.synchronize()
 
+    native_reads = native_reader_check(tree)
     cfg = Cfg(eval_config(tree, ckpt, tmp / "test"))
     reset_launches(lstm_gates)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    predictor = port_main.test_from_config(cfg)
+    with count_native_reads() as reads:
+        predictor = port_main.test_from_config(cfg)
     wall = time.perf_counter() - t0
+    log("main", f"the eval's dataset read {reads.count} volumes through the native reader")
+    if reads.count != 2 * SLICES:  # each test slice's LR and HR file, once
+        raise AssertionError(f"the eval read {reads.count} volumes through the native reader")
     eval_launches = launches(lstm_gates)
     n_eval = eval_launches[0]
     log("main", f"Test log: {predictor.log}")
@@ -2653,6 +3083,15 @@ def main() -> int:
                              card_line)
     edvr_train = edvr_training(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, dev, rates,
                                card_line, bf16_peak)
+
+    # ----------------------------------------------- 22-25 the serving daemon
+    net.to(dev).eval()
+    served = serve_refine(lstm_gates, tmp, dev, net, card_line)
+    served_edvr = serve_edvr(deform_conv, tree, tmp, dev, card_line)
+    ab = eval_loop_ab(port_main, Cfg, lstm_gates, deform_conv, tree, tmp, card_line)
+    profiled = profiled_training(port_main, Cfg, tree, tmp)
+    print(json.dumps({"serving_daemon": {"native_reader": native_reads, "profiled_train": profiled,
+                                         "card": card_line}}), flush=True)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
@@ -2661,11 +3100,16 @@ def main() -> int:
     fwd_paths = {"eval": n_eval, "train": train_fwd, "eval_bf16": n_eval16,
                  "train_bf16_remat": train16_launches[2], "eval_tiled": n_tiled,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
-                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0}
+                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0,
+                 "serve": served["launches"], "serve_bf16": served["bf16_launches"],
+                 "eval_loop_ab_refine_bf16": ab["counts"]["refine_bf16"][0][0],
+                 "serve_edvr": 0, "eval_loop_ab_edvr": ab["counts"]["edvr"][0][0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
-                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0}
+                 "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0,
+                 "serve": 0, "serve_bf16": 0, "eval_loop_ab_refine_bf16": 0, "serve_edvr": 0,
+                 "eval_loop_ab_edvr": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
@@ -2743,7 +3187,9 @@ def main() -> int:
         paths = {"edvr_eval": edvr_eval["EDVRNet"]["dcn_launches"][index[k]],
                  "edvr_eval_bf16": edvr_eval["EDVRNet_tpu"]["dcn_launches"][index[k]],
                  "edvr_train": edvr_train["EDVRNet"]["dcn_launches"][index[k]],
-                 "edvr_train_bf16": edvr_train["EDVRNet_tpu"]["dcn_launches"][index[k]]}
+                 "edvr_train_bf16": edvr_train["EDVRNet_tpu"]["dcn_launches"][index[k]],
+                 "serve_edvr": served_edvr["launches"] if k == "deform_im2col" else 0,
+                 "eval_loop_ab_edvr": ab["counts"]["edvr"][1][index[k]]}
         serve32, serve16 = (dcn_res["times"][f"serving {d}"] for d in (f32, b16))
         train32, train16 = (dcn_res["times"][f"training {d}"] for d in (f32, b16))
         record["kernels"].append({

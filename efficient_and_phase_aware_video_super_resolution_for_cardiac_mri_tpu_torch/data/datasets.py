@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import DATASETS
-from ..utils import nifti
+from ..utils import native_io, nifti
 from .transforms import Normalize, compose
 
 
@@ -55,12 +55,22 @@ class _VolumeCache:
             if key in self._cache:
                 self._cache.move_to_end(key)
                 return self._cache[key]
-        data = np.asarray(nifti.load(key[0]).get_data())
+        data = _read_volume(key[0])
         with self._lock:
             self._cache[key] = data
             if len(self._cache) > self.capacity:
                 self._cache.popitem(last=False)
         return data
+
+
+def _read_volume(path) -> np.ndarray:
+    """A cache miss: the native threaded decoder when it is built
+    (``utils/native_io.py``; float32, as the JAX package's datasets read),
+    else the Python reader; ``EVSR_NO_NATIVE_IO=1`` switches the native one
+    off."""
+    if native_io.enabled():
+        return native_io.load_volume(path)
+    return np.asarray(nifti.load(path).get_data())
 
 
 _VOLUMES = _VolumeCache()

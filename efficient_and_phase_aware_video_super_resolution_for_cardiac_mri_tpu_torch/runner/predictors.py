@@ -9,6 +9,15 @@ CSV / GIF / PNG export, and the log weighted by sequence length.
 
 The forward runs eagerly under ``torch.inference_mode()`` on the predictor's
 device; each item's scores and display frames come back to the host once.
+The loop is double-buffered as the JAX package's is
+(``utils/dispatch.DoubleBuffer``): item k+1's batch is copied to the card
+and its forward launched before item k's results are fetched, logged and
+exported, in item order.  The inputs go up from pinned memory and the
+results come down into pinned memory behind an event, neither of which
+waits for the stream, so the host prepares item k+1 while the card still
+computes item k.  ``EVSR_EAGER_EVAL=1`` fetches each item before the next
+is launched; the logs, files, telemetry lines and ``item_seconds`` are the
+same in both orders.
 The JAX package's serving knobs, each computing what it computes there:
 
 * ``compute_dtype`` (``bfloat16``): the forward on bf16 copies of the
@@ -30,14 +39,21 @@ The JAX package's serving knobs, each computing what it computes there:
   ``telemetry_warn_frac`` logs a warning naming its file, and the run's
   aggregate is logged as ``Windowed-op telemetry``.
 
-``pad_h`` and ``export_nifti`` are still to port: a config that sets one
-of them raises ``NotImplementedError``.
+* ``export_nifti``: the SR frames written back as NIfTI volumes,
+  ``<saved_dir>/nifti/<patient>/<sequenceNN>.nii.gz``, (H, W, 1, T) float32
+  display values: one file a sequence item for the video family, the frames
+  of consecutive items stacked per (patient, slice) for the single-image
+  and multi-frame families.
+
+``pad_h`` is still to port: a config that sets it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
 import csv
 import logging
+import os
 import time
 from pathlib import Path
 
@@ -47,7 +63,8 @@ import torch
 from ..config import PREDICTORS
 from ..ops import telemetry as tel
 from ..ops.tiling import tiled_apply
-from ..utils import casting
+from ..utils import casting, nifti
+from ..utils.dispatch import DoubleBuffer, Fetch, upload
 from ..utils.stats import get_stats
 from . import checkpoint as ckpt_io
 from . import common
@@ -58,7 +75,6 @@ LOG = logging.getLogger(__name__)
 #: with the default a config may leave them at
 DEFERRED_KNOBS = {
     "pad_h": False,
-    "export_nifti": False,
 }
 
 
@@ -76,6 +92,18 @@ def _dump_image(path, img):
     imageio.imwrite(path, img)
 
 
+def _fetch_item(total, losses, metrics, frames, collector: tel.Collector) -> Fetch:
+    """Start an item's fetch; its telemetry triples travel with its scores
+    as one (sites, 3) stack (``ops/telemetry.summarize`` reads them back)."""
+    triples = torch.stack([t.float() for t in collector.triples.values()]) \
+        if collector.triples else None
+    return Fetch(total=total, losses=losses, metrics=metrics, frames=frames, triples=triples)
+
+
+def _nifti_path(saved_dir: Path, patient: str, sid: str) -> Path:
+    return saved_dir / "nifti" / patient / f"{sid.replace('slice', 'sequence')}.nii.gz"
+
+
 class BasePredictor:
     """Reference ``src/runner/predictors/base_predictor.py:6-136``."""
 
@@ -91,6 +119,7 @@ class BasePredictor:
         metric_fns=None,
         saved_dir=None,
         exported=False,
+        export_nifti: bool = False,
         dataset_stats: str | None = None,
         telemetry: bool = True,
         telemetry_warn_frac: float = 0.0,
@@ -168,16 +197,18 @@ class BasePredictor:
             raise ValueError(
                 f"The testing batch size should be 1. Got {test_dataloader.batch_size}."
             )
-        if exported:
+        if exported or export_nifti:
             self.saved_dir = Path(saved_dir)
         self.exported = exported
+        self.export_nifti = bool(export_nifti)
         if dataset_stats:
             self.dataset_stats = dataset_stats
         self.mean, self.std = get_stats(self.dataset_stats)
         self.log = None
         self.throughput = {"frames_per_sec": 0.0, "frames": 0}
         #: wall seconds of each item, from its batch on the host to its
-        #: scores and display frames back on the host
+        #: scores and display frames back on the host (double-buffered, this
+        #: spans the next item's launch)
         self.item_seconds: list[float] = []
 
     # ------------------------------------------------------------- workload
@@ -204,7 +235,7 @@ class BasePredictor:
     def _metric_masks(self, name: str, spatial_shape) -> tuple:
         """Per-metric device masks for Cardiac metrics (None elsewhere)."""
         return tuple(
-            torch.from_numpy(fn.mask_for(name, spatial_shape)).to(self.device)
+            upload(fn.mask_for(name, spatial_shape), self.device)
             if getattr(fn, "requires_name", False) else None
             for fn in self.metric_fns
         )
@@ -218,7 +249,7 @@ class BasePredictor:
         return parts[0], parts[2], filename
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return upload(np.ascontiguousarray(x), self.device)
 
     def _forward(self, *inputs, state=None):
         """The net in the compute dtype → the scored output, in fp32;
@@ -243,9 +274,11 @@ class BasePredictor:
     # --------------------------------------------------------------- engine
     @torch.inference_mode()
     def _step(self, batch, masks):
-        """One item on the device → host (total, losses (T, n_loss),
+        """Launch one item on the device → (total, losses (T, n_loss),
         metrics (T, n_metric), uint8 display frames when exporting, seam
-        stats of a tiled item that ran the probes, telemetry summary)."""
+        stats of a tiled item that ran the probes, the item's telemetry
+        collector), every tensor still on the device; ``Fetch`` brings
+        them to the host."""
         inputs = [self._to_device(x) for x in self._model_inputs(batch)]
         target = self._to_device(self._targets(batch))
         seam = None
@@ -269,14 +302,13 @@ class BasePredictor:
             else:
                 out = tiled_apply(forward, inputs, self._tile, self._tile_overlap)
         losses = self._frame_losses(out, target)
-        weights = torch.from_numpy(self.loss_weights).to(self.device)
+        weights = self._to_device(self.loss_weights)
         total = torch.sum(losses.mean(dim=0) * weights)
         out_d = common.denorm_uint8(out, self.mean, self.std)
         tgt_d = common.denorm_uint8(target, self.mean, self.std)
         metrics = self._frame_metrics(out_d, tgt_d, masks)
-        frames = out_d.to(torch.uint8).cpu().numpy() if self.exported else None
-        summary = collector.summary()  # {} when nothing was recorded
-        return float(total), losses.cpu().numpy(), metrics.cpu().numpy(), frames, seam, summary
+        frames = out_d.to(torch.uint8) if self.exported or self.export_nifti else None
+        return total, losses, metrics, frames, seam, collector
 
     def predict(self):
         self.net.to(self.device).eval()
@@ -291,16 +323,18 @@ class BasePredictor:
             results = [header]
         self.item_seconds = []
         self.seam_summary = {}
-        t0 = time.perf_counter()
-        for batch in self.test_dataloader:
-            t_item = time.perf_counter()
-            index = int(batch["index"][0])
-            patient, sid, filename = self._item_meta(index)
-            batch, true_T = self._bucket_batch(batch)
-            # bucketing pads time only: the masks see the true (H, W)
-            masks = self._metric_masks(patient, np.shape(self._targets(batch))[-3:-1])
-            total, losses, metrics, out_d, seam, summary = self._step(batch, masks)
+
+        def finish(item):
+            """Fetch one launched item (blocks on its event only) and fold it
+            into the log and the exports, in launch order."""
+            nonlocal frames, count
+            t_item, true_T, patient, sid, filename, fetch, seam, sites = item
+            got = fetch.wait()
+            total, losses, metrics, out_d = got["total"], got["losses"], got["metrics"], got["frames"]
             self.item_seconds.append(time.perf_counter() - t_item)
+            # {} when nothing was recorded
+            summary = tel.summarize(dict(zip(sites, torch.from_numpy(got["triples"])))) \
+                if sites else {}
             if summary:
                 # warn per item (one patient leaving the window is the
                 # actionable event); aggregate for the run's line
@@ -317,6 +351,8 @@ class BasePredictor:
             frames += T
             if self.exported:
                 self._export_item(results, filename, patient, sid, losses, metrics, out_d)
+            if self.export_nifti:
+                self._export_nifti_item(patient, sid, out_d)
             weight = self.test_dataloader.batch_size * T
             log["Loss"] += float(total) * weight
             for fn, col in zip(self.loss_fns, losses.mean(axis=0)):
@@ -324,10 +360,28 @@ class BasePredictor:
             for fn, col in zip(self.metric_fns, metrics.mean(axis=0)):
                 log[fn.name] += float(col) * weight
             count += weight
+
+        # EVSR_EAGER_EVAL=1: fetch each item before the next is launched
+        pipe = DoubleBuffer(finish, eager=os.environ.get("EVSR_EAGER_EVAL") == "1")
+        t0 = time.perf_counter()
+        for batch in self.test_dataloader:
+            t_item = time.perf_counter()
+            index = int(batch["index"][0])
+            patient, sid, filename = self._item_meta(index)
+            batch, true_T = self._bucket_batch(batch)
+            # bucketing pads time only: the masks see the true (H, W)
+            masks = self._metric_masks(patient, np.shape(self._targets(batch))[-3:-1])
+            total, losses, metrics, out_d, seam, collector = self._step(batch, masks)
+            pipe.push((t_item, true_T, patient, sid, filename,
+                       _fetch_item(total, losses, metrics, out_d, collector), seam,
+                       list(collector.triples)))
+        pipe.drain()
         elapsed = max(time.perf_counter() - t0, 1e-9)
         self.throughput = {"frames_per_sec": frames / elapsed, "frames": frames}
         if self.exported:
             self._finish_export(results)
+        if self.export_nifti:
+            self._finish_nifti()
         for key in log:
             log[key] /= max(count, 1)
         if self.telemetry_summary:
@@ -357,6 +411,16 @@ class BasePredictor:
     def _export_item(self, results, filename, patient, sid, losses, metrics, out_d):
         raise NotImplementedError
 
+    def _export_nifti_item(self, patient, sid, out_d):
+        """Whole-sequence items (the video family): the (1, T, H, W, 1) SR
+        display frames in the source trees' (H, W, 1, T) layout, one file a
+        sequence (the JAX package's ``_export_nifti_item``)."""
+        sr = np.transpose(out_d[0].astype(np.float32), (1, 2, 3, 0))
+        nifti.save(sr, _nifti_path(self.saved_dir, patient, sid))
+
+    def _finish_nifti(self):
+        pass
+
     def _finish_export(self, results):
         with open(self.saved_dir / "results.csv", "w", newline="") as f:
             csv.writer(f).writerows(results)
@@ -379,6 +443,8 @@ class SISRPredictor(BasePredictor):
         super().__init__(**kwargs)
         self._gif_buffer: list = []
         self._gif_key = None
+        self._nifti_buffer: list = []
+        self._nifti_key = None
 
     def _model_inputs(self, batch):
         return (batch["lr_img"],)
@@ -422,6 +488,25 @@ class SISRPredictor(BasePredictor):
         videos_dir.mkdir(parents=True, exist_ok=True)
         _dump_video(videos_dir / f"{sid.replace('slice', 'sequence')}.gif", self._gif_buffer)
         self._gif_buffer = []
+
+    def _export_nifti_item(self, patient, sid, out_d):
+        """Frame items: buffered per (patient, slice) in item order (the
+        loader keeps the unshuffled order, as the GIF assembly relies on)
+        and written as one (H, W, 1, T) volume when the key changes."""
+        key = (patient, sid)
+        if self._nifti_buffer and key != self._nifti_key:
+            self._flush_nifti()
+        self._nifti_buffer.append(out_d[0].astype(np.float32))
+        self._nifti_key = key
+
+    def _flush_nifti(self):
+        patient, sid = self._nifti_key
+        nifti.save(np.stack(self._nifti_buffer, axis=-1), _nifti_path(self.saved_dir, patient, sid))
+        self._nifti_buffer = []
+
+    def _finish_nifti(self):
+        if self._nifti_buffer:
+            self._flush_nifti()
 
     def _finish_export(self, results):
         if self._gif_buffer:

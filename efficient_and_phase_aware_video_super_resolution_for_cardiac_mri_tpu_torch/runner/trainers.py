@@ -42,6 +42,10 @@ The JAX package's trainer knobs, each computing what it computes there:
   out-of-window fraction exceeds ``telemetry_warn_frac``.  The train step
   never collects.
 
+With ``EVSR_PROFILE_DIR`` set, each train and valid epoch is traced by
+``torch.profiler`` into ``EVSR_PROFILE_DIR/train_epoch_<N>`` and
+``valid_epoch_<N>`` (``utils/profiling.trace``), as in the JAX package.
+
 The knobs still to port raise ``NotImplementedError`` naming their ROADMAP
 item when set to anything but their default.
 """
@@ -58,6 +62,7 @@ import torch
 from ..config import TRAINERS
 from ..ops import telemetry as tel
 from ..utils import casting
+from ..utils.profiling import trace
 from ..utils.seeding import SeedState, seed_everything
 from ..utils.stats import get_stats
 from . import checkpoint as ckpt_io
@@ -406,12 +411,14 @@ class BaseTrainer:
                 if hasattr(loader, "set_epoch"):
                     loader.set_epoch(seeds[self.epoch - 1])
             LOG.info(f"Epoch {self.epoch}.")
-            train_log, train_batch, train_outputs = self._run_epoch("training")
+            with trace(f"train_epoch_{self.epoch}"):
+                train_log, train_batch, train_outputs = self._run_epoch("training")
             LOG.info(
                 f"Train log: {train_log} "
                 f"({self.throughput['train_steps_per_sec']:.2f} steps/sec)."
             )
-            valid_log, valid_batch, valid_outputs = self._run_epoch("validation")
+            with trace(f"valid_epoch_{self.epoch}"):
+                valid_log, valid_batch, valid_outputs = self._run_epoch("validation")
             LOG.info(f"Valid log: {valid_log}.")
             self.history["train"].append(dict(train_log))
             self.history["valid"].append(dict(valid_log))

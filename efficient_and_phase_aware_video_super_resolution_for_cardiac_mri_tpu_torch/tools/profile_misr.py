@@ -3,13 +3,15 @@
     python -m efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.profile_misr \
         [--nets DUFNet RBPNet TOFlowNet TOFlowNet_tpu RBPNet_tpu DRFNet FRVSRNet FRVSRNet_tpu \
                 EDVRNet EDVRNet_tpu] \
-        [--modes eval train]
+        [--modes eval train] [--eval-batch N]
 
 Runs each net at its ``configs/{test,train}/<net>/exp1_x4.yaml`` width with
 seeded random weights, in fp32 with TF32 off, on the shapes of the serving
 and training paths: ``eval`` is one window of 7 LR 64×64 frames (a whole
 30-frame clip for the video nets, DRF and FRVSR) under
-``torch.inference_mode()`` (the net in eval mode); ``train`` is one step
+``torch.inference_mode()`` (the net in eval mode; ``--eval-batch N`` windows
+or clips at once, as ``tools/serve.py`` batches a slice's 30 windows);
+``train`` is one step
 of the trainer (the config's batch of 32×32 LR patches, 7 frames, FRVSR's
 10: forward, the config's loss, backward, Adam; the net in training mode).
 ``TOFlowNet_tpu`` is ``configs/test/toflow_net/exp1_x4_tpu.yaml``
@@ -129,7 +131,7 @@ def _ops(net, x) -> int:
     return total
 
 
-def _call(name: str, mode: str, dev, offset_std: float):
+def _call(name: str, mode: str, dev, offset_std: float, eval_batch: int = 1):
     """The call to time: a forward (eval) or a whole training step."""
     cls, kwargs, dtype, batch, micro, loss_name, frames = NETS[name]
     net = cls(**kwargs, generator=torch.Generator().manual_seed(0))
@@ -141,7 +143,7 @@ def _call(name: str, mode: str, dev, offset_std: float):
                     p.normal_(0.0, offset_std, generator=gen)
     net = net.to(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    B = 1 if mode == "eval" else batch
+    B = eval_batch if mode == "eval" else batch
     t = frames[0] if mode == "eval" else frames[1]
     x = torch.randn(B, t, LR_HW[mode], LR_HW[mode], 1, device=dev, generator=gen)
     ops = _ops(net.eval(), x)
@@ -186,8 +188,8 @@ def _wall_ms(call) -> float:
     return statistics.median(walls)
 
 
-def profile(name: str, mode: str, dev, offset_std: float = 0.0) -> dict:
-    call, ops, net, dtype = _call(name, mode, dev, offset_std)
+def profile(name: str, mode: str, dev, offset_std: float = 0.0, eval_batch: int = 1) -> dict:
+    call, ops, net, dtype = _call(name, mode, dev, offset_std, eval_batch)
     walls = {}
     for benchmark in (False, True, True, False):
         torch.backends.cudnn.benchmark = benchmark
@@ -218,7 +220,7 @@ def profile(name: str, mode: str, dev, offset_std: float = 0.0) -> dict:
     off, on = statistics.median(walls[False]), statistics.median(walls[True])
     params = sum(p.numel() for p in net.parameters())
     frames = NETS[name][6][0 if mode == "eval" else 1]
-    shape = (1 if mode == "eval" else NETS[name][3], frames, LR_HW[mode], LR_HW[mode], 1)
+    shape = (eval_batch if mode == "eval" else NETS[name][3], frames, LR_HW[mode], LR_HW[mode], 1)
     offsets = f", offset convs ~ N(0, {offset_std})" if NETS[name][0] is EDVRNet else ""
     print(f"{name} {mode} {shape} {dtype or torch.float32} ({params:,} params{offsets}): wall "
           f"{off:.3f} ms "
@@ -253,6 +255,8 @@ def _parse_args():
     parser.add_argument("--nets", nargs="+", default=["DUFNet", "RBPNet", "TOFlowNet"],
                         choices=list(NETS))
     parser.add_argument("--modes", nargs="+", default=list(LR_HW), choices=list(LR_HW))
+    parser.add_argument("--eval-batch", type=int, default=1,
+                        help="windows (clips) a forward in eval mode")
     return parser.parse_args()
 
 
@@ -266,7 +270,8 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card, flush=True)
-    results = [profile(name, mode, dev, std) for name in args.nets for mode in args.modes
+    results = [profile(name, mode, dev, std, args.eval_batch)
+               for name in args.nets for mode in args.modes
                for std in (EDVR_OFFSET_STDS if NETS[name][0] is EDVRNet else (0.0,))]
     print(json.dumps({"card": card, "results": results}), flush=True)
 

@@ -293,9 +293,14 @@ def test_predict_matches_jax(tree, checkpoints, tmp_path, name, kind, prefix):
             assert all(np.abs(a - b).max() <= 1 for a, b in zip(fa, fb)), rel
 
 
-def test_export_nifti_still_raises():
-    with pytest.raises(NotImplementedError, match="export_nifti"):
-        PREDICTORS.get("AcdcSISRPredictor")(device="cpu", export_nifti=True)
+def test_export_nifti_still_raises(tmp_path):
+    """``export_nifti`` is ported: like the JAX predictor, it raises only
+    without a ``saved_dir`` to write into (``tests/test_torch_host_io.py``
+    holds its files to the JAX package's)."""
+    cls = PREDICTORS.get("AcdcSISRPredictor")
+    with pytest.raises(TypeError):
+        cls(device="cpu", export_nifti=True)
+    assert cls(device="cpu", export_nifti=True, saved_dir=str(tmp_path)).export_nifti is True
 
 
 # ---------------------------------------------------------------- training
