@@ -2495,6 +2495,321 @@ def profiled_training(port_main, Cfg, tree: dict, tmp: Path) -> dict:
     return found
 
 
+# ----------------------------------------- 26-30 parallel runs and remainders
+TOL_WRAPPED = 1e-5  # phase 26: the losses of the world-1 DDP run, relative to the unwrapped run's
+TOL_TWO_RANKS = 1e-5  # phase 27: loss and parameters of 2 ranks against world 1
+TOL_RESUME = 1e-6  # phase 29: resumed against uninterrupted losses, relative
+TOL_BATCH_PSNR, TOL_BATCH_SSIM = 1e-4, 1e-5  # phase 30: CSV rows against the predictor's
+DDP_STEPS = 4  # phase 27: steps of batch 16, 8 items a rank
+# phase 27 steps with SGD, as the JAX package's mesh tests do: Adam's
+# g / (sqrt(v) + eps) turns the reduction-order noise of a gradient near 0
+# into a whole lr step of either sign (measured on an H100: parameters
+# 4.6e-4 apart after 4 Adam steps, the losses equal)
+PHASE27_OPTIMIZER = {"name": "SGD", "lr": 1e-2}
+RESUME_BACKENDS = ("pickle", "orbax", "orbax_async")
+
+
+def deterministic_cudnn(torch, on: bool = True) -> tuple:
+    """cuDNN's deterministic algorithms (the comparisons of phases 26-29
+    are between runs); returns the previous (deterministic, benchmark)."""
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = on, False
+    return before
+
+
+def train_items(n: int, seed: int) -> list:
+    """``n`` items of the training shape (19 LR frames of 32x32, 7 HR
+    frames of 128x128, the phase code), drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"lr_imgs": rng.standard_normal((T_TRAIN, PATCH, PATCH, 1)).astype(np.float32),
+             "hr_imgs": rng.standard_normal((CORE, PATCH * SCALE, PATCH * SCALE, 1)).astype(np.float32),
+             "pos_code": rng.uniform(-1, 1, (T_TRAIN, 1)).astype(np.float32)} for _ in range(n)]
+
+
+def step_trainer(state: dict, items: list, mesh, dev, name: str = "Adam", **optimizer):
+    """exp1_x4.yaml's trainer (Adam at 1e-4, the stage-discounted L1) over
+    ``items`` in order, batch 16, from the weights ``state``; ``name`` and
+    ``optimizer`` replace the optimizer or add its knobs."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import Dataloader
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.losses import L1Loss
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.metrics import PSNR
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import RefineNet
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.optim import Optimizer
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.trainers import (
+        VSRRefineNetTrainer,
+    )
+
+    net = RefineNet(**NET_KWARGS)
+    net.load_state_dict(state, strict=True)
+    loader = Dataloader(items, batch_size=TRAIN_BATCH)
+    return VSRRefineNetTrainer(
+        device=dev, train_dataloader=loader, valid_dataloader=loader, net=net,
+        loss_fns=[L1Loss()], loss_weights=[1.0], metric_fns=[PSNR()],
+        optimizer=Optimizer(name, **{"lr": 1e-4, "weight_decay": 0, **optimizer}), num_epochs=1,
+        mesh=mesh, telemetry=False)
+
+
+def two_rank_steps(state: dict, items: list, saved_dir: str, device: str) -> dict:
+    """Phase 27's rank: the port's mesh over the spawned gloo group, both
+    ranks on ``device`` (cuda:0), ``DDP_STEPS`` steps, then a checkpoint
+    (the lead writes it).  Rank 0's result comes back to the parent."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic_cudnn(torch)
+    dev = torch.device(device)
+    mesh = make_mesh(2, device=dev)
+    trainer = step_trainer(state, items, mesh, dev, **PHASE27_OPTIMIZER)
+    local_batch = next(iter(trainer.train_dataloader))["lr_imgs"].shape[0]
+    reset_launches(lstm_gates)
+    log_, _, _ = trainer._run_epoch("training")
+    counts = launches(lstm_gates)
+    trainer.save(Path(saved_dir) / f"model_{DDP_STEPS}.pth")
+    return {"log": log_, "state": {k: v.cpu() for k, v in trainer.net.state_dict().items()},
+            "launches": counts, "model": type(trainer.model).__name__, "mesh": mesh.shape,
+            "backend": torch.distributed.get_backend(), "lead": mesh.is_lead,
+            "local_batch": local_batch}
+
+
+def ddp_phases(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, card_line) -> dict:
+    """Phases 26-27: the data axis on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import RefineNet
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        distributed,
+        make_mesh,
+    )
+
+    before = deterministic_cudnn(torch)
+    out = {"card": card_line}
+    # ------------------------------------------ 26: world size 1 against none
+    runs = {}
+    # in turns: unwrapped, wrapped, wrapped, unwrapped (one call, one card)
+    for name, parallel in (("unwrapped", None), ("world_1", {"num_devices": 1}),
+                           ("world_1_b", {"num_devices": 1}), ("unwrapped_b", None)):
+        cfg = train_config(tree, tmp / f"ddp_{name}")
+        cfg["trainer"]["kwargs"].update(num_epochs=1, device=str(dev))
+        if parallel:
+            cfg["parallel"] = parallel
+        reset_launches(lstm_gates)
+        trainer = port_main.train_from_config(Cfg(cfg))
+        runs[name] = {"history": trainer.history, "launches": launches(lstm_gates),
+                      "model": type(trainer.model).__name__,
+                      "mesh": trainer.mesh.shape if trainer.mesh is not None else None,
+                      "step_ms": 1e3 / trainer.throughput["train_steps_per_sec"]}
+        log("ddp", f"{name}: {runs[name]['model']}, mesh {runs[name]['mesh']}, Train log "
+                   f"{trainer.history['train'][0]}, {runs[name]['step_ms']:.1f} ms a step, gate "
+                   f"launches {runs[name]['launches']}")
+    one, none = runs["world_1"], runs["unwrapped"]
+    if one["model"] != "DistributedDataParallel" or one["mesh"] != {"data": 1} or \
+            dist.get_world_size() != 1 or dist.get_backend() != distributed.backend_for(dev):
+        raise AssertionError(f"the world-1 run was not wrapped in a group of one: {one}")
+    if one["launches"] != none["launches"] or one["launches"][0] != FWD_PER_STEP * STEPS_PER_EPOCH + \
+            LAUNCHES_PER_CLIP * VALID_CLIPS:
+        raise AssertionError(f"gate launches differ: {one['launches']} against {none['launches']}")
+    worst = 0.0
+    for run in runs.values():
+        if run["launches"] != none["launches"]:
+            raise AssertionError(f"gate launches differ between the runs: {runs}")
+        for split in ("train", "valid"):
+            for key, want in none["history"][split][0].items():
+                got = run["history"][split][0][key]
+                worst = max(worst, abs(got - want) / abs(want))
+    wrapped = [runs[k]["step_ms"] for k in ("world_1", "world_1_b")]
+    plain = [runs[k]["step_ms"] for k in ("unwrapped", "unwrapped_b")]
+    log("ddp", f"world 1 ({dist.get_backend()}, DDP) against unwrapped, in turns: largest relative "
+               f"log difference {worst:.3e} (tol {TOL_WRAPPED}); ms a step wrapped "
+               f"{wrapped[0]:.1f}, {wrapped[1]:.1f} (mean {sum(wrapped) / 2:.1f}), unwrapped "
+               f"{plain[0]:.1f}, {plain[1]:.1f} (mean {sum(plain) / 2:.1f}) ({card_line})")
+    if not worst <= TOL_WRAPPED:
+        raise AssertionError(f"the wrapped step disagrees with the unwrapped one: {worst}")
+    out.update(world1_step_ms=wrapped, unwrapped_step_ms=plain, world1_rel_diff=worst,
+               world1_launches=one["launches"], unwrapped_launches=none["launches"])
+
+    # ---------------------------------- 27: two ranks on cuda:0 over gloo
+    items = train_items(DDP_STEPS * TRAIN_BATCH, seed=5)
+    state = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0)).state_dict()
+    # world 1 in the group of one that phase 26's run made (and kept)
+    reference = step_trainer(state, items, make_mesh(1, device=dev), dev, **PHASE27_OPTIMIZER)
+    ref_log, _, _ = reference._run_epoch("training")
+    ref_state = {k: v.cpu() for k, v in reference.net.state_dict().items()}
+    saved = tmp / "two_ranks"
+    saved.mkdir()
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(two_rank_steps, (state, items, str(saved), str(dev)), world=2,
+                              device=dev, backend="gloo")
+    wall = time.perf_counter() - t0
+    loss_diff = abs(ranks["log"]["Loss"] - ref_log["Loss"]) / abs(ref_log["Loss"])
+    # each parameter relative to its largest element
+    param_diff = max(((ranks["state"][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)).item()
+                     for k, v in ref_state.items() if v.is_floating_point())
+    written = sorted(p.name for p in saved.iterdir())
+    log("ddp", f"2 ranks on {dev} ({ranks['backend']}, {ranks['model']}, mesh {ranks['mesh']}), "
+               f"{DDP_STEPS} steps in {wall:.1f} s with the processes' start: loss "
+               f"{ranks['log']['Loss']:.6f} against world 1's {ref_log['Loss']:.6f} (relative "
+               f"{loss_diff:.3e}), parameters within {param_diff:.3e} of their largest element (tol "
+               f"{TOL_TWO_RANKS}; SGD at {PHASE27_OPTIMIZER['lr']}); {ranks['local_batch']} items a "
+               f"rank a step; rank 0's "
+               f"gate launches {ranks['launches']}; written: {written} (correctness only: no rate)")
+    want_launches = (FWD_PER_STEP * DDP_STEPS, BWD_PER_STEP * DDP_STEPS, 0, 0)
+    if ranks["backend"] != "gloo" or ranks["mesh"] != {"data": 2} or not ranks["lead"] or \
+            ranks["local_batch"] != TRAIN_BATCH // 2:
+        raise AssertionError(f"the two-rank run was not the mesh asked for: {ranks}")
+    if not (loss_diff <= TOL_TWO_RANKS and param_diff <= TOL_TWO_RANKS):
+        raise AssertionError(f"two ranks disagree with world 1: {loss_diff}, {param_diff}")
+    if ranks["launches"] != want_launches or written != [f"model_{DDP_STEPS}.pth"]:
+        raise AssertionError(f"rank 0 launched {ranks['launches']}, wrote {written}")
+    out.update(two_ranks_loss_rel=loss_diff, two_ranks_param_rel=param_diff,
+               two_ranks_launches=ranks["launches"], two_ranks_wall_s=wall)
+    deterministic_cudnn(torch, before[0])
+    torch.backends.cudnn.benchmark = before[1]
+    return out
+
+
+def skip_nonfinite_card(lstm_gates, dev) -> dict:
+    """Phase 28: ``skip_nonfinite: 3`` at full width on the card."""
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import default_collate
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import RefineNet
+
+    items = train_items(TRAIN_BATCH, seed=6)
+    state = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0)).state_dict()
+    trainer = step_trainer(state, items, None, dev, skip_nonfinite=3)
+    trainer.net.train(True)
+    good = default_collate(items)
+    bad = {k: v.copy() for k, v in good.items()}
+    bad["lr_imgs"][0, 0, 0, 0, 0] = np.nan
+
+    def snapshot():
+        return ({k: v.detach().clone() for k, v in trainer.net.named_parameters()},
+                {id(p): {k: v.clone() for k, v in trainer.opt.state[p].items()}
+                 for p in trainer.net.parameters() if p in trainer.opt.state})
+
+    reset_launches(lstm_gates)
+    trainer._train_step(good)
+    params, moments = snapshot()
+    total, *_ = trainer._train_step(bad)
+    after_params, after_moments = snapshot()
+    equal = all(torch.equal(after_params[k], v) for k, v in params.items()) and all(
+        torch.equal(after_moments[i][k], v) for i, m in moments.items() for k, v in m.items())
+    trainer._train_step(good)
+    moved = any(not torch.equal(p.detach(), params[k]) for k, p in trainer.net.named_parameters())
+    skipped = trainer.optimizer.check_nonfinite(trainer.opt)
+    counts = launches(lstm_gates)
+    log("skip", f"a poisoned step (loss {float(total)}): parameters and Adam state bit-equal "
+                f"across it: {equal}; the next step moves them: {moved}; check_nonfinite reports "
+                f"{skipped}; gate launches {counts}")
+    if not (equal and moved and skipped == 1 and not math.isfinite(float(total))):
+        raise AssertionError("skip_nonfinite did not skip the poisoned step alone")
+    for _ in range(3):
+        trainer._train_step(bad)
+    try:
+        trainer.optimizer.check_nonfinite(trainer.opt)
+    except RuntimeError as e:
+        log("skip", f"three poisoned steps in a row raise: {e}")
+    else:
+        raise AssertionError("three consecutive non-finite steps did not raise")
+    if any(not torch.isfinite(p).all() for p in trainer.net.parameters()):
+        raise AssertionError("a non-finite update reached the parameters")
+    return {"launches": counts, "skipped": skipped}
+
+
+def resume_backends(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev) -> dict:
+    """Phase 29: one epoch, save, resume and one more against two
+    uninterrupted epochs, for each checkpoint backend."""
+    import torch
+
+    before = deterministic_cudnn(torch)
+    reset_launches(lstm_gates)
+    cfg = train_config(tree, tmp / "resume_straight")
+    cfg["trainer"]["kwargs"]["device"] = str(dev)
+    straight = port_main.train_from_config(Cfg(cfg))
+    want = straight.history
+    out = {}
+    for backend in RESUME_BACKENDS:
+        saved = tmp / f"resume_{backend}"
+        cfg = train_config(tree, saved)
+        cfg["trainer"]["kwargs"].update(checkpoint_backend=backend, preempt_after_epochs=1,
+                                        device=str(dev))
+        port_main.train_from_config(Cfg(cfg))
+        ckpt = saved / "checkpoints" / "model_1.pth"
+        kind = "directory" if ckpt.is_dir() else "file"
+        cfg = train_config(tree, saved)
+        cfg["trainer"]["kwargs"].update(checkpoint_backend=backend, device=str(dev))
+        cfg["main"]["loaded_path"] = str(ckpt)
+        resumed = port_main.train_from_config(Cfg(cfg))
+        got = resumed.history
+        worst = max(abs(got[split][0][key] - want[split][1][key]) / abs(want[split][1][key])
+                    for split in ("train", "valid") for key in want[split][1])
+        log("resume", f"{backend} ({kind}): epoch 2 resumed from model_1.pth against the "
+                      f"uninterrupted run: largest relative log difference {worst:.3e} (tol "
+                      f"{TOL_RESUME})")
+        if len(got["train"]) != 1 or not worst <= TOL_RESUME:
+            raise AssertionError(f"the {backend} resume disagrees: {worst}, {got}")
+        out[backend] = worst
+    deterministic_cudnn(torch, before[0])
+    torch.backends.cudnn.benchmark = before[1]
+    out["launches"] = launches(lstm_gates)
+    return out
+
+
+def batch_infer_card(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, ckpt: Path, dev,
+                     eval_fps: float, card_line) -> dict:
+    """Phase 30: ``tools/batch_infer.py`` at full width against the
+    predictor's per-frame scores on the same clips and weights."""
+    import csv
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import predictors
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import batch_infer
+
+    reset_launches(lstm_gates)
+    summary = batch_infer.main([str(ckpt), str(tree["videos"]), str(tree["pos_code"]),
+                                str(tmp / "batch_infer.csv"), "--net-kwargs", json.dumps(NET_KWARGS),
+                                "--device", str(dev)])
+    counts = launches(lstm_gates)
+    with open(tmp / "batch_infer.csv", newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    # the predictor's per-frame rows (its CSV; the GIF/PNG writers, which
+    # need imageio, stubbed)
+    cfg = eval_config(tree, ckpt, tmp / "batch_infer_pred")
+    cfg["metrics"] = [{"name": "PSNR"}, {"name": "SSIM"}]
+    cfg["predictor"]["kwargs"].update(exported=True, device=str(dev))
+    dumps = predictors._dump_video, predictors._dump_image
+    predictors._dump_video = predictors._dump_image = lambda *a: None
+    try:
+        port_main.test_from_config(Cfg(cfg))
+    finally:
+        predictors._dump_video, predictors._dump_image = dumps
+    with open(tmp / "batch_infer_pred" / "results.csv", newline="") as f:
+        want = {r[0]: (float(r[1]), float(r[2])) for r in list(csv.reader(f))[1:]}
+    d_psnr = d_ssim = 0.0
+    for name, _, psnr, ssim in rows:
+        p, s = want[name.replace("2d+1d", "2d").replace("sequence", "slice")]
+        d_psnr, d_ssim = max(d_psnr, abs(float(psnr) - p)), max(d_ssim, abs(float(ssim) - s))
+    log("batch_infer", f"{summary['sequences']} sequences, {summary['frames']} frames at "
+                       f"{summary['frames_per_sec']:.2f} frames/s (phase 4's predictor: "
+                       f"{eval_fps:.2f}; {card_line}); rows against the predictor's: PSNR within "
+                       f"{d_psnr:.2e} dB (tol {TOL_BATCH_PSNR}), SSIM within {d_ssim:.2e} (tol "
+                       f"{TOL_BATCH_SSIM}); gate launches {counts}")
+    if len(rows) != len(want) or counts != (LAUNCHES_PER_CLIP * SLICES, 0, 0, 0):
+        raise AssertionError(f"batch_infer wrote {len(rows)} rows, launched {counts}")
+    if not (d_psnr <= TOL_BATCH_PSNR and d_ssim <= TOL_BATCH_SSIM):
+        raise AssertionError(f"batch_infer's rows disagree with the predictor's: {d_psnr}, {d_ssim}")
+    return {"launches": counts, "frames_per_sec": summary["frames_per_sec"],
+            "eval_frames_per_sec": eval_fps, "psnr_diff": d_psnr, "ssim_diff": d_ssim}
+
+
 def main() -> int:
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
@@ -2659,6 +2974,7 @@ def main() -> int:
                 f"{', '.join(f'{s * 1e3:.1f}' for s in clip_s)} ms; test_from_config wall "
                 f"{wall:.2f} s; peak device memory "
                 f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    eval_fps = predictor.throughput["frames_per_sec"]
     print(json.dumps({"main_path": {"frames_per_sec": predictor.throughput["frames_per_sec"],
                                     "clip_ms": [s * 1e3 for s in clip_s], "wall_s": wall,
                                     "card": card_line}}), flush=True)
@@ -3092,6 +3408,14 @@ def main() -> int:
     profiled = profiled_training(port_main, Cfg, tree, tmp)
     print(json.dumps({"serving_daemon": {"native_reader": native_reads, "profiled_train": profiled,
                                          "card": card_line}}), flush=True)
+
+    # ------------------------------ 26-30 parallel runs and the remainders
+    ddp = ddp_phases(port_main, Cfg, lstm_gates, tree, tmp, dev, card_line)
+    skipped = skip_nonfinite_card(lstm_gates, dev)
+    resumed = resume_backends(port_main, Cfg, lstm_gates, tree, tmp, dev)
+    batch = batch_infer_card(port_main, Cfg, lstm_gates, tree, tmp, ckpt, dev, eval_fps, card_line)
+    print(json.dumps({"parallel": {**ddp, "skip_nonfinite": skipped, "resume": resumed,
+                                   "batch_infer": batch}}), flush=True)
     tmp_dir.cleanup()
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
@@ -3103,13 +3427,23 @@ def main() -> int:
                  "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0,
                  "serve": served["launches"], "serve_bf16": served["bf16_launches"],
                  "eval_loop_ab_refine_bf16": ab["counts"]["refine_bf16"][0][0],
-                 "serve_edvr": 0, "eval_loop_ab_edvr": ab["counts"]["edvr"][0][0]}
+                 "serve_edvr": 0, "eval_loop_ab_edvr": ab["counts"]["edvr"][0][0],
+                 "train_unwrapped": ddp["unwrapped_launches"][0],
+                 "train_ddp_world1": ddp["world1_launches"][0],
+                 "train_ddp_two_ranks_rank0": ddp["two_ranks_launches"][0],
+                 "train_skip_nonfinite": skipped["launches"][0],
+                 "train_resume_backends": resumed["launches"][0],
+                 "batch_infer": batch["launches"][0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
                  "vsr_eval": 0, "vsr_train": 0, "edvr_eval": 0, "edvr_train": 0,
                  "serve": 0, "serve_bf16": 0, "eval_loop_ab_refine_bf16": 0, "serve_edvr": 0,
-                 "eval_loop_ab_edvr": 0}
+                 "eval_loop_ab_edvr": 0, "train_unwrapped": ddp["unwrapped_launches"][1],
+                 "train_ddp_world1": ddp["world1_launches"][1],
+                 "train_ddp_two_ranks_rank0": ddp["two_ranks_launches"][1],
+                 "train_skip_nonfinite": skipped["launches"][1],
+                 "train_resume_backends": resumed["launches"][1], "batch_infer": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

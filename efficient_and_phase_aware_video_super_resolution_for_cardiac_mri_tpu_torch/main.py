@@ -12,18 +12,34 @@ convolutions and matrix products: the JAX package computes the SSIM filter
 at full precision, and the recurrent spine would accumulate TF32 rounding
 over its 42 steps (and, in training, over its backward).
 
-A ``parallel:`` section runs on the one device when it asks for one
-(``num_devices: 1``, no spatial, model or multi-host axis); more CUDA
-devices than are visible raise ``ValueError`` as the JAX package's mesh
-does, and a multi-device mesh is still to port.
+A ``parallel:`` section (``num_devices``, ``model_parallel``,
+``multi_host``, ``coordinator_address``, ``num_processes``,
+``process_id``) runs over ``torch.distributed``, one process (rank) per
+device, NCCL on the card and gloo on the CPU (``parallel/``):
+
+* ``main`` spawns ``num_devices`` ranks itself (a multi-host run: this
+  host's share, ranks ``process_id · local + i``), each running the train
+  or test path on its device and slice of the data; rank 0's history or
+  log comes back to the caller;
+* under ``torchrun`` (or with ``WORLD_SIZE`` and ``RANK`` set) the process
+  joins that group instead and runs its own rank;
+* ``num_devices: 1`` runs in this process, in a process group of one
+  (made at the first such run and kept), the net still wrapped.
+
+More CUDA devices than are visible raise ``ValueError`` as the JAX
+package's mesh does; ``spatial_parallel > 1`` and ``pad_h`` raise
+``NotImplementedError`` (ROADMAP item 10b).  A multi-host run defaults to
+``checkpoint_backend: orbax_async``, as in the JAX package.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
+import torch.distributed as dist
 
 from .config import (
     DATALOADERS,
@@ -77,52 +93,136 @@ def _build_metrics(cfg: Cfg):
     return [METRICS.build(c) for c in cfg.get("metrics", [])]
 
 
-#: the keys of a ``parallel:`` section that a one-device run may carry, at
-#: the value that leaves it one device
-_ONE_DEVICE = {"spatial_parallel": 1, "model_parallel": 1, "multi_host": False, "pad_h": False}
+def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
+    """The config's ``parallel:`` section ({} without one) after the JAX
+    package's refusals: more CUDA devices than are visible
+    (``ValueError``), and what is not ported (``NotImplementedError``)."""
+    from .parallel import check_devices
+    from .parallel.mesh import _SPATIAL_MSG
 
-
-def _check_parallel(cfg: Cfg, device: torch.device):
-    """The config's ``parallel:`` section if it asks for one device (then
-    the run is the single-device one), else raise: ``ValueError`` for more
-    CUDA devices than are visible (the JAX package's ``make_mesh``),
-    ``NotImplementedError`` for a mesh of several devices or any axis (on
-    the CPU the JAX package provisions a virtual mesh of any size, which the
-    port does not have)."""
-    parallel = cfg.get("parallel")
+    parallel = dict(cfg.get("parallel") or {})
     if not parallel:
-        return None
-    visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    n = parallel.get("num_devices") or visible
-    if device.type == "cuda" and n > visible:
-        raise ValueError(
-            f"parallel.num_devices={n} but only {visible} device(s) are visible "
-            f"({device.type}). Lower num_devices."
-        )
-    others = {k: v for k, v in parallel.items()
-              if k != "num_devices" and (k not in _ONE_DEVICE or v != _ONE_DEVICE[k])}
-    if n != 1 or others:
+        return {}
+    if int(parallel.get("spatial_parallel") or 1) > 1:
         raise NotImplementedError(
-            f"the PyTorch port runs a `parallel:` section on one device only (num_devices: 1, "
-            f"no spatial, model or multi-host axis); got {dict(parallel)} "
-            "(ROADMAP queue 1, item 10)"
-        )
-    logger.info("parallel: num_devices 1, run on the one device %s.", device)
+            f"parallel.spatial_parallel={parallel['spatial_parallel']}: {_SPATIAL_MSG}")
+    if parallel.get("pad_h"):
+        raise NotImplementedError(f"parallel.pad_h: {_SPATIAL_MSG}")
+    n = parallel.get("num_devices") or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    check_devices(int(n), device)
     return parallel
+
+
+def _launch_plan(cfg: Cfg, device: torch.device) -> dict | None:
+    """How many ranks this process spawns, and their address, world size
+    and first rank; None to run here (no section, one device, or a group
+    to join)."""
+    from .parallel.distributed import NO_COORDINATOR, cluster_env_present
+
+    parallel = _check_parallel(cfg, device)
+    if not parallel or cluster_env_present() or (dist.is_initialized() and not _OWN_GROUP):
+        return None
+    n = int(parallel.get("num_devices") or (torch.cuda.device_count() if device.type == "cuda" else 1))
+    if parallel.get("multi_host"):
+        if not parallel.get("coordinator_address"):
+            raise ValueError(NO_COORDINATOR)
+        hosts = int(parallel.get("num_processes") or 1)
+        if n % hosts:
+            raise ValueError(f"parallel.num_devices={n} not divisible by num_processes={hosts}.")
+        local = n // hosts
+        return {"address": parallel["coordinator_address"], "world": n, "local": local,
+                "first": int(parallel.get("process_id") or 0) * local}
+    if n == 1:
+        return None
+    return {"world": n, "local": n, "first": 0}
+
+
+def _run_rank(cfg: dict, test: bool) -> dict:
+    """One spawned rank's run → rank 0's summary."""
+    cfg = Cfg(cfg)
+    return _summary(test_from_config(cfg) if test else train_from_config(cfg))
+
+
+def _summary(out) -> dict:
+    """What a spawned rank 0 hands back of its trainer or predictor."""
+    keys = ("history", "epoch", "log", "throughput", "grad_accum_steps")
+    summary = {k: getattr(out, k) for k in keys if hasattr(out, k)}
+    mesh = getattr(out, "mesh", None)
+    summary["mesh"] = dict(mesh.shape) if mesh is not None else None
+    return summary
+
+
+def run(cfg: Cfg, test: bool = False):
+    """The train or test path of ``cfg``: here, or in the ranks that its
+    ``parallel:`` section asks for (then rank 0's summary comes back as a
+    namespace of ``history``/``log``, ``epoch``, ``throughput`` and
+    ``mesh``)."""
+    engine = cfg.predictor if test else cfg.trainer
+    device = resolve_device((engine.get("kwargs") or {}).get("device"))
+    plan = _launch_plan(cfg, device)
+    if plan is None:
+        return test_from_config(cfg) if test else train_from_config(cfg)
+    from .parallel.distributed import spawn
+
+    out = spawn(_run_rank, (cfg.to_dict(), test), device=device, **plan)
+    return SimpleNamespace(**out) if out is not None else None
+
+
+#: whether this process made its own process group of one (kept for the
+#: process's life, so the engines ``main`` returns keep working)
+_OWN_GROUP = False
+
+
+def build_mesh(cfg: Cfg, device: torch.device):
+    """The run's mesh from its ``parallel:`` section (None without one),
+    joining the launcher's group, or making (once) a group of one, as
+    needed; returns (mesh, device of this rank)."""
+    global _OWN_GROUP
+    from .parallel import distributed_initialize, make_mesh
+    from .parallel.distributed import NO_COORDINATOR, free_port, local_device
+
+    parallel = _check_parallel(cfg, device)
+    if not parallel:
+        return None, device
+    multi_host = bool(parallel.get("multi_host"))
+    if not dist.is_initialized():
+        # a multi-host run joins its launcher's group (``run`` spawns one)
+        if not distributed_initialize(device=device, require=multi_host) \
+                and not dist.is_initialized():
+            # one device: a process group of one, so the step is the wrapped one
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo",
+                init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+            _OWN_GROUP = True
+    elif _OWN_GROUP and multi_host:  # this process runs alone
+        raise ValueError(NO_COORDINATOR)
+    device = local_device(device)
+    hosts = int(parallel.get("num_processes") or 1) if multi_host else 1
+    mesh = make_mesh(parallel.get("num_devices"), parallel.get("model_parallel", 1),
+                     parallel.get("spatial_parallel", 1), device, hosts=hosts)
+    logger.info("parallel: mesh %s, rank %d on %s.", mesh.shape, mesh.rank, device)
+    return mesh, device
 
 
 def train_from_config(cfg: Cfg):
     _import_components()
+    trainer_kwargs = dict(cfg.trainer.get("kwargs") or {})
+    device = resolve_device(trainer_kwargs.pop("device", None))
+    return _train(cfg, trainer_kwargs, *build_mesh(cfg, device))
+
+
+def _train(cfg: Cfg, trainer_kwargs: dict, mesh, device: torch.device):
     from .runner.checkpoint import find_latest_checkpoint
     from .runner.optim import build_lr_scheduler, build_optimizer
 
-    trainer_kwargs = dict(cfg.trainer.get("kwargs") or {})
-    device = resolve_device(trainer_kwargs.pop("device", None))
-    _check_parallel(cfg, device)
-
+    lead = mesh is None or mesh.is_lead
     saved_dir = Path(cfg.main.saved_dir)
     saved_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_yaml(saved_dir / "config.yaml")
+    if lead:
+        cfg.to_yaml(saved_dir / "config.yaml")
+    if mesh is not None and mesh.hosts > 1:
+        # the JAX package's multi-host default: every rank writes its shards
+        trainer_kwargs.setdefault("checkpoint_backend", "orbax_async")
 
     num_epochs = trainer_kwargs.get("num_epochs", 1)
     seed_state = seed_everything(cfg.main.get("random_seed", "vsr"), num_epochs)
@@ -156,7 +256,7 @@ def train_from_config(cfg: Cfg):
 
     logger.info("Create the logger and the monitor.")
     tb_logger = None
-    if cfg.get("logger"):
+    if cfg.get("logger") and lead:
         logger_kwargs = dict(cfg.logger.get("kwargs") or {})
         logger_kwargs.pop("dummy_input", None)
         tb_logger = LOGGERS.get(cfg.logger.name)(log_dir=saved_dir / "log", net=net, **logger_kwargs)
@@ -176,6 +276,7 @@ def train_from_config(cfg: Cfg):
         logger=tb_logger,
         monitor=monitor,
         seed_state=seed_state,
+        mesh=mesh,
         **trainer_kwargs,
     )
 
@@ -199,11 +300,14 @@ def test_from_config(cfg: Cfg):
     _import_components()
     pred_kwargs = dict(cfg.predictor.get("kwargs") or {})
     device = resolve_device(pred_kwargs.pop("device", None))
-    parallel = _check_parallel(cfg, device)
+    return _test(cfg, pred_kwargs, *build_mesh(cfg, device))
 
+
+def _test(cfg: Cfg, pred_kwargs: dict, mesh, device: torch.device):
     saved_dir = Path(cfg.main.saved_dir)
     saved_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_yaml(saved_dir / "config.yaml")
+    if mesh is None or mesh.is_lead:
+        cfg.to_yaml(saved_dir / "config.yaml")
 
     logger.info("Create the testing dataset and dataloader.")
     data_dir = Path(cfg.dataset.kwargs.data_dir)
@@ -225,7 +329,8 @@ def test_from_config(cfg: Cfg):
         loss_fns=loss_fns,
         loss_weights=loss_weights,
         metric_fns=metric_fns,
-        parallel=parallel,
+        parallel=dict(cfg.get("parallel") or {}),
+        mesh=mesh,
         **pred_kwargs,
     )
 
@@ -240,8 +345,7 @@ def test_from_config(cfg: Cfg):
 
 
 def main(config_path, test: bool = False):
-    cfg = load_config(config_path)
-    return test_from_config(cfg) if test else train_from_config(cfg)
+    return run(load_config(config_path), test)
 
 
 def _parse_args():

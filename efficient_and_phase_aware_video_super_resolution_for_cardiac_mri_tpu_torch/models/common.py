@@ -16,9 +16,19 @@ and ``C_out·kh·kw`` for a transposed conv (what the JAX package's
 explicit ``torch.Generator``; FRVSR redraws its kernels Xavier-uniform
 (``init_xavier_``, the JAX package's ``xavier_conv_init``).  BatchNorm
 starts at weight 1, bias 0, running mean 0 and variance 1.
+
+Under a data mesh the JAX package's BatchNorm reduces over the global
+batch (GSPMD), not over each device's slice.  Inside
+:func:`batch_norm_group` the port's BatchNorms do the same in training:
+each rank's per-channel sum, sum of squares and count go through one
+differentiable all-reduce over the data ranks (its backward all-reduces
+the gradients of those sums), so the normalisation, the gradients and the
+running statistics are the single-device ones.  ``nn.SyncBatchNorm`` is
+not used: it refuses CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -80,13 +90,95 @@ def conv3d(in_features: int, features: int, kernel_size: int | tuple[int, int, i
     return conv
 
 
+#: the process group a training BatchNorm reduces its statistics over
+_BN_GROUP = None
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Training BatchNorms inside reduce over ``group`` (None: locally)."""
+    global _BN_GROUP
+    previous, _BN_GROUP = _BN_GROUP, group
+    try:
+        yield
+    finally:
+        _BN_GROUP = previous
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``group``; the gradient is summed over it likewise."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone()
+        torch.distributed.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def batch_norm_active() -> bool:
+    return _BN_GROUP is not None
+
+
+def global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                      dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Training-mode BatchNorm of ``x`` over the global batch of the ranks
+    in the active :func:`batch_norm_group`, computed in ``dtype`` (``x``'s
+    by default): the biased variance normalises, the unbiased one over the
+    global count updates the running variance."""
+    dtype = dtype or x.dtype
+    x = x.to(dtype)
+    dims = [0, *range(2, x.dim())]
+    c = x.shape[1]
+    count = x.new_full((1,), x.numel() // c)
+    stats = _AllReduce.apply(torch.cat([x.sum(dims), (x * x).sum(dims), count]), _BN_GROUP)
+    n = stats[-1]
+    mean = stats[:c] / n
+    var = stats[c:2 * c] / n - mean * mean
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
+    if bn.affine:
+        y = y * bn.weight.to(dtype).view(shape) + bn.bias.to(dtype).view(shape)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            m = bn.momentum
+            unbiased = var * (n / (n - 1))
+            bn.running_mean.copy_(bn.running_mean.to(dtype) * (1 - m) + mean * m)
+            bn.running_var.copy_(bn.running_var.to(dtype) * (1 - m) + unbiased * m)
+            bn.num_batches_tracked.add_(1)
+    return y
+
+
+class _GlobalBatchNorm:
+    """Mixin: the global-batch path in training inside a group."""
+
+    def forward(self, x):
+        if self.training and batch_norm_active():
+            return global_batch_norm(self, x)
+        return super().forward(x)
+
+
+class BatchNorm2d(_GlobalBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_GlobalBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(features: int, dims: int = 2, cls: type[nn.Module] | None = None) -> nn.Module:
     """``nn.BatchNorm2d`` / ``nn.BatchNorm3d`` (or its subclass ``cls``) at
     eps 1e-5 and momentum 0.1.  In training it normalises with the biased
     batch variance and updates the running variance with the unbiased one,
     the semantics the JAX package's ``TorchBatchNorm`` copies; in eval it
     uses the running statistics."""
-    cls = cls or {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
+    cls = cls or {2: BatchNorm2d, 3: BatchNorm3d}[dims]
     return cls(features, eps=1e-5, momentum=0.1)
 
 

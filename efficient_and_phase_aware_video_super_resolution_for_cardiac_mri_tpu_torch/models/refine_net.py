@@ -257,6 +257,9 @@ class RefineNet(nn.Module):
     (the JAX package's ``RefineNet.remat``).
     """
 
+    #: registered but never called (quirk #3): no gradient, no optimizer state
+    unused_parameters = ("refine_block.prelu.weight",)
+
     def __init__(
         self,
         in_channels: int,

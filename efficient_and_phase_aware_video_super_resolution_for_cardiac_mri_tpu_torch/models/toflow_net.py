@@ -39,16 +39,20 @@ from torch import nn
 from ..ops import telemetry
 from ..ops.resize import resize_bilinear, upsample_bicubic
 from ..ops.warp import flow_warp
-from .common import PromotedConv2d, batch_norm, conv2d, pad_to_multiple
+from .common import (BatchNorm2d, PromotedConv2d, batch_norm, batch_norm_active, conv2d,
+                     global_batch_norm, pad_to_multiple)
 
 
-class _BatchNorm2d(nn.BatchNorm2d):
+class _BatchNorm2d(BatchNorm2d):
     """``nn.BatchNorm2d`` in the promoted dtype of its input and its
     parameters; a training step's running statistics are computed in that
-    dtype and stored back in the buffers' own."""
+    dtype and stored back in the buffers' own (over the global batch
+    inside ``common.batch_norm_group``)."""
 
     def forward(self, x):
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.training and batch_norm_active():
+            return global_batch_norm(self, x, dtype)
         if dtype == x.dtype == self.weight.dtype == self.running_mean.dtype:
             return super().forward(x)
         mean, var = self.running_mean.to(dtype), self.running_var.to(dtype)

@@ -8,8 +8,21 @@ JAX package's optax variants imitate (its Adam is torch's coupled-L2 Adam,
 :class:`Optimizer` keeps the JAX package's surface: the config is read
 first, ``init(params)`` makes the optimizer over the net's parameters, and
 ``set_lr`` is what an epoch-level scheduler calls.  ``grad_clip_norm`` clips
-the global gradient norm before each update; ``skip_nonfinite`` is not
-ported yet.
+the global gradient norm before each update.
+
+``skip_nonfinite: N`` is the JAX package's ``optax.apply_if_finite`` guard
+(with optax's give-up-and-apply disabled): a step whose gradients hold a
+NaN or an inf applies no update, so the parameters, the optimizer's state
+and its step count are left as they were, and the clip sits inside the
+guard.  The check, the skip and the two counters stay on the device, so a
+step adds no host sync: one fused non-finite scan of the gradients
+(``torch._amp_foreach_non_finite_check_and_unscale_`` at scale 1, which is
+exact) gives a ``found_inf`` flag; Adam, AdamW and SGD then run fused and
+take that flag themselves (their kernels skip the update and take back the
+step increment on the device); the other optimizers run as configured and
+their new parameters and state tensors are selected against the old ones
+with ``torch.where``.  :meth:`Optimizer.check_nonfinite`, at an epoch
+boundary, fetches the counters once.
 
 The schedulers are copies of the JAX package's, with torch's per-epoch
 semantics, including the ``ReduceLROnPlateau`` branch the reference declares
@@ -31,40 +44,137 @@ _DEFAULT_LR = {
 }
 
 
+#: the optimizers whose fused kernels take a ``found_inf`` flag
+_FUSED_FOUND_INF = {"Adam", "AdamW", "SGD"}
+
+
 class Optimizer:
     """A ``torch.optim`` class by name, its kwargs and the base lr."""
 
     def __init__(self, name: str, **kwargs):
         if name not in _DEFAULT_LR:
             raise KeyError(f"Unknown optimizer {name!r}. Available: {sorted(_DEFAULT_LR)}")
-        if kwargs.pop("skip_nonfinite", 0):
-            raise NotImplementedError(
-                "optimizer knob skip_nonfinite is not implemented in the PyTorch port yet "
-                "(ROADMAP queue 1, item 6)"
-            )
         lr = kwargs.pop("lr", None)
         self.name = name
         self.base_lr = _DEFAULT_LR[name] if lr is None else float(lr)
         self.grad_clip_norm = kwargs.pop("grad_clip_norm", None)
+        self.skip_nonfinite = int(kwargs.pop("skip_nonfinite", 0) or 0)
         self.kwargs = kwargs
 
     def init(self, params) -> torch.optim.Optimizer:
-        """The torch optimizer over ``params``, at the base lr."""
-        return getattr(torch.optim, self.name)(list(params), lr=self.base_lr, **self.kwargs)
+        """The torch optimizer over ``params``, at the base lr; with
+        ``skip_nonfinite`` it carries the guard's device counters
+        ``nonfinite`` = [consecutive, total] skipped steps."""
+        params = list(params)
+        kwargs = dict(self.kwargs)
+        if self.skip_nonfinite and self.name in _FUSED_FOUND_INF:
+            kwargs["fused"] = True
+        opt = getattr(torch.optim, self.name)(params, lr=self.base_lr, **kwargs)
+        if self.skip_nonfinite:
+            device = params[0].device if params else torch.device("cpu")
+            opt.nonfinite = torch.zeros(2, dtype=torch.int64, device=device)
+        return opt
 
     def step(self, opt: torch.optim.Optimizer) -> None:
         """One update from the gradients in ``.grad``, clipped first when
-        ``grad_clip_norm`` is set."""
+        ``grad_clip_norm`` is set; with ``skip_nonfinite`` none at all when
+        a gradient is not finite."""
+        params = [p for group in opt.param_groups for p in group["params"]]
+        if not self.skip_nonfinite:
+            if self.grad_clip_norm:
+                torch.nn.utils.clip_grad_norm_(params, self.grad_clip_norm)
+            opt.step()
+            return
+        found_inf = _found_inf(params, opt.nonfinite.device)
         if self.grad_clip_norm:
-            params = [p for group in opt.param_groups for p in group["params"]]
             torch.nn.utils.clip_grad_norm_(params, self.grad_clip_norm)
-        opt.step()
+        if self.name in _FUSED_FOUND_INF:
+            opt.found_inf = found_inf
+            try:
+                opt.step()
+            finally:
+                del opt.found_inf
+        else:
+            _masked_step(opt, params, found_inf)
+        bad = found_inf.to(torch.int64)
+        consecutive, total = opt.nonfinite.unbind()
+        opt.nonfinite.copy_(torch.stack([(consecutive + 1) * bad, total + bad]))
+
+    def check_nonfinite(self, opt: torch.optim.Optimizer) -> int:
+        """Epoch-boundary guard for ``skip_nonfinite``: raise once N
+        consecutive steps had non-finite gradients (every one of them was
+        skipped, so the parameters are still clean), else return the total
+        of skipped steps so far.  Costs one fetch of two integers."""
+        if not self.skip_nonfinite or getattr(opt, "nonfinite", None) is None:
+            return 0
+        consecutive, total = (int(v) for v in opt.nonfinite.tolist())
+        if consecutive >= self.skip_nonfinite:
+            raise RuntimeError(
+                f"{consecutive} consecutive non-finite gradient steps (the "
+                f"configured skip_nonfinite limit is {self.skip_nonfinite}). "
+                f"Every bad update was skipped — params and checkpoints are "
+                f"finite — but the run has diverged; aborting."
+            )
+        return total
 
     @staticmethod
     def set_lr(opt: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
         for group in opt.param_groups:
             group["lr"] = float(lr)
         return opt
+
+    @staticmethod
+    def state_dict(opt: torch.optim.Optimizer) -> dict:
+        """``opt.state_dict()`` plus the guard's counters (as integers)."""
+        state = opt.state_dict()
+        if getattr(opt, "nonfinite", None) is not None:
+            state["nonfinite"] = [int(v) for v in opt.nonfinite.tolist()]
+        return state
+
+    @staticmethod
+    def load_state_dict(opt: torch.optim.Optimizer, state: dict) -> None:
+        state = dict(state)
+        counters = state.pop("nonfinite", None)
+        opt.load_state_dict(state)
+        if counters is not None and getattr(opt, "nonfinite", None) is not None:
+            opt.nonfinite.copy_(torch.tensor(counters, dtype=torch.int64))
+
+
+def _found_inf(params, device) -> torch.Tensor:
+    """1.0 on the device when any gradient holds a NaN or an inf, else 0.0
+    (the unscale by 1 leaves every gradient bit for bit as it was)."""
+    found = torch.zeros((), dtype=torch.float32, device=device)
+    grads = [p.grad for p in params if p.grad is not None]
+    by_device: dict = {}
+    for g in grads:
+        by_device.setdefault((g.device, g.dtype), []).append(g)
+    for (dev, _), group in by_device.items():
+        flag = torch.zeros((), dtype=torch.float32, device=dev)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            group, flag, torch.ones((), dtype=torch.float32, device=dev))
+        found = torch.maximum(found, flag.to(device))
+    return found
+
+
+def _masked_step(opt: torch.optim.Optimizer, params, found_inf: torch.Tensor) -> None:
+    """``opt.step()`` whose parameters and state tensors are kept as they
+    were where ``found_inf`` is set (the optimizers without a fused flag)."""
+    keep = found_inf.bool()
+    old_params = [p.detach().clone() for p in params]
+    old_state = {id(p): {k: v.clone() for k, v in opt.state[p].items()
+                         if isinstance(v, torch.Tensor)}
+                 for p in params if p in opt.state}
+    opt.step()
+    with torch.no_grad():
+        for p, old in zip(params, old_params):
+            p.copy_(torch.where(keep.to(p.device), old, p))
+            for k, v in opt.state[p].items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                before = old_state.get(id(p), {}).get(k)
+                if before is None:  # first step: the state starts at zero
+                    before = torch.zeros_like(v)
+                v.copy_(torch.where(keep.to(v.device), before, v))
 
 
 class LRScheduler:

@@ -45,8 +45,13 @@ The JAX package's serving knobs, each computing what it computes there:
   of consecutive items stacked per (patient, slice) for the single-image
   and multi-frame families.
 
-``pad_h`` is still to port: a config that sets it raises
-``NotImplementedError``.
+With a ``mesh`` (``parallel/mesh.py``) the items are dealt round-robin to
+the ranks (every rank holds the whole net, so a model axis splits items
+too); each rank runs its items through the same loop, and the lead rank
+gathers every rank's fetched scores, frames and telemetry and folds them
+in item order, so the Test log, the CSV and the exports are the meshless
+run's.  ``pad_h`` (the spatial axis's padding) is still to port: a config
+that sets it raises ``NotImplementedError`` (ROADMAP item 10b).
 """
 from __future__ import annotations
 
@@ -59,6 +64,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from ..config import PREDICTORS
 from ..ops import telemetry as tel
@@ -130,6 +137,7 @@ class BasePredictor:
         tile_overlap: int | None = None,
         seam_stats: bool | str = "first",
         parallel=None,
+        mesh=None,
         **knobs,
     ):
         # ``tile``: the forward on fixed-shape overlapping windows, exact when
@@ -150,7 +158,7 @@ class BasePredictor:
                     f"tile {hw} must exceed 2*tile_overlap "
                     f"({2 * int(tile_overlap)}) and tile_overlap must be >= 0"
                 )
-            if parallel:
+            if parallel or mesh is not None:
                 raise ValueError(
                     "tile is a single-device serving strategy; unset parallel/mesh "
                     "(scale tiled serving by devices via tools/batch_infer)"
@@ -166,9 +174,11 @@ class BasePredictor:
             default = DEFERRED_KNOBS[knob]
             if value != default and (value or default):
                 raise NotImplementedError(
-                    f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet"
+                    f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet "
+                    "(ROADMAP queue 1, item 10b)"
                 )
         self.device = torch.device(device)
+        self.mesh = mesh
         self.telemetry = bool(telemetry)
         self.telemetry_warn_frac = float(telemetry_warn_frac)
         #: the run's per-site aggregate of the items' telemetry summaries
@@ -323,15 +333,28 @@ class BasePredictor:
             results = [header]
         self.item_seconds = []
         self.seam_summary = {}
+        split = self.mesh is not None and self.mesh.size > 1
+        if split:
+            self.test_dataloader.set_item_shard(self.mesh.rank, self.mesh.size)
+        fetched = []  # under a split: this rank's items, folded by the lead
 
         def finish(item):
-            """Fetch one launched item (blocks on its event only) and fold it
-            into the log and the exports, in launch order."""
-            nonlocal frames, count
-            t_item, true_T, patient, sid, filename, fetch, seam, sites = item
+            """Fetch one launched item (blocks on its event only); fold it
+            into the log and the exports, in launch order, or keep it for
+            the lead."""
+            t_item, index, true_T, patient, sid, filename, fetch, seam, sites = item
             got = fetch.wait()
-            total, losses, metrics, out_d = got["total"], got["losses"], got["metrics"], got["frames"]
             self.item_seconds.append(time.perf_counter() - t_item)
+            record = (index, true_T, patient, sid, filename, got, seam, sites)
+            if split:
+                fetched.append(record)
+            else:
+                fold(record)
+
+        def fold(record):
+            nonlocal frames, count
+            _, true_T, patient, sid, filename, got, seam, sites = record
+            total, losses, metrics, out_d = got["total"], got["losses"], got["metrics"], got["frames"]
             # {} when nothing was recorded
             summary = tel.summarize(dict(zip(sites, torch.from_numpy(got["triples"])))) \
                 if sites else {}
@@ -372,18 +395,29 @@ class BasePredictor:
             # bucketing pads time only: the masks see the true (H, W)
             masks = self._metric_masks(patient, np.shape(self._targets(batch))[-3:-1])
             total, losses, metrics, out_d, seam, collector = self._step(batch, masks)
-            pipe.push((t_item, true_T, patient, sid, filename,
+            pipe.push((t_item, index, true_T, patient, sid, filename,
                        _fetch_item(total, losses, metrics, out_d, collector), seam,
                        list(collector.triples)))
         pipe.drain()
+        lead = not split or self.mesh.is_lead
+        if split:
+            everyone = [None] * self.mesh.size if lead else None
+            dist.gather_object(fetched, everyone, dst=0, group=self.mesh.host_group)
+            if lead:
+                for record in sorted((r for part in everyone for r in part), key=lambda r: r[0]):
+                    fold(record)
         elapsed = max(time.perf_counter() - t0, 1e-9)
         self.throughput = {"frames_per_sec": frames / elapsed, "frames": frames}
-        if self.exported:
+        if self.exported and lead:
             self._finish_export(results)
-        if self.export_nifti:
+        if self.export_nifti and lead:
             self._finish_nifti()
         for key in log:
             log[key] /= max(count, 1)
+        if split:  # every rank returns the lead's log
+            shared = [log]
+            dist.broadcast_object_list(shared, src=0, group=self.mesh.host_group)
+            log = shared[0]
         if self.telemetry_summary:
             LOG.info("Windowed-op telemetry: %s.", tel.format_summary(self.telemetry_summary))
         if self.seam_summary:
@@ -392,7 +426,8 @@ class BasePredictor:
                 self.seam_summary["items"], self.seam_summary["max_rms"],
                 self.seam_summary["max_abs"],
             )
-        LOG.info(f"Test log: {log}.")
+        if lead:
+            LOG.info(f"Test log: {log}.")
         self.log = log
         return log
 

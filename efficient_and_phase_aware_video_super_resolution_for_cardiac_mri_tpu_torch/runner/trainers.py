@@ -42,12 +42,27 @@ The JAX package's trainer knobs, each computing what it computes there:
   out-of-window fraction exceeds ``telemetry_warn_frac``.  The train step
   never collects.
 
+* ``checkpoint_backend``: ``pickle`` (the default) writes the reference's
+  ``.pth``; ``orbax`` / ``orbax_async`` write ``torch.distributed.checkpoint``
+  directories synchronously or in the background (``runner/checkpoint.py``),
+  waited for at the end of the run.
+
 With ``EVSR_PROFILE_DIR`` set, each train and valid epoch is traced by
 ``torch.profiler`` into ``EVSR_PROFILE_DIR/train_epoch_<N>`` and
 ``valid_epoch_<N>`` (``utils/profiling.trace``), as in the JAX package.
 
-The knobs still to port raise ``NotImplementedError`` naming their ROADMAP
-item when set to anything but their default.
+With a ``mesh`` (``parallel/mesh.py``) the step runs on the module
+``parallel.partition`` gives: DDP over the data ranks, or FSDP2 (ZeRO-3)
+for a model axis.  The loaders yield each rank's slice of the global
+batch; BatchNorm reduces over the data ranks while the batch is sliced;
+``grad_accum_steps`` syncs the gradients on the last microbatch only
+(``no_sync`` / ``set_requires_gradient_sync``); the epoch's logged sums
+are averaged over the data ranks before the log, the monitor and the
+scheduler see them, so every rank takes the same decisions.  The lead rank
+alone writes the logger's events and the ``.pth`` (gathered whole first
+under a model axis); a directory checkpoint is written by every rank.
+``skip_nonfinite`` is checked at each epoch boundary, after the train log,
+as in the JAX package (``runner/optim.py``).
 """
 from __future__ import annotations
 
@@ -59,7 +74,9 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import TRAINERS
+from ..models.common import batch_norm_group
 from ..ops import telemetry as tel
 from ..utils import casting
 from ..utils.profiling import trace
@@ -70,11 +87,7 @@ from . import common
 
 LOG = logging.getLogger(__name__)
 
-#: trainer knobs of the JAX package that this port does not implement yet:
-#: their default, and the ROADMAP queue-1 item that ports them
-DEFERRED_KNOBS = {
-    "checkpoint_backend": ("pickle", 10),
-}
+CHECKPOINT_BACKENDS = ("pickle", "orbax", "orbax_async")
 
 
 class BaseTrainer:
@@ -107,21 +120,28 @@ class BaseTrainer:
         grad_accum_steps: int = 1,
         aot_cache: str | None = None,
         int_feed: bool = False,
-        **knobs,
+        mesh: parallel.Mesh | None = None,
+        checkpoint_backend: str = "pickle",
     ):
-        for knob, value in knobs.items():
-            if knob not in DEFERRED_KNOBS:
-                raise TypeError(f"{type(self).__name__} got an unexpected keyword argument {knob!r}")
-            default, item = DEFERRED_KNOBS[knob]
-            if value != default and (value or default):
-                raise NotImplementedError(
-                    f"trainer knob {knob}={value!r} is not implemented in the PyTorch port yet "
-                    f"(ROADMAP queue 1, item {item})"
-                )
+        if checkpoint_backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(
+                f"checkpoint_backend must be one of {CHECKPOINT_BACKENDS}, got {checkpoint_backend!r}")
+        self.checkpoint_backend = checkpoint_backend
         self.device = torch.device(device)
+        self.mesh = mesh
         self.train_dataloader = train_dataloader
         self.valid_dataloader = valid_dataloader
+        for loader in (train_dataloader, valid_dataloader):
+            if mesh is not None and hasattr(loader, "set_mesh"):
+                loader.set_mesh(mesh)
+        self.compute_dtype = casting.resolve_dtype(compute_dtype)
         self.net = net.to(self.device) if net is not None else None
+        #: FSDP2 computes in its own mixed-precision policy: no cast copies
+        self._fsdp = mesh is not None and mesh.model > 1
+        #: the module the step calls (the net, its DDP wrapper, or the net
+        #: sharded in place by FSDP2)
+        self.model = parallel.partition(self.net, mesh, self.compute_dtype) \
+            if self.net is not None else None
         self.loss_fns = list(loss_fns or [])
         self.loss_weights = torch.tensor(
             loss_weights if loss_weights is not None else [1.0] * len(self.loss_fns),
@@ -157,7 +177,6 @@ class BaseTrainer:
         self.preempt_after_epochs = int(preempt_after_epochs)
         self.preempt_after_seconds = float(preempt_after_seconds)
         self._preempt_requested = False
-        self.compute_dtype = casting.resolve_dtype(compute_dtype)
         self.grad_accum_steps = max(1, int(grad_accum_steps))
         common.accept_aot_cache(aot_cache)
         #: int_feed's on-device (means, std + 1e-10), or None
@@ -204,6 +223,14 @@ class BaseTrainer:
     def _resolve_int_feed(self):
         """Move the datasets' explicit-stats Normalize to the device, if every
         dataset has one (the JAX package's ``_resolve_int_feed``)."""
+        if self.mesh is not None and self.mesh.hosts > 1:
+            # the JAX package's rule: a run of several hosts keeps one feed dtype
+            LOG.warning(
+                "int_feed disabled: the compacted feed dtype is data-dependent "
+                "and multi-process traces must agree on one signature."
+            )
+            self.int_feed = False
+            return
         datasets = [
             getattr(loader, "dataset", None)
             for loader in (self.train_dataloader, self.valid_dataloader)
@@ -269,12 +296,21 @@ class BaseTrainer:
             out[key] = value
         return out
 
+    @property
+    def _step_dtype(self):
+        """The dtype ``casting.forward_in`` runs the step in (FSDP2 casts
+        by its own policy)."""
+        return None if self._fsdp else self.compute_dtype
+
     def _forward(self, batch, training: bool, state=None):
         """Forward and the weighted losses → (total, losses, outputs, target);
         ``state`` is the step's cast weights (``casting.cast_state``)."""
         batch = self._feed(batch)
-        outputs = casting.forward_in(self.net, self.compute_dtype, *self._model_inputs(batch),
-                                     state=state)
+        sharded = training and self.mesh is not None and getattr(
+            self.train_dataloader, "sharded", False)
+        with batch_norm_group(self.mesh.data_group if sharded else None):
+            outputs = casting.forward_in(self.model, self._step_dtype,
+                                         *self._model_inputs(batch), state=state)
         target = self._targets(batch)
         losses = self._compute_losses(outputs, batch, training)
         total = torch.sum(torch.stack(losses) * self.loss_weights)
@@ -292,15 +328,16 @@ class BaseTrainer:
             )
         m = b // accum
         self.opt.zero_grad(set_to_none=True)
-        state = casting.cast_state(self.net, self.compute_dtype)  # shared by the microbatches
+        state = casting.cast_state(self.model, self._step_dtype)  # shared by the microbatches
         sums, displays = None, []
         for i in range(accum):
             micro = batch if accum == 1 else {
                 k: v[i * m:(i + 1) * m] if isinstance(v, np.ndarray) else v
                 for k, v in batch.items()
             }
-            total, losses, outputs, target = self._forward(micro, True, state)
-            total.backward()  # sums the microbatches' gradients into .grad
+            with self._gradient_sync(i == accum - 1):
+                total, losses, outputs, target = self._forward(micro, True, state)
+                total.backward()  # sums the microbatches' gradients into .grad
             with torch.no_grad():
                 metrics = self._compute_metrics(outputs, target)
                 displays.append(self._display_outputs(outputs).detach())
@@ -319,11 +356,23 @@ class BaseTrainer:
         display = displays[0] if accum == 1 else torch.cat(displays)
         return sums[0], list(sums[1:1 + n]), list(sums[1 + n:]), display
 
+    def _gradient_sync(self, sync: bool):
+        """Under a mesh, the gradients of every microbatch but the last stay
+        local (DDP ``no_sync``; FSDP2 ``set_requires_gradient_sync``)."""
+        if self.mesh is None or sync:
+            if self._fsdp:
+                self.model.set_requires_gradient_sync(True)
+            return contextlib.nullcontext()
+        if self._fsdp:
+            self.model.set_requires_gradient_sync(False)
+            return contextlib.nullcontext()
+        return self.model.no_sync()
+
     @torch.no_grad()
     def _keep_buffers(self, state: dict) -> None:
         """Copy the step's updates of the cast buffers (BatchNorm running
         statistics) back into the net's own, in their dtype."""
-        for name, buf in self.net.named_buffers():
+        for name, buf in self.model.named_buffers():
             cast = state.get(name)
             if cast is not None and cast is not buf:
                 buf.copy_(cast)
@@ -356,6 +405,9 @@ class BaseTrainer:
                 frames += self._frame_count(batch)
         log = common.init_log(self.loss_fns, self.metric_fns)
         if acc is not None:
+            # each step's values are its global batch's means: average the
+            # data ranks' sums (equal slices, or the same whole batch)
+            parallel.all_reduce_mean(acc, self.mesh)
             for key, val in zip(log, acc.tolist()):  # the epoch's one fetch
                 log[key] = val
         # measured after the fetch, so it includes the device's drain
@@ -417,6 +469,10 @@ class BaseTrainer:
                 f"Train log: {train_log} "
                 f"({self.throughput['train_steps_per_sec']:.2f} steps/sec)."
             )
+            if self.optimizer is not None and self.optimizer.skip_nonfinite:
+                skipped = self.optimizer.check_nonfinite(self.opt)  # raises on divergence
+                if skipped:
+                    LOG.warning(f"{skipped} non-finite gradient steps skipped so far.")
             with trace(f"valid_epoch_{self.epoch}"):
                 valid_log, valid_batch, valid_outputs = self._run_epoch("validation")
             LOG.info(f"Valid log: {valid_log}.")
@@ -427,7 +483,7 @@ class BaseTrainer:
                 new_lr = self.lr_scheduler.step(valid_log.get("Loss"))
                 self.optimizer.set_lr(self.opt, new_lr)
 
-            if self.logger is not None:
+            if self.logger is not None and self._lead:
                 self.logger.write(
                     self.epoch, train_log, train_batch, _to_numpy(train_outputs),
                     valid_log, valid_batch, _to_numpy(valid_outputs),
@@ -467,26 +523,110 @@ class BaseTrainer:
                     LOG.info(f"Preemption checkpoint saved to {path}; exiting.")
                 break
             self.epoch += 1
+        # commit barrier for orbax_async saves: nothing leaves the loop with
+        # a checkpoint still being written (a no-op otherwise)
+        ckpt_io.wait_for_async_saves()
         if self.logger is not None:
             self.logger.close()
 
     # ----------------------------------------------------------- checkpoint
-    def save(self, path):
-        ckpt_io.save_checkpoint(
-            path,
-            net_state=self.net.state_dict(),
-            optimizer_state=self.opt.state_dict() if self.opt is not None else None,
-            lr_scheduler_state=self.lr_scheduler.state_dict() if self.lr_scheduler else None,
-            monitor_state=self.monitor.state_dict() if self.monitor else None,
-            epoch=self.epoch,
-            seed_state=self.seed_state.state_dict(),
+    @property
+    def _lead(self) -> bool:
+        return self.mesh is None or self.mesh.is_lead
+
+    def _param_names(self) -> list[str]:
+        return [name for name, _ in self.net.named_parameters()]
+
+    def _full_state(self) -> tuple[dict, dict | None]:
+        """The net's and the optimizer's whole state in the ``.pth``
+        layout (the optimizer's keyed by parameter index); under a model
+        axis gathered from the shards (a collective: every rank calls)."""
+        if not self._fsdp:
+            opt = self.optimizer.state_dict(self.opt) if self.opt is not None else None
+            return self.net.state_dict(), opt
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            get_model_state_dict,
+            get_optimizer_state_dict,
         )
+
+        # gathered to the lead alone (the other ranks get empty dicts)
+        full = StateDictOptions(full_state_dict=True, cpu_offload=True)
+        net_state = get_model_state_dict(self.net, options=full)
+        opt = None
+        if self.opt is not None:
+            opt = get_optimizer_state_dict(self.net, self.opt, options=full)
+            if self._lead:
+                opt = _by_index(opt, self._param_names())
+                if getattr(self.opt, "nonfinite", None) is not None:
+                    opt["nonfinite"] = [int(v) for v in self.opt.nonfinite.tolist()]
+        return net_state, opt
+
+    def _load_full(self, net_state: dict, opt_state: dict | None) -> None:
+        """Inverse of :meth:`_full_state` (every rank calls)."""
+        if not self._fsdp:
+            self.net.load_state_dict(net_state, strict=True)
+            if self.opt is not None and opt_state is not None:
+                self.optimizer.load_state_dict(self.opt, opt_state)
+            return
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions,
+            set_model_state_dict,
+            set_optimizer_state_dict,
+        )
+
+        full = StateDictOptions(full_state_dict=True)
+        set_model_state_dict(self.net, net_state, options=full)
+        if self.opt is not None and opt_state is not None:
+            opt_state = dict(opt_state)
+            counters = opt_state.pop("nonfinite", None)
+            # the net's unused parameters have no state to load
+            set_optimizer_state_dict(self.net, self.opt, _by_name(opt_state, self._param_names()),
+                                     options=StateDictOptions(full_state_dict=True, strict=False))
+            if counters is not None and getattr(self.opt, "nonfinite", None) is not None:
+                self.opt.nonfinite.copy_(torch.tensor(counters, dtype=torch.int64))
+
+    def save(self, path):
+        """Every rank calls; ``pickle`` is written by the lead alone."""
+        meta = {"lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler else None,
+                "monitor": self.monitor.state_dict() if self.monitor else None,
+                "epoch": self.epoch, "seed_state": self.seed_state.state_dict()}
+        if self.checkpoint_backend == "pickle":
+            net_state, opt_state = self._full_state()
+            if self._lead:
+                ckpt_io.save_checkpoint(
+                    path, net_state=net_state, optimizer_state=opt_state,
+                    lr_scheduler_state=meta["lr_scheduler"], monitor_state=meta["monitor"],
+                    epoch=meta["epoch"], seed_state=meta["seed_state"])
+            return
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+
+        arrays = {"net": self.net.state_dict()}
+        if self.opt is not None:
+            arrays["net"], arrays["optimizer"] = get_state_dict(self.net, self.opt)
+            if getattr(self.opt, "nonfinite", None) is not None:
+                meta["nonfinite"] = [int(v) for v in self.opt.nonfinite.tolist()]
+        barrier = None
+        group = None
+        if self.mesh is not None:
+            group = self.mesh.host_group
+            barrier = lambda: torch.distributed.barrier(group=group)  # noqa: E731
+        ckpt_io.save_directory(path, arrays=arrays, meta=meta, lead=self._lead,
+                               asynchronous=self.checkpoint_backend == "orbax_async",
+                               process_group=group, barrier=barrier)
 
     def load(self, path):
         ckpt = ckpt_io.load_checkpoint(path, type(self.net).__name__)
-        self.net.load_state_dict(ckpt["net"], strict=True)
-        if self.opt is not None and ckpt.get("optimizer") is not None:
-            self.opt.load_state_dict(ckpt["optimizer"])
+        opt_state = ckpt.get("optimizer")
+        if opt_state is not None and opt_state.get("state") and isinstance(
+                next(iter(opt_state["state"])), str):  # a directory's, keyed by name
+            opt_state = _by_index(opt_state, self._param_names())
+            if ckpt.get("nonfinite") is not None:
+                opt_state["nonfinite"] = ckpt["nonfinite"]
+        if opt_state is None and ckpt.get("optimizer_jax") is not None and self.opt is not None:
+            opt_state = ckpt_io.optimizer_state_from_jax(self.opt, ckpt["optimizer_jax"],
+                                                         self._param_names())
+        self._load_full(ckpt["net"], opt_state)
         if self.lr_scheduler is not None and ckpt.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(ckpt["lr_scheduler"])
         if self.monitor is not None and ckpt.get("monitor"):
@@ -494,6 +634,28 @@ class BaseTrainer:
         self.epoch = (ckpt.get("epoch") or 0) + 1
         if ckpt.get("seed_state") is not None:
             self.seed_state = SeedState.from_state_dict(ckpt["seed_state"])
+
+
+def _by_index(opt_state: dict, names: list[str]) -> dict:
+    """An optimizer state dict keyed by parameter name → keyed by the
+    parameter's index in ``names`` (``torch.optim``'s own layout)."""
+    index = {name: i for i, name in enumerate(names)}
+    return {
+        **{k: v for k, v in opt_state.items() if k not in ("state", "param_groups")},
+        "state": {index[name]: value for name, value in opt_state["state"].items()},
+        "param_groups": [{**group, "params": [index[p] for p in group["params"]]}
+                         for group in opt_state["param_groups"]],
+    }
+
+
+def _by_name(opt_state: dict, names: list[str]) -> dict:
+    """Inverse of :func:`_by_index`."""
+    return {
+        **{k: v for k, v in opt_state.items() if k not in ("state", "param_groups")},
+        "state": {names[i]: value for i, value in opt_state["state"].items()},
+        "param_groups": [{**group, "params": [names[i] for i in group["params"]]}
+                         for group in opt_state["param_groups"]],
+    }
 
 
 def _to_numpy(x):

@@ -553,3 +553,87 @@ def test_small_edvr_on_the_card_matches_the_cpu(cuda, R):
     for name, p in net.named_parameters():
         rel = ((on_card[name].grad.cpu() - p.grad).abs().max() / p.grad.abs().max()).item()
         assert rel <= 1e-3, (name, rel)
+
+
+def test_skip_nonfinite_leaves_params_and_adam_state_bit_equal(cuda):
+    """``skip_nonfinite`` on the card (fused Adam with ``found_inf``): a
+    step with a NaN gradient leaves the parameters, both moments and the
+    step count bit for bit; the counters stay on the device."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.optim import (
+        Optimizer,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(64, 32, 3, 3, device=cuda, generator=gen)),
+              torch.nn.Parameter(torch.randn(64, device=cuda, generator=gen))]
+    opt = Optimizer("Adam", lr=1e-3, grad_clip_norm=1.0, skip_nonfinite=3)
+    state = opt.init(params)
+    assert state.nonfinite.device.type == "cuda"
+    for p in params:
+        p.grad = torch.randn(p.shape, device=cuda, generator=gen)
+    opt.step(state)
+    before = [(p.detach().clone(), {k: v.clone() for k, v in state.state[p].items()})
+              for p in params]
+    for p in params:
+        p.grad = torch.randn(p.shape, device=cuda, generator=gen)
+    params[1].grad[5] = float("nan")
+    opt.step(state)
+    for p, (value, moments) in zip(params, before):
+        assert torch.equal(p.detach(), value)
+        for key, v in moments.items():
+            assert torch.equal(state.state[p][key], v), key
+    assert state.nonfinite.tolist() == [1, 1] and opt.check_nonfinite(state) == 1
+
+
+def test_world_one_ddp_step_equals_the_unwrapped_step(cuda):
+    """A mesh of one (NCCL, the net under DDP) trains as the net alone:
+    the same losses and weights (1e-6 relative) and the same gate launches
+    a step."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
+        Dataloader,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        make_mesh,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel.distributed import (
+        free_port,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.optim import (
+        Optimizer,
+    )
+
+    rng = np.random.default_rng(0)
+    items = [{"lr_imgs": rng.standard_normal((7, 8, 8, 1)).astype(np.float32),
+              "hr_imgs": rng.standard_normal((3, 32, 32, 1)).astype(np.float32),
+              "pos_code": rng.uniform(-1, 1, (7, 1)).astype(np.float32)} for _ in range(4)]
+    kwargs = dict(in_channels=1, out_channels=1, num_features=[8, 8], upscale_factor=4,
+                  num_stages=1, update_memory=True, num_updated_frames=2, refine_window_size=5,
+                  positional_encoding=True)
+    runs = []
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+    try:
+        for mesh in (None, make_mesh(1, device=cuda)):
+            loader = Dataloader(items, batch_size=2)
+            trainer = VSRRefineNetTrainer(
+                device=cuda, train_dataloader=loader, valid_dataloader=loader,
+                net=RefineNet(**kwargs), loss_fns=[L1Loss()], loss_weights=[1.0],
+                optimizer=Optimizer("Adam", lr=1e-3), num_epochs=1, mesh=mesh, telemetry=False)
+            before = (lstm_gates.LAUNCHES, lstm_gates.BWD_LAUNCHES)
+            log, _, _ = trainer._run_epoch("training")
+            launches = (lstm_gates.LAUNCHES - before[0], lstm_gates.BWD_LAUNCHES - before[1])
+            runs.append((log, trainer.net.state_dict(), launches, type(trainer.model).__name__))
+    finally:
+        if made:
+            dist.destroy_process_group()
+    (log0, sd0, n0, kind0), (log1, sd1, n1, kind1) = runs
+    assert kind0 == "RefineNet" and kind1 == "DistributedDataParallel"
+    assert n0 == n1 and n0[0] > 0 and n0[1] > 0
+    assert log1["Loss"] == pytest.approx(log0["Loss"], rel=1e-6)
+    for key in sd0:
+        torch.testing.assert_close(sd1[key], sd0[key], rtol=1e-6, atol=1e-7, msg=key)

@@ -43,7 +43,7 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("runner.predictors", "runner.trainers", "runner.optim", "runner.monitor",
                  "runner.loggers", "runner.checkpoint", "tools.profile_train", "ops.tiling",
-                 "utils.casting"):
+                 "utils.casting", "parallel.mesh", "parallel.distributed", "tools.batch_infer"):
         assert f"{port.__name__}.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -114,10 +114,14 @@ def test_deferred_knobs_at_their_defaults_and_telemetry_are_accepted():
 
 
 def test_parallel_section_raises(tmp_path):
-    cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "parallel": {"num_devices": 2},
+    """A mesh of several devices runs (``tests/test_torch_parallel*.py``);
+    the spatial axis is still to port (ROADMAP item 10b)."""
+    cfg = Cfg({"main": {"saved_dir": str(tmp_path)},
+               "parallel": {"num_devices": 2, "spatial_parallel": 2},
                "predictor": {"name": "AcdcVSRRefineNetPredictor", "kwargs": {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(NotImplementedError, match="parallel.*10b"):
         run_port_test(cfg)
+    assert not (tmp_path / "config.yaml").exists()  # raised before any work
 
 
 @pytest.mark.parametrize("device", [None, "cuda:0", "cuda"])
@@ -133,8 +137,12 @@ def test_training_on_cuda_without_a_card_raises(monkeypatch, tmp_path, device):
 
 @pytest.mark.parametrize("knob,value", [("checkpoint_backend", "orbax")])
 def test_deferred_trainer_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
-        trainers.VSRRefineNetTrainer(device="cpu", **{knob: value})
+    """The trainer's last deferred knob is ported: ``orbax`` is accepted
+    (``tests/test_torch_parallel.py`` round-trips it); an unknown value
+    raises."""
+    assert getattr(trainers.VSRRefineNetTrainer(device="cpu", **{knob: value}), knob) == value
+    with pytest.raises(ValueError, match=knob):
+        trainers.VSRRefineNetTrainer(device="cpu", **{knob: "zarr"})
 
 
 @pytest.mark.parametrize("engine", [trainers.VSRRefineNetTrainer, VSRRefineNetPredictor])
@@ -146,15 +154,15 @@ def test_telemetry_warn_frac_is_ported(engine):
 
 
 def test_deferred_trainer_knobs_at_their_defaults_are_accepted():
-    defaults = {k: default for k, (default, _) in trainers.DEFERRED_KNOBS.items()}
-    trainers.VSRRefineNetTrainer(device="cpu", telemetry=False, **defaults)
+    trainers.VSRRefineNetTrainer(device="cpu", telemetry=False, checkpoint_backend="pickle",
+                                 mesh=None)
     with pytest.raises(TypeError):
         trainers.VSRRefineNetTrainer(device="cpu", no_such_knob=1)
 
 
 @pytest.mark.parametrize("section,match", [
-    ({"parallel": {"num_devices": 2}}, "parallel"),
-    ({"parallel": {"num_devices": 1, "spatial_parallel": 2}}, "parallel"),
+    ({"parallel": {"num_devices": 2, "pad_h": True}}, "parallel.*10b"),
+    ({"parallel": {"num_devices": 1, "spatial_parallel": 2}}, "parallel.*10b"),
 ])
 def test_training_sections_not_ported_raise(tmp_path, section, match):
     cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "net": {"name": "RefineNet", "kwargs": {}},
@@ -197,12 +205,13 @@ def test_ported_trainer_knobs_are_accepted(knob, value):
 @pytest.mark.parametrize("visible,parallel,error", [
     (1, {"num_devices": 1}, None),
     (1, {"num_devices": 8}, ValueError),
-    (4, {"num_devices": 4}, NotImplementedError),
-    (1, {"num_devices": 1, "model_parallel": 2}, NotImplementedError),
+    (4, {"num_devices": 4}, None),
+    (4, {"num_devices": 4, "spatial_parallel": 2}, NotImplementedError),
 ])
 def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
-    """On the card: one device runs, more than are visible raise the JAX
-    package's ``ValueError``, a mesh of several raises ``NotImplementedError``."""
+    """On the card: as many devices as are visible run (``main.run`` spawns
+    a rank each), more raise the JAX package's ``ValueError``, the spatial
+    axis raises ``NotImplementedError`` (ROADMAP item 10b)."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
@@ -212,5 +221,5 @@ def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
     if error is None:
         assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
     else:
-        with pytest.raises(error, match="num_devices"):
+        with pytest.raises(error, match="num_devices" if error is ValueError else "10b"):
             _check_parallel(cfg, torch.device("cuda:0"))

@@ -596,7 +596,9 @@ def test_jax_checkpoint_directory_resumes_at_its_epoch(tree, tmp_path):
     assert find_latest_checkpoint(ckpts) == ckpts / "model_preempted.pth"
     loaded = load_checkpoint(ckpts / "model_preempted.pth", "DUFNet")
     assert loaded["epoch"] == 7 and loaded["monitor"]["not_improved_count"] == 2
-    assert "optimizer" not in loaded and "seed_state" not in loaded  # optax state: item 5/6
+    # optax's Adam state and the SeedState are read too (ROADMAP item 6)
+    assert "optimizer" not in loaded and loaded["optimizer_jax"]["step"] == 0
+    assert loaded["seed_state"]["np_random_seeds"] == jax_seed_everything("vsr", 8).np_random_seeds
 
     seen = {}
     orig_load = trainers.BaseTrainer.load

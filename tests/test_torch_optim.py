@@ -136,6 +136,9 @@ def test_optimizer_names_defaults_and_deferred_knob():
         assert type(opt.init([torch.nn.Parameter(torch.zeros(2))])) is getattr(torch.optim, name)
     with pytest.raises(KeyError):
         optim.Optimizer("LBFGS")
-    with pytest.raises(NotImplementedError, match="skip_nonfinite"):
-        optim.Optimizer("Adam", skip_nonfinite=3)
+    # skip_nonfinite is ported (tests/test_torch_resume.py holds it to optax)
+    guarded = optim.Optimizer("Adam", skip_nonfinite=3)
+    state = guarded.init([torch.nn.Parameter(torch.zeros(2))])
+    assert guarded.skip_nonfinite == 3 and state.nonfinite.tolist() == [0, 0]
+    assert guarded.check_nonfinite(state) == 0
     assert optim.build_lr_scheduler(None, 0.1) is None
