@@ -13,8 +13,11 @@ plain PyTorch version; then the single-image family's serving and training
 (EDSR, SRFB, Bicubic ×4), the multi-frame family's (DUF, RBPN, TOFlow ×4)
 and the plain video family's (DRF, FRVSR ×4), whose paths run no
 hand-written kernel; then EDVR ×4 with the deformable conv's three
-hand-written kernels, each held against its plain version.  Phases, one or more lines each; any failure exits
-non-zero and no result is printed:
+hand-written kernels, each held against its plain version; then the
+serving daemon, the parallel runs and the training remainders; then the
+offline data pipeline, the flagship trained from scratch against Bicubic,
+and the DSB15 external eval.  Phases, one or more lines each; any failure
+exits non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
    TF32 off for convolutions and matrix products.
@@ -199,6 +202,49 @@ non-zero and no result is printed:
     ``EVSR_PROFILE_DIR`` set: a ``torch.profiler`` trace holding device
     kernels for ``train_epoch_1`` and ``valid_epoch_1``.
 
+26. the data axis at world size 1: phase 7's training for one epoch (8
+    steps) with ``parallel: {num_devices: 1}`` (a process group of one made
+    by the run: NCCL, the net wrapped in DDP) and unwrapped, in turns
+    (unwrapped, wrapped, wrapped, unwrapped), cuDNN deterministic: equal
+    logs and gate launches, no process group left after each run, ms a step
+    of each.
+27. two gloo ranks sharing ``cuda:0``, 4 steps of batch 16 (8 items a rank,
+    SGD) against the same steps at world size 1 in a group of one made for
+    them: loss and parameters within 1e-5 (correctness only, no rate).
+28. ``skip_nonfinite: 3`` at full width: a poisoned batch leaves the
+    weights and Adam's state bit-equal, the next step moves them, three in
+    a row raise.
+29. one epoch, a checkpoint and a resumed second epoch against two
+    uninterrupted epochs, for each ``checkpoint_backend`` (pickle, orbax,
+    orbax_async; cuDNN deterministic): equal logs.
+30. ``tools/batch_infer.py`` over phase 4's 2 clips against the predictor's
+    per-frame rows (its CSV, its GIFs and PNGs written by
+    ``utils/imgio.py``): PSNR within 1e-4 dB, SSIM within 1e-5; 756 gate
+    launches a clip; frames/s.
+
+31. the offline pipeline on the card's machine (numpy, no OpenCV or
+    imageio): ``tools/gen_synthetic_data`` at the convergence size (4 + 2
+    patients, 2 slices, 16 frames, HR 144, ×4) through ``acdc_preprocess``,
+    ``cardiac_cropping`` and ``gen_positional_encoding``, timed: the tree's
+    file counts, its 3/1/2 split, 16 frames a cropped GIF, both pickles;
+    then ``dsb15_preprocess`` on a DSB15 tree of the phantom (one test
+    patient, two sax series of 30 frames and a malformed one of 29 between
+    them, ×2 ×3 ×4): the malformed series skipped and its number kept.
+    ``dsb15_dicom2nifty`` runs only where ``dcm2niix`` is on ``PATH``;
+    otherwise the phase logs that it was skipped and why.
+32. the flagship's convergence: ``tools/convergence.py refine_net/exp1_x4``
+    on ``cuda:0`` for ``CONV_EPOCHS`` epochs of the shipped train YAML on
+    phase 31's phantom, then the shipped test YAMLs of RefineNet and
+    Bicubic with their export on: both gate kernels launched, every logged
+    loss finite, trained PSNR at least 1.0 dB over Bicubic's on the
+    held-out split, each export's CSV rows, GIFs (``GIF89a``, one image
+    block a frame) and PNGs (``\x89PNG``); the delta, the wall, ms a step
+    and the epochs printed.
+33. DSB15 external eval: ``configs/test/refine_net/exp1_x{2,3,4}_dsb15.yaml``
+    at full width with seeded weights on phase 31's DSB15 tree: finite
+    logs, exactly 756 gate launches a clip, a CSV row and a PNG a frame, a
+    GIF a series.
+
 Phase 4 also checks the data path's native NIfTI reader
 (``utils/native_io.py``, built by g++ at first use): it is enabled, it
 equals the Python reader on the tree's test files, and the eval's dataset
@@ -208,8 +254,8 @@ Phases 6 and 9 also time the kernels on bf16 operands, beside a bound at
 2-byte elements.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last is ``{"ok": true, "device": {...}}``.  Needs torch, numpy
 and PyYAML (the daemon reads its net from a config file; phases 22–23 write
-theirs as JSON), a C++ compiler with zlib for the native reader; no
-imageio, nothing of JAX.
+theirs as JSON), a C++ compiler with zlib for the native reader; no imageio
+or OpenCV (the exports are ``utils/imgio.py``'s), nothing of JAX.
 """
 from __future__ import annotations
 
@@ -2605,14 +2651,19 @@ def ddp_phases(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, card_line
         runs[name] = {"history": trainer.history, "launches": launches(lstm_gates),
                       "model": type(trainer.model).__name__,
                       "mesh": trainer.mesh.shape if trainer.mesh is not None else None,
+                      "backend": trainer.mesh.backend if trainer.mesh is not None else None,
+                      "group_left": dist.is_initialized(),
                       "step_ms": 1e3 / trainer.throughput["train_steps_per_sec"]}
         log("ddp", f"{name}: {runs[name]['model']}, mesh {runs[name]['mesh']}, Train log "
                    f"{trainer.history['train'][0]}, {runs[name]['step_ms']:.1f} ms a step, gate "
                    f"launches {runs[name]['launches']}")
     one, none = runs["world_1"], runs["unwrapped"]
+    # main's group of one belongs to its run: none is left after it returns
     if one["model"] != "DistributedDataParallel" or one["mesh"] != {"data": 1} or \
-            dist.get_world_size() != 1 or dist.get_backend() != distributed.backend_for(dev):
-        raise AssertionError(f"the world-1 run was not wrapped in a group of one: {one}")
+            one["backend"] != distributed.backend_for(dev) or \
+            any(run["group_left"] for run in runs.values()):
+        raise AssertionError(f"the world-1 run was not wrapped in a group of one of its own: "
+                             f"{ {k: {x: v[x] for x in ('model', 'mesh', 'backend', 'group_left')} for k, v in runs.items()} }")
     if one["launches"] != none["launches"] or one["launches"][0] != FWD_PER_STEP * STEPS_PER_EPOCH + \
             LAUNCHES_PER_CLIP * VALID_CLIPS:
         raise AssertionError(f"gate launches differ: {one['launches']} against {none['launches']}")
@@ -2626,7 +2677,7 @@ def ddp_phases(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, card_line
                 worst = max(worst, abs(got - want) / abs(want))
     wrapped = [runs[k]["step_ms"] for k in ("world_1", "world_1_b")]
     plain = [runs[k]["step_ms"] for k in ("unwrapped", "unwrapped_b")]
-    log("ddp", f"world 1 ({dist.get_backend()}, DDP) against unwrapped, in turns: largest relative "
+    log("ddp", f"world 1 ({one['backend']}, DDP) against unwrapped, in turns: largest relative "
                f"log difference {worst:.3e} (tol {TOL_WRAPPED}); ms a step wrapped "
                f"{wrapped[0]:.1f}, {wrapped[1]:.1f} (mean {sum(wrapped) / 2:.1f}), unwrapped "
                f"{plain[0]:.1f}, {plain[1]:.1f} (mean {sum(plain) / 2:.1f}) ({card_line})")
@@ -2638,10 +2689,14 @@ def ddp_phases(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, card_line
     # ---------------------------------- 27: two ranks on cuda:0 over gloo
     items = train_items(DDP_STEPS * TRAIN_BATCH, seed=5)
     state = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0)).state_dict()
-    # world 1 in the group of one that phase 26's run made (and kept)
+    # world 1 in a group of one made here for it
+    dist.init_process_group(distributed.backend_for(dev), world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{distributed.free_port()}")
     reference = step_trainer(state, items, make_mesh(1, device=dev), dev, **PHASE27_OPTIMIZER)
     ref_log, _, _ = reference._run_epoch("training")
     ref_state = {k: v.cpu() for k, v in reference.net.state_dict().items()}
+    del reference
+    dist.destroy_process_group()
     saved = tmp / "two_ranks"
     saved.mkdir()
     t0 = time.perf_counter()
@@ -2770,7 +2825,6 @@ def batch_infer_card(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, ckpt: Pa
     predictor's per-frame scores on the same clips and weights."""
     import csv
 
-    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner import predictors
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import batch_infer
 
     reset_launches(lstm_gates)
@@ -2780,17 +2834,11 @@ def batch_infer_card(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, ckpt: Pa
     counts = launches(lstm_gates)
     with open(tmp / "batch_infer.csv", newline="") as f:
         rows = list(csv.reader(f))[1:]
-    # the predictor's per-frame rows (its CSV; the GIF/PNG writers, which
-    # need imageio, stubbed)
+    # the predictor's per-frame rows (its CSV, beside its GIFs and PNGs)
     cfg = eval_config(tree, ckpt, tmp / "batch_infer_pred")
     cfg["metrics"] = [{"name": "PSNR"}, {"name": "SSIM"}]
     cfg["predictor"]["kwargs"].update(exported=True, device=str(dev))
-    dumps = predictors._dump_video, predictors._dump_image
-    predictors._dump_video = predictors._dump_image = lambda *a: None
-    try:
-        port_main.test_from_config(Cfg(cfg))
-    finally:
-        predictors._dump_video, predictors._dump_image = dumps
+    port_main.test_from_config(Cfg(cfg))
     with open(tmp / "batch_infer_pred" / "results.csv", newline="") as f:
         want = {r[0]: (float(r[1]), float(r[2])) for r in list(csv.reader(f))[1:]}
     d_psnr = d_ssim = 0.0
@@ -2810,7 +2858,229 @@ def batch_infer_card(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, ckpt: Pa
             "eval_frames_per_sec": eval_fps, "psnr_diff": d_psnr, "ssim_diff": d_ssim}
 
 
+# ---------------------- 31-33 the offline pipeline, convergence, DSB15 eval
+# phase 31-32: tools/convergence.py's phantom (4 train + 2 test patients, 2
+# slices, 16 frames, HR 144x144, x4) and its flagship run
+CONV_SIZE, CONV_PATIENTS, CONV_SLICES, CONV_FRAMES = 144, (4, 2), 2, 16
+CONV_EPOCHS = 40  # about 5 minutes of an H100 (PERF.md section 5)
+CONV_MIN_DELTA_DB = 1.0  # trained RefineNet x4 over Bicubic on the held-out split
+CONV_NET_KWARGS = None  # the train YAML's net (a CPU rehearsal shrinks it here)
+# phase 31's DSB15 tree, which phase 33 serves: one test patient, two sax
+# series of 30 frames (DSB15's shortest) and a malformed one between them
+DSB15_SIZE, DSB15_SLICES, DSB15_FRAMES = 144, 2, 30
+DSB15_NET_KWARGS = None  # the YAMLs' net (a CPU rehearsal shrinks it here)
+
+
+def _tree_files(root: Path, pattern: str) -> list:
+    return sorted(Path(root).rglob(pattern))
+
+
+def offline_pipeline(tmp: Path, card_line) -> dict:
+    """Phase 31: the port's offline pipeline on the card's machine (numpy
+    and the standard library: no OpenCV, imageio or JAX there)."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import (
+        cardiac_cropping,
+        convergence,
+        dsb15_dicom2nifty,
+        dsb15_preprocess,
+        gen_positional_encoding,
+        gen_synthetic_data,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import imgio, nifti
+
+    # the convergence phantom through acdc_preprocess, cardiac_cropping and
+    # gen_positional_encoding (phase 32 trains on it)
+    t0 = time.perf_counter()
+    tree = convergence.phantom_tree(tmp / "convergence", CONV_SIZE)
+    acdc_s = time.perf_counter() - t0
+    n = sum(CONV_PATIENTS)
+    got = {"raw": len(_tree_files(tree["raw_dir"], "*.nii.gz")),
+           "videos": len(_tree_files(tree["videos_dir"], "*.nii.gz")),
+           "imgs": len(_tree_files(tree["imgs_dir"], "*.nii.gz")),
+           "gifs": len(_tree_files(tree["coordinates_path"].parent, "*.gif"))}
+    want = {"raw": n, "videos": n * CONV_SLICES * 2, "imgs": n * CONV_SLICES * CONV_FRAMES * 2,
+            "gifs": n * CONV_SLICES}
+    splits = {s: len(list((tree["videos_dir"] / s / "HR").iterdir()))
+              for s in ("train", "valid", "test")}
+    with open(tree["pos_code_path"], "rb") as f:
+        codes = pickle.load(f)
+    with open(tree["coordinates_path"], "rb") as f:
+        coords = pickle.load(f)
+    gif_frames = {imgio.gif_frame_count(p) for p in _tree_files(tree["coordinates_path"].parent,
+                                                                 "*.gif")}
+    log("pipeline", f"gen_synthetic_data ({CONV_PATIENTS[0]} + {CONV_PATIENTS[1]} patients, "
+                    f"{CONV_SLICES} slices, {CONV_FRAMES} frames, HR {CONV_SIZE}, x4) with "
+                    f"acdc_preprocess, cardiac_cropping, gen_positional_encoding: {acdc_s:.2f} s; "
+                    f"files {got} (expected {want}); patients by split {splits}; phase codes "
+                    f"{len(codes)}, boxes {len(coords)}; frames a cropped GIF {gif_frames}")
+    if got != want or splits != {"train": 3, "valid": 1, "test": 2} or gif_frames != {CONV_FRAMES}:
+        raise AssertionError(f"the phantom tree is not the one asked for: {got}, {splits}")
+    if sorted(codes) != sorted(coords) or len(codes) != n:
+        raise AssertionError(f"pickles of {sorted(codes)} and {sorted(coords)}")
+    for patient, code in codes.items():
+        h0, hn, w0, wn = coords[patient]
+        if code.shape != (CONV_FRAMES,) or not np.all(np.abs(code) <= 1) or \
+                not (0 <= h0 < hn <= CONV_SIZE and 0 <= w0 < wn <= CONV_SIZE):
+            raise AssertionError(f"{patient}: phase code {code}, box {coords[patient]}")
+
+    # a DSB15 tree: the phantoms as sax series, a malformed one among them
+    t0 = time.perf_counter()
+    root = tmp / "dsb15"
+    raw = gen_synthetic_data.gen_dsb15_raw_tree(root, {"test": 1}, DSB15_SIZE, DSB15_SLICES,
+                                                DSB15_FRAMES, seed=0)
+    nifti.save(np.zeros((DSB15_SIZE, DSB15_SIZE, 1, DSB15_FRAMES - 1), np.int16),
+               raw / "test" / "701" / "sax_01b" / "sax_01b.nii.gz")
+    pre, crop = root / "preprocessed", root / "cropped"
+    dsb15_preprocess.main(raw, pre, factors=(2, 3, 4))
+    cardiac_cropping.main(pre / "videos", crop)
+    gen_positional_encoding.main(pre / "videos", crop / "coordinates.pkl", pre)
+    dsb15_s = time.perf_counter() - t0
+    dsb15 = {"videos_dir": pre / "videos", "imgs_dir": pre / "imgs",
+             "coordinates_path": crop / "coordinates.pkl", "pos_code_path": pre / "position_code.pkl"}
+    names = [p.name for p in _tree_files(pre / "videos" / "test" / "HR", "*.nii.gz")]
+    n_files = len(_tree_files(pre, "*.nii.gz"))
+    log("pipeline", f"dsb15_preprocess (1 patient, {DSB15_SLICES} series of {DSB15_FRAMES} frames "
+                    f"and one of {DSB15_FRAMES - 1}, HR {DSB15_SIZE}, x2 x3 x4) with "
+                    f"cardiac_cropping, gen_positional_encoding: {dsb15_s:.2f} s; HR sequences "
+                    f"{names}; {n_files} NIfTI files")
+    if names != ["701_2d+1d_sequence01.nii.gz", "701_2d+1d_sequence03.nii.gz"] or \
+            n_files != DSB15_SLICES * (1 + DSB15_FRAMES) * 4:
+        raise AssertionError(f"dsb15_preprocess wrote {names}, {n_files} files")
+
+    if shutil.which("dcm2niix"):
+        dicom = tmp / "dsb15_dicom"
+        (dicom / "validate" / "501" / "study" / "sax_5").mkdir(parents=True)
+        dsb15_dicom2nifty.main(dicom, tmp / "dsb15_nifti")
+        converted = (tmp / "dsb15_nifti" / "valid" / "501" / "sax_5").is_dir()
+        log("pipeline", f"dsb15_dicom2nifty ran dcm2niix on an empty series: output directory "
+                        f"made {converted}")
+        if not converted:
+            raise AssertionError("dsb15_dicom2nifty made no output directory")
+        dicom2nifty = "ran"
+    else:
+        dicom2nifty = "skipped: dcm2niix is not on PATH"
+        log("pipeline", "dsb15_dicom2nifty skipped: dcm2niix (an external program, as in the "
+                        "reference) is not on PATH; the DSB15 tree above starts from NIfTI series")
+    out = {"acdc_s": acdc_s, "dsb15_s": dsb15_s, "files": got, "dsb15_files": n_files,
+           "dicom2nifty": dicom2nifty, "card": card_line}
+    print(json.dumps({"offline_pipeline": out}), flush=True)
+    return {**out, "tree": tree, "dsb15_tree": dsb15}
+
+
+def _check_exports(root: Path, sequences: int, frames: int) -> dict:
+    """A predictor's export under ``root``: CSV rows per frame, a GIF a
+    sequence holding one image block a frame, a PNG a frame, each file
+    starting with its signature."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import imgio
+
+    rows = len((root / "results.csv").read_text().strip().splitlines()) - 1
+    gifs = _tree_files(root / "videos", "*.gif")
+    pngs = _tree_files(root / "imgs", "*.png")
+    gif_frames = sorted({imgio.gif_frame_count(p) for p in gifs})
+    bad = [p.name for p in gifs if p.read_bytes()[:6] != b"GIF89a"] + \
+          [p.name for p in pngs if p.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n"]
+    found = {"rows": rows, "gifs": len(gifs), "gif_frames": gif_frames, "pngs": len(pngs)}
+    if found != {"rows": sequences * frames, "gifs": sequences, "gif_frames": [frames],
+                 "pngs": sequences * frames} or bad:
+        raise AssertionError(f"the export under {root} is {found}, bad signatures {bad}")
+    return found
+
+
+def flagship_convergence(lstm_gates, work: Path, dev, card_line) -> dict:
+    """Phase 32: ``tools/convergence.py refine_net/exp1_x4`` on the card:
+    the flagship trained from scratch on phase 31's phantom, against
+    Bicubic on the held-out split, with the shipped test YAMLs' export."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import convergence
+
+    argv = ["refine_net/exp1_x4", "--epochs", str(CONV_EPOCHS), "--size", str(CONV_SIZE),
+            "--workdir", str(work), "--device", str(dev)]
+    if CONV_NET_KWARGS:
+        argv += ["--net-kwargs", json.dumps(CONV_NET_KWARGS)]
+    reset_launches(lstm_gates)
+    t0 = time.perf_counter()
+    out, trainer = convergence.run(argv)
+    wall = time.perf_counter() - t0
+    counts = launches(lstm_gates)
+    step_ms = 1e3 / trainer.throughput["train_steps_per_sec"]
+    steps = sum(1 for _ in trainer.train_dataloader) * CONV_EPOCHS
+    log("convergence", f"refine_net/exp1_x4, {CONV_EPOCHS} epochs ({steps} steps) on {dev}: trained "
+                       f"PSNR {out['trained']['PSNR']} dB against Bicubic's "
+                       f"{out['bicubic']['PSNR']} dB, delta {out['delta_psnr_db']:+.3f} dB (at least "
+                       f"+{CONV_MIN_DELTA_DB}); SSIM {out['trained']['SSIM']} against "
+                       f"{out['bicubic']['SSIM']}; train wall {out['train_wall_sec']} s, "
+                       f"{step_ms:.1f} ms a step, whole run {wall:.1f} s ({card_line})")
+    log("convergence", f"valid losses {out['valid_losses']}")
+    log("convergence", f"gate launches (forward, backward, bf16 forward, bf16 backward) {counts}")
+    values = out["train_losses"] + out["valid_losses"] + [
+        v for name in ("trained", "bicubic") for v in out[name].values()]
+    if len(out["train_losses"]) != CONV_EPOCHS or len(out["valid_losses"]) != CONV_EPOCHS or \
+            not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"the convergence run logged non-finite or missing values: {out}")
+    if not (counts[0] > 0 and counts[1] > 0):
+        raise AssertionError(f"the convergence run launched the gate kernels {counts}")
+    if not out["delta_psnr_db"] >= CONV_MIN_DELTA_DB:
+        raise AssertionError(f"trained RefineNet is {out['delta_psnr_db']} dB over Bicubic")
+    sequences = CONV_PATIENTS[1] * CONV_SLICES
+    exports = {name: _check_exports(work / f"test_refine_net_exp1_x4_{name}", sequences,
+                                    CONV_FRAMES) for name in ("trained", "bicubic")}
+    log("convergence", f"exports of the shipped test YAMLs: {exports}")
+    result = {**out, "wall_s": wall, "step_ms": step_ms, "steps": steps, "launches": counts,
+              "exports": exports, "card": card_line}
+    print(json.dumps({"convergence": result}), flush=True)
+    return result
+
+
+def dsb15_eval(port_main, lstm_gates, tree: dict, tmp: Path, dev, card_line) -> dict:
+    """Phase 33: ``configs/test/refine_net/exp1_x{2,3,4}_dsb15.yaml`` at
+    full width with seeded weights on phase 31's DSB15 tree, export on."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import load_config
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import RefineNet
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.convergence import (
+        patch_paths_only,
+    )
+
+    out = {}
+    for r in (2, 3, 4):
+        name = f"exp1_x{r}_dsb15"
+        cfg = load_config(REPO / "configs" / "test" / "refine_net" / f"{name}.yaml")
+        if DSB15_NET_KWARGS:
+            cfg.net.kwargs.update(DSB15_NET_KWARGS)
+        net = RefineNet(**cfg.net.kwargs, generator=torch.Generator().manual_seed(r))
+        ckpt = tmp / f"{name}.pth"
+        torch.save({"net": net.state_dict()}, ckpt)
+        cfg = patch_paths_only(cfg, tree, tmp / name, loaded_path=ckpt)
+        cfg.predictor.kwargs.device = str(dev)
+        reset_launches(lstm_gates)
+        t0 = time.perf_counter()
+        predictor = port_main.test_from_config(cfg)
+        wall = time.perf_counter() - t0
+        counts = launches(lstm_gates)
+        layer_steps = len(cfg.net.kwargs.num_features) * 2 * cfg.net.kwargs.num_stages
+        want = layer_steps * (DSB15_FRAMES + 2 * cfg.net.kwargs.num_updated_frames) * DSB15_SLICES
+        exports = _check_exports(tmp / name, DSB15_SLICES, DSB15_FRAMES)
+        log("dsb15", f"{name} on {dev}: Test log {predictor.log}; "
+                     f"{predictor.throughput['frames_per_sec']:.2f} frames/s, wall {wall:.2f} s with "
+                     f"export {exports}; gate launches {counts} (expected {want}) ({card_line})")
+        if not all(math.isfinite(v) for v in predictor.log.values()) or \
+                predictor.throughput["frames"] != DSB15_SLICES * DSB15_FRAMES:
+            raise AssertionError(f"{name}: {predictor.log}, {predictor.throughput}")
+        if counts != (want, 0, 0, 0):
+            raise AssertionError(f"{name} launched {counts}")
+        out[name] = {"log": predictor.log, "frames_per_sec": predictor.throughput["frames_per_sec"],
+                     "wall_s": wall, "launches": counts, "exports": exports}
+    print(json.dumps({"dsb15_eval": {**out, "card": card_line}}), flush=True)
+    return out
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
         return 2
@@ -2821,9 +3091,14 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 3
+    import torch.distributed as dist
+
     sys.path.insert(0, str(REPO))
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import main as port_main
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import Cfg
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        distributed,
+    )
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import (
         RefineNet,
         recurrence_format,
@@ -3212,6 +3487,10 @@ def main() -> int:
     cfg["trainer"]["kwargs"].update(compute_dtype="bfloat16", int_feed=True,
                                     aot_cache=str(tmp / "aot_cache"))
     cfg["parallel"] = {"num_devices": 1}
+    # a group of one held here: the run joins it (a group it made itself
+    # would be gone when it returns), so the steps below run the DDP model
+    dist.init_process_group(distributed.backend_for(dev), world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{distributed.free_port()}")
     records = _Records()
     logging.getLogger().addHandler(records)
     reset_launches(lstm_gates)
@@ -3320,6 +3599,7 @@ def main() -> int:
         "step_kernels": train16_busy[2], "step_kernels_by_name": train16_busy[3],
         "card": card_line}}), flush=True)
     del trainer16
+    dist.destroy_process_group()
 
     # --------------------------------------------------------- 12 tiled serving
     tile_tree = write_acdc_tree(tmp / "dsb15", {"test": (1, TILE_SLICES)}, cycle=CYCLE,
@@ -3416,7 +3696,14 @@ def main() -> int:
     batch = batch_infer_card(port_main, Cfg, lstm_gates, tree, tmp, ckpt, dev, eval_fps, card_line)
     print(json.dumps({"parallel": {**ddp, "skip_nonfinite": skipped, "resume": resumed,
                                    "batch_infer": batch}}), flush=True)
+
+    # ------------------ 31-33 the offline pipeline, convergence, DSB15 eval
+    pipeline = offline_pipeline(tmp, card_line)
+    converged = flagship_convergence(lstm_gates, tmp / "convergence", dev, card_line)
+    dsb15 = dsb15_eval(port_main, lstm_gates, pipeline["dsb15_tree"], tmp, dev, card_line)
     tmp_dir.cleanup()
+    log("done", f"phases 1-33 in {time.perf_counter() - started:.1f} s, the kernels' builds "
+                f"included ({card_line})")
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
     # the single-image, multi-frame and plain video paths (phases 13-18)
@@ -3433,7 +3720,9 @@ def main() -> int:
                  "train_ddp_two_ranks_rank0": ddp["two_ranks_launches"][0],
                  "train_skip_nonfinite": skipped["launches"][0],
                  "train_resume_backends": resumed["launches"][0],
-                 "batch_infer": batch["launches"][0]}
+                 "batch_infer": batch["launches"][0], "offline_pipeline": 0,
+                 "convergence": converged["launches"][0],
+                 "dsb15_eval": sum(v["launches"][0] for v in dsb15.values())}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
@@ -3443,7 +3732,8 @@ def main() -> int:
                  "train_ddp_world1": ddp["world1_launches"][1],
                  "train_ddp_two_ranks_rank0": ddp["two_ranks_launches"][1],
                  "train_skip_nonfinite": skipped["launches"][1],
-                 "train_resume_backends": resumed["launches"][1], "batch_infer": 0}
+                 "train_resume_backends": resumed["launches"][1], "batch_infer": 0,
+                 "offline_pipeline": 0, "convergence": converged["launches"][1], "dsb15_eval": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

@@ -2,7 +2,8 @@
 
 The port's copy of ``Compose`` / ``ToTensor`` / ``Normalize`` and of the
 train augments ``RandomCrop`` / ``RandomHorizontalFlip`` /
-``RandomVerticalFlip`` / ``RandomCropPatch`` from the JAX package.
+``RandomVerticalFlip`` / ``RandomCropPatch`` / ``RandomElasticDeformation``
+from the JAX package.
 ``ToTensor`` keeps the reference name but yields float32 numpy arrays: the
 loader collates numpy batches and the engines move each batch to the device
 once.  Randomness comes only from the ``rng`` Generator passed per call (the
@@ -217,3 +218,76 @@ class RandomCropPatch(BaseTransform):
         hr_slices = tuple(slice(a * r, b * r) if axis < 2 else slice(a, b)
                           for axis, (a, b) in enumerate(coords))
         return tuple([img[lr_slices] for img in lr_imgs] + [img[hr_slices] for img in hr_imgs])
+
+
+@TRANSFORMS.register()
+class RandomElasticDeformation(BaseTransform):
+    """Random B-spline elastic deformation (reference ``transforms.py:230-318``),
+    as the JAX package computes it: a coarse ``num_ctrl_points``-per-axis
+    grid of N(0, σ²) displacements, drawn once per call, zoomed to a dense
+    field with cubic splines (``scipy.ndimage.zoom``) and applied with
+    ``scipy.ndimage.map_coordinates``.  One deformation for the whole
+    tuple, realized on each image's own grid with its displacements scaled
+    by its size relative to ``imgs[0]``, so LR and HR stay aligned and keep
+    their shapes.  In 3D the depth axis stays rigid unless
+    ``do_z_deformation``.  No shipped YAML uses it."""
+
+    def __init__(self, do_z_deformation=False, num_ctrl_points=4, sigma=15, prob=0.5):
+        self.do_z_deformation = do_z_deformation
+        self.num_ctrl_points = max(num_ctrl_points, 2)
+        self.sigma = max(sigma, 1)
+        self.prob = max(0.0, min(prob, 1.0))
+
+    def _coarse_fields(self, rng, ndim):
+        """One coarse control grid per axis (``None``: a frozen depth axis)."""
+        return [
+            None
+            if ndim == 3 and axis == 2 and not self.do_z_deformation
+            else rng.normal(0.0, self.sigma, size=(self.num_ctrl_points,) * ndim)
+            for axis in range(ndim)
+        ]
+
+    @staticmethod
+    def _dense_from_coarse(coarse, spatial_shape, scales):
+        from scipy.ndimage import zoom
+
+        fields = []
+        for axis, c in enumerate(coarse):
+            if c is None:
+                fields.append(np.zeros(spatial_shape, np.float32))
+                continue
+            factors = [s / cs for s, cs in zip(spatial_shape, c.shape)]
+            dense = zoom(c, factors, order=3, mode="nearest") * scales[axis]
+            fields.append(dense.astype(np.float32))
+        return fields
+
+    def __call__(self, *imgs, elastic_deformation_orders=None, **kwargs):
+        _check_ndim(imgs)
+        rng = _rng(kwargs)
+        if rng.random() >= self.prob:
+            return imgs
+        base_shape = imgs[0].shape[:-1]
+        coarse = self._coarse_fields(rng, len(base_shape))
+        orders = elastic_deformation_orders or [3] * len(imgs)
+
+        from scipy.ndimage import map_coordinates
+
+        coords_cache: dict = {}
+        out = []
+        for img, order in zip(imgs, orders):
+            if order not in (0, 1, 3):
+                raise ValueError(f"The interpolation order should be 0, 1 or 3. Got {order}.")
+            spatial_shape = img.shape[:-1]
+            if spatial_shape not in coords_cache:
+                scales = [s / b for s, b in zip(spatial_shape, base_shape)]
+                fields = self._dense_from_coarse(coarse, spatial_shape, scales)
+                grid = np.meshgrid(*[np.arange(s, dtype=np.float32) for s in spatial_shape],
+                                   indexing="ij")
+                coords_cache[spatial_shape] = [g + f for g, f in zip(grid, fields)]
+            coords = coords_cache[spatial_shape]
+            channels = [
+                map_coordinates(img[..., c], coords, order=order, mode="constant", cval=0.0)
+                for c in range(img.shape[-1])
+            ]
+            out.append(np.stack(channels, axis=-1).astype(img.dtype))
+        return tuple(out)

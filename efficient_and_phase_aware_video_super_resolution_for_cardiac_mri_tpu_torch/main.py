@@ -23,8 +23,11 @@ device, NCCL on the card and gloo on the CPU (``parallel/``):
   log comes back to the caller;
 * under ``torchrun`` (or with ``WORLD_SIZE`` and ``RANK`` set) the process
   joins that group instead and runs its own rank;
-* ``num_devices: 1`` runs in this process, in a process group of one
-  (made at the first such run and kept), the net still wrapped.
+* ``num_devices: 1`` runs in this process, in a process group of one,
+  the net still wrapped.  That group belongs to the run: it is destroyed
+  when ``train_from_config`` or ``test_from_config`` returns or raises (a
+  group the caller made stays the caller's), so the engine they return
+  holds a wrapped net whose group is gone; its ``net`` still runs.
 
 More CUDA devices than are visible raise ``ValueError`` as the JAX
 package's mesh does; ``spatial_parallel > 1`` and ``pad_h`` raise
@@ -34,6 +37,7 @@ package's mesh does; ``spatial_parallel > 1`` and ``pad_h`` raise
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 from pathlib import Path
 from types import SimpleNamespace
@@ -120,7 +124,7 @@ def _launch_plan(cfg: Cfg, device: torch.device) -> dict | None:
     from .parallel.distributed import NO_COORDINATOR, cluster_env_present
 
     parallel = _check_parallel(cfg, device)
-    if not parallel or cluster_env_present() or (dist.is_initialized() and not _OWN_GROUP):
+    if not parallel or cluster_env_present() or dist.is_initialized():
         return None
     n = int(parallel.get("num_devices") or (torch.cuda.device_count() if device.type == "cuda" else 1))
     if parallel.get("multi_host"):
@@ -168,23 +172,22 @@ def run(cfg: Cfg, test: bool = False):
     return SimpleNamespace(**out) if out is not None else None
 
 
-#: whether this process made its own process group of one (kept for the
-#: process's life, so the engines ``main`` returns keep working)
-_OWN_GROUP = False
-
-
+@contextlib.contextmanager
 def build_mesh(cfg: Cfg, device: torch.device):
     """The run's mesh from its ``parallel:`` section (None without one),
-    joining the launcher's group, or making (once) a group of one, as
-    needed; returns (mesh, device of this rank)."""
-    global _OWN_GROUP
+    joining the launcher's group, or making a group of one, as needed;
+    yields (mesh, device of this rank).  A group of one made here is the
+    run's own: it is destroyed when the run returns or raises."""
     from .parallel import distributed_initialize, make_mesh
-    from .parallel.distributed import NO_COORDINATOR, free_port, local_device
+    from .parallel.distributed import free_port, local_device
+    from .runner.checkpoint import wait_for_async_saves
 
     parallel = _check_parallel(cfg, device)
     if not parallel:
-        return None, device
+        yield None, device
+        return
     multi_host = bool(parallel.get("multi_host"))
+    own = False
     if not dist.is_initialized():
         # a multi-host run joins its launcher's group (``run`` spawns one)
         if not distributed_initialize(device=device, require=multi_host) \
@@ -193,22 +196,26 @@ def build_mesh(cfg: Cfg, device: torch.device):
             dist.init_process_group(
                 "nccl" if device.type == "cuda" else "gloo",
                 init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
-            _OWN_GROUP = True
-    elif _OWN_GROUP and multi_host:  # this process runs alone
-        raise ValueError(NO_COORDINATOR)
-    device = local_device(device)
-    hosts = int(parallel.get("num_processes") or 1) if multi_host else 1
-    mesh = make_mesh(parallel.get("num_devices"), parallel.get("model_parallel", 1),
-                     parallel.get("spatial_parallel", 1), device, hosts=hosts)
-    logger.info("parallel: mesh %s, rank %d on %s.", mesh.shape, mesh.rank, device)
-    return mesh, device
+            own = True
+    try:
+        device = local_device(device)
+        hosts = int(parallel.get("num_processes") or 1) if multi_host else 1
+        mesh = make_mesh(parallel.get("num_devices"), parallel.get("model_parallel", 1),
+                         parallel.get("spatial_parallel", 1), device, hosts=hosts)
+        logger.info("parallel: mesh %s, rank %d on %s.", mesh.shape, mesh.rank, device)
+        yield mesh, device
+    finally:
+        if own:
+            wait_for_async_saves()
+            dist.destroy_process_group()
 
 
 def train_from_config(cfg: Cfg):
     _import_components()
     trainer_kwargs = dict(cfg.trainer.get("kwargs") or {})
     device = resolve_device(trainer_kwargs.pop("device", None))
-    return _train(cfg, trainer_kwargs, *build_mesh(cfg, device))
+    with build_mesh(cfg, device) as (mesh, device):
+        return _train(cfg, trainer_kwargs, mesh, device)
 
 
 def _train(cfg: Cfg, trainer_kwargs: dict, mesh, device: torch.device):
@@ -300,7 +307,8 @@ def test_from_config(cfg: Cfg):
     _import_components()
     pred_kwargs = dict(cfg.predictor.get("kwargs") or {})
     device = resolve_device(pred_kwargs.pop("device", None))
-    return _test(cfg, pred_kwargs, *build_mesh(cfg, device))
+    with build_mesh(cfg, device) as (mesh, device):
+        return _test(cfg, pred_kwargs, mesh, device)
 
 
 def _test(cfg: Cfg, pred_kwargs: dict, mesh, device: torch.device):

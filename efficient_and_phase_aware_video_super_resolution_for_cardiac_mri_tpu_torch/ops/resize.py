@@ -5,7 +5,11 @@ reference are reproduced exactly:
 
 * ``nn.Upsample(mode='bicubic', align_corners=True)``, the Bicubic baseline;
 * ``F.interpolate(mode='bilinear', align_corners=False)``, SRFB's global
-  skip.
+  skip;
+
+and, on the host in numpy (:func:`resize_bicubic_np`), OpenCV's
+``cv2.resize(..., INTER_CUBIC)`` of the reference's k-space degradation
+(half-pixel mapping).
 
 Both use a convolution kernel over source taps (Keys cubic with A = -0.75,
 or the triangle), and differ in the source-coordinate mapping:
@@ -117,3 +121,14 @@ def upsample_bilinear(x: torch.Tensor, scale_factor: int,
     """torch ``F.interpolate(mode='bilinear')`` with an integer scale factor."""
     H, W = x.shape[-3], x.shape[-2]
     return resize_bilinear(x, (H * scale_factor, W * scale_factor), align_corners)
+
+
+def resize_bicubic_np(x: np.ndarray, out_hw: tuple[int, int],
+                      align_corners: bool = False) -> np.ndarray:
+    """Bicubic-resize the two leading axes of a numpy array with the same
+    matrices, on the host (the offline preprocessing: ``ops/kspace.py``)."""
+    H, W = x.shape[0], x.shape[1]
+    mh = resize_matrix(H, out_hw[0], align_corners)
+    mw = resize_matrix(W, out_hw[1], align_corners)
+    y = np.tensordot(mh, x, axes=(1, 0))  # (oh, W, ...)
+    return np.moveaxis(np.tensordot(mw, y, axes=(1, 1)), 0, 1)  # (oh, ow, ...)

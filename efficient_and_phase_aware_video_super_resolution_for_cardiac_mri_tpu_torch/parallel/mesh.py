@@ -64,6 +64,9 @@ class Mesh:
     #: under NCCL, and apart from the step's collectives, so that an
     #: asynchronous save's background thread never interleaves with them
     host_group: object = field(default=None, repr=False)
+    #: the default group's backend (``nccl`` or ``gloo``), kept for the
+    #: record after a run's own group is gone
+    backend: str | None = None
 
     @property
     def shape(self) -> dict:
@@ -122,15 +125,16 @@ def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
         raise ValueError(f"{n} devices not divisible by spatial_parallel=1 x model_parallel={mp}.")
     rank = dist.get_rank()
     host_group = dist.new_group(backend="gloo")
+    backend = dist.get_backend()
     if mp == 1:
         return Mesh(data=n, model=1, rank=rank, device=device, data_group=dist.group.WORLD,
-                    hosts=hosts, host_group=host_group)
+                    hosts=hosts, host_group=host_group, backend=backend)
     from torch.distributed.device_mesh import init_device_mesh
 
     device_mesh = init_device_mesh(device.type, (n // mp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
     return Mesh(data=n // mp, model=mp, rank=rank, device=device,
                 data_group=device_mesh.get_group(DATA_AXIS), device_mesh=device_mesh, hosts=hosts,
-                host_group=host_group)
+                host_group=host_group, backend=backend)
 
 
 def batch_slice(batch_size: int, mesh: Mesh | None) -> slice:

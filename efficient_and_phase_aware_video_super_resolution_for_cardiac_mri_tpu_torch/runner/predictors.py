@@ -70,7 +70,7 @@ import torch.distributed as dist
 from ..config import PREDICTORS
 from ..ops import telemetry as tel
 from ..ops.tiling import tiled_apply
-from ..utils import casting, nifti
+from ..utils import casting, imgio, nifti
 from ..utils.dispatch import DoubleBuffer, Fetch, upload
 from ..utils.stats import get_stats
 from . import checkpoint as ckpt_io
@@ -83,20 +83,6 @@ LOG = logging.getLogger(__name__)
 DEFERRED_KNOBS = {
     "pad_h": False,
 }
-
-
-def _dump_video(path, imgs):
-    import imageio
-
-    with imageio.get_writer(path) as writer:
-        for img in imgs:
-            writer.append_data(img)
-
-
-def _dump_image(path, img):
-    import imageio
-
-    imageio.imwrite(path, img)
 
 
 def _fetch_item(total, losses, metrics, frames, collector: tel.Collector) -> Fetch:
@@ -514,14 +500,14 @@ class SISRPredictor(BasePredictor):
         imgs_dir.mkdir(parents=True, exist_ok=True)
         # MISR sids come from 2d+1d names ('sequenceNN'), its PNGs are named
         # by slice (reference acdc_misr_predictor.py:91); a no-op for SISR
-        _dump_image(imgs_dir / f"{sid.replace('sequence', 'slice')}_{filename.split('_')[-1]}.png",
+        imgio.write_png(imgs_dir / f"{sid.replace('sequence', 'slice')}_{filename.split('_')[-1]}.png",
                     sr)
 
     def _flush_gif(self):
         patient, sid = self._gif_key
         videos_dir = self.saved_dir / "videos" / patient
         videos_dir.mkdir(parents=True, exist_ok=True)
-        _dump_video(videos_dir / f"{sid.replace('slice', 'sequence')}.gif", self._gif_buffer)
+        imgio.write_gif(videos_dir / f"{sid.replace('slice', 'sequence')}.gif", self._gif_buffer)
         self._gif_buffer = []
 
     def _export_nifti_item(self, patient, sid, out_d):
@@ -637,11 +623,11 @@ class VSRPredictor(BasePredictor):
         sr_imgs = out_d[0, ..., 0]  # (T, H, W) uint8
         videos_dir = self.saved_dir / "videos" / patient
         videos_dir.mkdir(parents=True, exist_ok=True)
-        _dump_video(videos_dir / f"{sid}.gif", list(sr_imgs))
+        imgio.write_gif(videos_dir / f"{sid}.gif", list(sr_imgs))
         imgs_dir = self.saved_dir / "imgs" / patient
         imgs_dir.mkdir(parents=True, exist_ok=True)
         for t, sr in enumerate(sr_imgs):
-            _dump_image(imgs_dir / f"{sid.replace('sequence', 'slice')}_frame{t+1:0>2d}.png", sr)
+            imgio.write_png(imgs_dir / f"{sid.replace('sequence', 'slice')}_frame{t+1:0>2d}.png", sr)
 
 
 class FRVSRPredictor(VSRPredictor):

@@ -4,7 +4,7 @@
 Per patient: the motion bbox of the heart from frame 0 against frame T/2 —
 Gaussian blur, abs-diff, Otsu threshold, morphological close then open, 5%
 outlier trim, box = mean ± 2.5·std of the active pixels' coordinates;
-writes cropped GIFs (imageio, imported when they are written) and
+writes cropped GIFs (``utils/imgio.py``) and
 ``coordinates.pkl`` {patient: (h0, hn, w0, wn)} used by CardiacPSNR/SSIM.
 :func:`find_bbox` needs nothing but numpy: its OpenCV operations are
 ``tools/imgproc.py``'s twins, so it gives the JAX tool's box.
@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils import nifti
+from ..utils import imgio, nifti
 from . import imgproc
 
 LOG = logging.getLogger(__name__)
@@ -48,14 +48,6 @@ def find_bbox(data: np.ndarray) -> tuple[int, int, int, int]:
     return h0, hn, w0, wn
 
 
-def dump_video(path: Path, imgs) -> None:
-    import imageio
-
-    with imageio.get_writer(path) as writer:
-        for img in imgs:
-            writer.append_data(img)
-
-
 def main(data_dir: Path, output_dir: Path):
     coordinates = {}
     for patient_dir in sorted(Path(data_dir).glob("**/HR/*")):
@@ -71,7 +63,7 @@ def main(data_dir: Path, output_dir: Path):
         h0, hn, w0, wn = bbox
         for data_path in data_paths:
             seq = nifti.load(data_path).get_data().squeeze().transpose(2, 0, 1).astype(np.uint8)
-            dump_video(
+            imgio.write_gif(
                 videos_dir / data_path.parts[-1].replace(".nii.gz", ".gif"),
                 [img[h0:hn, w0:wn] for img in seq],
             )

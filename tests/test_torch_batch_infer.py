@@ -24,6 +24,10 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu.tools 
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
     datasets,
 )
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import Cfg
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
+    train_from_config,
+)
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
     RefineNet,
 )
@@ -118,6 +122,49 @@ def test_two_ranks_equal_one(tree, tmp_path):
     assert two["devices"] == 2 and two["frames"] == one["frames"]
     _assert_rows_close(_rows(tmp_path / "two.csv"), _rows(tmp_path / "one.csv"), psnr=0, ssim=0,
                        rel=1e-6)
+
+
+def _train_cfg(root, parallel):
+    tree = make_acdc_tree(root / "acdc", patients_per_split=1, slices=1, frames=5,
+                          hr_size=(24, 24), splits=("train", "valid"))
+    norm = {"name": "Normalize", "kwargs": {"means": [54.089], "stds": [48.084]}}
+    return Cfg({
+        "main": {"random_seed": "vsr", "saved_dir": str(root / "run")},
+        "dataset": {"name": "AcdcVSRRefineNetDataset", "kwargs": {
+            "data_dir": str(tree["videos_dir"]), "downscale_factor": 4,
+            "transforms": [norm, {"name": "ToTensor"}],
+            "augments": [{"name": "RandomCropPatch", "kwargs": {"size": [4, 4], "ratio": 4}}],
+            "num_frames": 3, "num_updated_frames": 2,
+            "pos_code_path": str(tree["pos_code_path"])}},
+        "dataloader": {"name": "Dataloader", "kwargs": {"train_batch_size": 1,
+                                                         "valid_batch_size": 1,
+                                                         "shuffle": True, "num_workers": 0}},
+        "net": {"name": "RefineNet", "kwargs": NET},
+        "losses": [{"name": "L1Loss", "weight": 1.0}],
+        "metrics": [{"name": "PSNR"}],
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-3, "weight_decay": 0}},
+        "monitor": {"name": "Monitor", "kwargs": {"mode": "min", "target": "Loss",
+                                                  "saved_freq": 1, "early_stop": 0}},
+        "trainer": {"name": "AcdcVSRRefineNetTrainer",
+                    "kwargs": {"device": "cpu", "num_epochs": 1}},
+        "parallel": parallel,
+    })
+
+
+def test_a_run_of_main_leaves_no_group_behind(tree, tmp_path):
+    """``main``'s process group of one belongs to its run: after
+    ``train_from_config`` returns, and after a run that raised, no group is
+    left, and ``batch_infer --num-devices 2`` in the same process spawns its
+    two ranks (a kept group made it run here and refuse the mesh)."""
+    trainer = train_from_config(_train_cfg(tmp_path, {"num_devices": 1}))
+    assert trainer.mesh.shape == {"data": 1} and np.isfinite(trainer.history["train"][0]["Loss"])
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="num_devices=8 but the process group has 1"):
+        train_from_config(_train_cfg(tmp_path / "eight", {"num_devices": 8}))
+    assert not torch.distributed.is_initialized()
+    two = tool.main(_args(tree, tmp_path / "two.csv", "--device", "cpu", "--num-devices", "2"))
+    assert two["devices"] == 2 and two["frames"] == 25
+    assert not torch.distributed.is_initialized()
 
 
 def test_tiled_rows_equal_the_jax_tool(tree, tmp_path):

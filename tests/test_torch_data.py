@@ -32,6 +32,9 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu.utils.
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import (
     DATASETS,
 )
+from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import (
+    TRANSFORMS as TRANSFORM_REGISTRY,
+)
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import (
     Dataloader,
     VSRRefineNetDataset,
@@ -244,3 +247,45 @@ def test_a_volume_rewritten_in_place_is_read_anew(tmp_path, monkeypatch):
     after = _relative_item()
     _assert_same(after, _as_a_fresh_process(monkeypatch, _relative_item))
     assert not np.array_equal(after["hr_imgs"], before["hr_imgs"])
+
+
+# ------------------------------------------------ RandomElasticDeformation
+def _elastic_inputs(kind, rng):
+    if kind == "2d":  # an (H, W, C) tuple of two images
+        return [rng.random((20, 24, 2)).astype(np.float32) for _ in range(2)]
+    if kind == "3d":  # an (H, W, D, C) tuple
+        return [rng.random((12, 14, 5, 1)).astype(np.float32) for _ in range(2)]
+    # an LR/HR pair at ×3: one deformation, scaled to each image's grid
+    return [rng.random((10, 12, 1)).astype(np.float32), rng.random((30, 36, 1)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d", "lr_hr"])
+@pytest.mark.parametrize("kwargs", [{"prob": 1.0}, {"prob": 1.0, "do_z_deformation": True,
+                                                    "num_ctrl_points": 3, "sigma": 2}],
+                         ids=["default", "z"])
+def test_random_elastic_deformation_equals_jax(kind, kwargs):
+    """The same ``rng`` gives the same deformed tuple as the JAX package's
+    (both numpy and scipy: equal element for element), orders 3 and 0."""
+    imgs = _elastic_inputs(kind, np.random.default_rng(7))
+    port = transforms.RandomElasticDeformation(**kwargs)
+    jax = jax_transforms.RandomElasticDeformation(**kwargs)
+    for orders in (None, [0, 3]):
+        got = port(*imgs, rng=np.random.default_rng(3), elastic_deformation_orders=orders)
+        want = jax(*imgs, rng=np.random.default_rng(3), elastic_deformation_orders=orders)
+        assert len(got) == len(want) == 2
+        for g, w, img in zip(got, want, imgs):
+            np.testing.assert_array_equal(g, w)
+            assert g.shape == img.shape and g.dtype == img.dtype
+        assert not np.array_equal(got[0], imgs[0])  # prob 1: deformed
+
+
+def test_random_elastic_deformation_prob_and_refusals():
+    imgs = _elastic_inputs("2d", np.random.default_rng(0))
+    never = transforms.RandomElasticDeformation(prob=0.0)
+    assert never(*imgs, rng=np.random.default_rng(0)) == tuple(imgs)
+    t = transforms.RandomElasticDeformation(prob=1.0)
+    with pytest.raises(ValueError, match="order"):
+        t(*imgs, rng=np.random.default_rng(0), elastic_deformation_orders=[2, 3])
+    with pytest.raises(ValueError, match="rank"):
+        t(imgs[0][..., 0], rng=np.random.default_rng(0))
+    assert TRANSFORM_REGISTRY.get("RandomElasticDeformation") is transforms.RandomElasticDeformation

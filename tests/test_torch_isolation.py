@@ -29,8 +29,9 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).parent
 JAX_PACKAGE = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu"
 # the tests' DCN oracle too: the port keeps its own plain versions
-# cv2: the card's machine has no OpenCV; the port's phase-code tools are numpy
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE, "dcn_oracle", "cv2"}
+# cv2, imageio: the card's machine has neither; the port's phase-code tools
+# are numpy, its GIF and PNG exports ``utils/imgio.py``
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE, "dcn_oracle", "cv2", "imageio"}
 
 
 def _port_modules():
@@ -43,7 +44,9 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("runner.predictors", "runner.trainers", "runner.optim", "runner.monitor",
                  "runner.loggers", "runner.checkpoint", "tools.profile_train", "ops.tiling",
-                 "utils.casting", "parallel.mesh", "parallel.distributed", "tools.batch_infer"):
+                 "utils.casting", "parallel.mesh", "parallel.distributed", "tools.batch_infer",
+                 "utils.imgio", "ops.kspace", "tools.acdc_preprocess", "tools.dsb15_preprocess",
+                 "tools.dsb15_dicom2nifty", "tools.gen_synthetic_data", "tools.convergence"):
         assert f"{port.__name__}.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -33,6 +33,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     imgproc,
 )
 from fixtures import make_acdc_tree  # noqa: E402
+from gray_frames import gif_frames  # noqa: E402
 
 # (H, W): odd and even widths (the float blur's last column), single rows
 # and columns (OpenCV then runs one pass), and the phantom's size
@@ -152,12 +153,10 @@ def test_clis_write_the_jax_pickles(phantom, tmp_path):
     got = (tmp_path / "pre" / "position_code.pkl").read_bytes()
     assert got == phantom["pos_code_path"].read_bytes()
     # the cropped GIFs too, frame for frame
-    import imageio
-
     jax_gifs = sorted(p.relative_to(phantom["coordinates_path"].parent)
                       for p in phantom["coordinates_path"].parent.rglob("*.gif"))
     assert jax_gifs
     for rel in jax_gifs:
-        a = imageio.mimread(phantom["coordinates_path"].parent / rel)
-        b = imageio.mimread(tmp_path / "cropped" / rel)
+        a = gif_frames(phantom["coordinates_path"].parent / rel)
+        b = gif_frames(tmp_path / "cropped" / rel)
         assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b)), rel

@@ -45,6 +45,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     test_from_config as run_port_test,
 )
 from fixtures import make_acdc_tree
+from gray_frames import gif_frames, png_frame
 
 REPO = Path(__file__).resolve().parent.parent
 FRAMES, U = 6, 3
@@ -127,8 +128,6 @@ def _files(root):
 
 @pytest.mark.parametrize("kind", ["pth", "pickle"])
 def test_predict_matches_jax(tree, checkpoints, jax_run, tmp_path, kind):
-    import imageio.v2 as imageio
-
     jax_dir, jax_log = jax_run
     predictor = run_port_test(Cfg(_cfg(tree, tmp_path, checkpoints[kind])))
     assert predictor.log.keys() == jax_log.keys()
@@ -150,12 +149,12 @@ def test_predict_matches_jax(tree, checkpoints, jax_run, tmp_path, kind):
     assert sum(f.endswith(".png") for f in files) == 2 * FRAMES
     for rel in sorted(files):
         if rel.endswith(".png"):
-            a = np.asarray(imageio.imread(jax_dir / rel), np.int16)
-            b = np.asarray(imageio.imread(tmp_path / rel), np.int16)
+            a = np.asarray(png_frame(jax_dir / rel), np.int16)
+            b = np.asarray(png_frame(tmp_path / rel), np.int16)
             assert a.shape == b.shape and np.abs(a - b).max() <= 1, rel
         elif rel.endswith(".gif"):
-            fa = [np.asarray(f, np.int16) for f in imageio.mimread(jax_dir / rel)]
-            fb = [np.asarray(f, np.int16) for f in imageio.mimread(tmp_path / rel)]
+            fa = [np.asarray(f, np.int16) for f in gif_frames(jax_dir / rel)]
+            fb = [np.asarray(f, np.int16) for f in gif_frames(tmp_path / rel)]
             assert len(fa) == len(fb) == FRAMES, rel
             assert all(np.abs(a - b).max() <= 1 for a, b in zip(fa, fb)), rel
 

@@ -104,6 +104,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     state_dict_from_jax_params,
 )
 from fixtures import make_acdc_tree
+from gray_frames import gif_frames, png_frame
 from jax_data_caches import empty_jax_data_caches  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -254,8 +255,6 @@ SERVE_CASES = [("EDSRNet", "pth", "Acdc"), ("EDSRNet", "pickle", "Acdc"),
 @pytest.mark.parametrize("name,kind,prefix", SERVE_CASES,
                          ids=[f"{n}-{k}-{p}" for n, k, p in SERVE_CASES])
 def test_predict_matches_jax(tree, checkpoints, tmp_path, name, kind, prefix):
-    import imageio.v2 as imageio
-
     ckpt = checkpoints[name, kind]
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_log = run_jax_test(JaxCfg(_test_cfg(tree, jax_dir, ckpt, name, prefix))).log
@@ -283,12 +282,12 @@ def test_predict_matches_jax(tree, checkpoints, tmp_path, name, kind, prefix):
         "videos/patient003/sequence01.gif", "videos/patient003/sequence02.gif"]
     for rel in sorted(files):
         if rel.endswith(".png"):
-            a = np.asarray(imageio.imread(jax_dir / rel), np.int16)
-            b = np.asarray(imageio.imread(port_dir / rel), np.int16)
+            a = np.asarray(png_frame(jax_dir / rel), np.int16)
+            b = np.asarray(png_frame(port_dir / rel), np.int16)
             assert a.shape == b.shape == (LR_HW * SCALE,) * 2 and np.abs(a - b).max() <= 1, rel
         elif rel.endswith(".gif"):
-            fa = [np.asarray(f, np.int16) for f in imageio.mimread(jax_dir / rel)]
-            fb = [np.asarray(f, np.int16) for f in imageio.mimread(port_dir / rel)]
+            fa = [np.asarray(f, np.int16) for f in gif_frames(jax_dir / rel)]
+            fb = [np.asarray(f, np.int16) for f in gif_frames(port_dir / rel)]
             assert len(fa) == len(fb) == FRAMES, rel
             assert all(np.abs(a - b).max() <= 1 for a, b in zip(fa, fb)), rel
 

@@ -92,6 +92,7 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     state_dict_from_jax_params,
 )
 from fixtures import make_acdc_tree
+from gray_frames import gif_frames, png_frame
 from jax_data_caches import empty_jax_data_caches  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -241,8 +242,6 @@ SERVE_CASES = [("DRFNet", {}), ("FRVSRNet", {"is_prediction": True}),
 @pytest.mark.parametrize("name,overrides", SERVE_CASES,
                          ids=["DRFNet", "FRVSRNet", "FRVSRNet-max_flow4"])
 def test_predict_matches_jax(tree, checkpoints, tmp_path, name, overrides):
-    import imageio.v2 as imageio
-
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_pred = run_jax_test(JaxCfg(_test_cfg(tree, jax_dir, checkpoints[name], name, **overrides)))
     predictor = run_port_test(Cfg(_test_cfg(tree, port_dir, checkpoints[name], name, **overrides)))
@@ -278,12 +277,12 @@ def test_predict_matches_jax(tree, checkpoints, tmp_path, name, overrides):
         "videos/patient003/sequence01.gif", "videos/patient003/sequence02.gif"]
     for rel in sorted(files):
         if rel.endswith(".png"):
-            a = np.asarray(imageio.imread(jax_dir / rel), np.int16)
-            b = np.asarray(imageio.imread(port_dir / rel), np.int16)
+            a = np.asarray(png_frame(jax_dir / rel), np.int16)
+            b = np.asarray(png_frame(port_dir / rel), np.int16)
             assert a.shape == b.shape == (LR_HW * SCALE,) * 2 and np.abs(a - b).max() <= 1, rel
         elif rel.endswith(".gif"):
-            fa = [np.asarray(f, np.int16) for f in imageio.mimread(jax_dir / rel)]
-            fb = [np.asarray(f, np.int16) for f in imageio.mimread(port_dir / rel)]
+            fa = [np.asarray(f, np.int16) for f in gif_frames(jax_dir / rel)]
+            fb = [np.asarray(f, np.int16) for f in gif_frames(port_dir / rel)]
             assert len(fa) == len(fb) == FRAMES, rel
             assert all(np.abs(a - b).max() <= 1 for a, b in zip(fa, fb)), rel
 
