@@ -16,7 +16,7 @@ hand-written kernel; then EDVR ×4 with the deformable conv's three
 hand-written kernels, each held against its plain version; then the
 serving daemon, the parallel runs and the training remainders; then the
 offline data pipeline, the flagship trained from scratch against Bicubic,
-and the DSB15 external eval.  Phases, one or more lines each; any failure
+the DSB15 external eval, and the spatial axis.  Phases, one or more lines each; any failure
 exits non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -244,6 +244,23 @@ exits non-zero and no result is printed:
     at full width with seeded weights on phase 31's DSB15 tree: finite
     logs, exactly 756 gate launches a clip, a CSV row and a PNG a frame, a
     GIF a series.
+
+34. the spatial axis: two gloo ranks sharing ``cuda:0`` as one spatial
+    group (``parallel: {num_devices: 2, spatial_parallel: 2}``), each
+    holding half the rows of every frame, a halo exchange at every conv
+    (``parallel/halo.py``): (a) phase 4's clips through
+    ``main.test_from_config``: the Test log within 1e-5 relative of phase
+    4's, the gathered fused frames within 1e-4 of phase 5's, 756 gate
+    launches and 792 exchanges a clip; (b) phase 27's 4 SGD steps against
+    its world 1 (1e-5), 342 + 126 launches and 378 + 159 exchanges a step,
+    then one step with remat against the plain step (1e-6); (c) ``pad_h``
+    on a tree of LR height 63: no downgrade warning, the scores within the
+    JAX package's ``pad_h`` bounds of the meshless run; (d)
+    ``tools/batch_infer.py --spatial-parallel 2 --pad-h`` within phase
+    30's bounds of (c)'s rows; (e) the gate kernels against their plain
+    versions at a rank's shapes (forward (1, 256, 32, 64), forward and
+    backward (16, 256, 16, 32), fp32 and bf16).  ms a clip and a step are
+    printed as correctness only: two ranks share one card.
 
 Phase 4 also checks the data path's native NIfTI reader
 (``utils/native_io.py``, built by g++ at first use): it is enabled, it
@@ -2574,10 +2591,12 @@ def train_items(n: int, seed: int) -> list:
              "pos_code": rng.uniform(-1, 1, (T_TRAIN, 1)).astype(np.float32)} for _ in range(n)]
 
 
-def step_trainer(state: dict, items: list, mesh, dev, name: str = "Adam", **optimizer):
+def step_trainer(state: dict, items: list, mesh, dev, name: str = "Adam",
+                 net_kwargs: dict | None = None, **optimizer):
     """exp1_x4.yaml's trainer (Adam at 1e-4, the stage-discounted L1) over
     ``items`` in order, batch 16, from the weights ``state``; ``name`` and
-    ``optimizer`` replace the optimizer or add its knobs."""
+    ``optimizer`` replace the optimizer or add its knobs, ``net_kwargs``
+    the net's."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.data import Dataloader
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.losses import L1Loss
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.metrics import PSNR
@@ -2587,7 +2606,7 @@ def step_trainer(state: dict, items: list, mesh, dev, name: str = "Adam", **opti
         VSRRefineNetTrainer,
     )
 
-    net = RefineNet(**NET_KWARGS)
+    net = RefineNet(**(net_kwargs or NET_KWARGS))
     net.load_state_dict(state, strict=True)
     loader = Dataloader(items, batch_size=TRAIN_BATCH)
     return VSRRefineNetTrainer(
@@ -2724,7 +2743,8 @@ def ddp_phases(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, dev, card_line
     if ranks["launches"] != want_launches or written != [f"model_{DDP_STEPS}.pth"]:
         raise AssertionError(f"rank 0 launched {ranks['launches']}, wrote {written}")
     out.update(two_ranks_loss_rel=loss_diff, two_ranks_param_rel=param_diff,
-               two_ranks_launches=ranks["launches"], two_ranks_wall_s=wall)
+               two_ranks_launches=ranks["launches"], two_ranks_wall_s=wall,
+               world1_reference=(ref_log, ref_state))  # phase 34's reference too
     deterministic_cudnn(torch, before[0])
     torch.backends.cudnn.benchmark = before[1]
     return out
@@ -2856,6 +2876,303 @@ def batch_infer_card(port_main, Cfg, lstm_gates, tree: dict, tmp: Path, ckpt: Pa
         raise AssertionError(f"batch_infer's rows disagree with the predictor's: {d_psnr}, {d_ssim}")
     return {"launches": counts, "frames_per_sec": summary["frames_per_sec"],
             "eval_frames_per_sec": eval_fps, "psnr_diff": d_psnr, "ssim_diff": d_ssim}
+
+
+# ------------------------------------------------------- 34 the spatial axis
+SPATIAL = 2  # gloo ranks sharing cuda:0, each holding half of every frame's rows
+# (a): the Test log of the spatial run against phase 4's meshless one, relative
+# (the JAX package's own bound, tests/test_parallel.py:588-591)
+TOL_SPATIAL_LOG = 1e-5
+# (b): one step with remat against the plain step on the spatial mesh (the
+# recompute reruns the same kernels), loss and parameters, relative
+TOL_SPATIAL_REMAT = 1e-6
+# (c): the JAX package's pad_h bounds against the meshless run
+# (tests/test_parallel.py:686-691): edge-extended rows replace the zero
+# padding at the bottom border
+PAD_H_DPSNR, PAD_H_DSSIM, PAD_H_LOSS_REL = 0.2, 0.01, 0.05
+ODD_HR = [(4 * 63, HR)]  # LR 63x64: spatial 2 does not divide the height
+# halo exchanges: every conv with a 3-wide window in H, once a call
+# (the window conv, the refine conv, 3 out-block convs a branch, the in-block
+# on the core and on each warm-up segment)
+EXCHANGES_PER_CLIP = LAUNCHES_PER_CLIP + 3 + 2 * NET_KWARGS["num_stages"] \
+    + 3 * 3 * NET_KWARGS["num_stages"]  # 792
+EXCHANGES_FWD_PER_STEP = FWD_PER_STEP + 3 + 2 * NET_KWARGS["num_stages"] \
+    + 3 * 3 * NET_KWARGS["num_stages"]  # 378
+# the backward exchanges where a gradient flows: the core steps' gate convs,
+# the refine convs and the out-block (the LR input carries none)
+EXCHANGES_BWD_PER_STEP = BWD_PER_STEP + 2 * NET_KWARGS["num_stages"] \
+    + 3 * 3 * NET_KWARGS["num_stages"]  # 159
+SHARD_EVAL = (1, NET_KWARGS["num_features"][0], HR // SCALE // SPATIAL, HR // SCALE)
+SHARD_TRAIN = (TRAIN_BATCH, NET_KWARGS["num_features"][0], PATCH // SPATIAL, PATCH)
+
+
+def gate_kernel_at_shards(lstm_gates, recurrence_format, dev) -> dict:
+    """Phase 34 (e): the gate kernels against their plain versions at a
+    spatial rank's shapes, forward at the eval shard and forward and
+    backward at the training shard, fp32 NCHW and bf16 channels-last (the
+    recurrence's layouts), with the tolerances of phases 3 and 9."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fmt = recurrence_format(dtype)
+        for name, shape_c in (("eval", SHARD_EVAL), ("train", SHARD_TRAIN)):
+            g, c, b = gate_operands(shape_c, fmt, dtype, dev, gen)
+            h_k, c_k = lstm_gates.fused_lstm_gates(g, c, dim=1, bias=b)
+            h_p, c_p = lstm_gates.lstm_gates_reference(g.float(), c.float(), dim=1, bias=b.float())
+            err = max((h_k.float() - h_p).abs().max().item(), (c_k.float() - c_p).abs().max().item())
+            tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+            shape_g = (shape_c[0], 4 * shape_c[1], *shape_c[2:])
+            log("spatial", f"gate kernel at the {name} shard {shape_g} {dtype} ({fmt_name(fmt)}): "
+                           f"max abs err {err:.3e} (tol {tol})")
+            if not err <= tol:
+                raise AssertionError(f"gate kernel disagrees at the {name} shard: {dtype} {err}")
+            out[f"fwd {name} {dtype}"] = err
+        g, c, b = gate_operands(SHARD_TRAIN, fmt, dtype, dev, gen)
+        dh, dc = (torch.randn(SHARD_TRAIN, device=dev, generator=gen).to(dtype).contiguous(
+            memory_format=fmt) for _ in range(2))
+        dg_k, dc_k = lstm_gates._launch_bwd(g, c, dh, dc, 1, b)
+        dg_p, dc_p = lstm_gates.lstm_gates_backward_reference(
+            g.float(), c.float(), dh.float(), dc.float(), dim=1, bias=b.float())
+        torch.cuda.synchronize()
+        err = max((dg_k.float() - dg_p).abs().max().item(), (dc_k.float() - dc_p).abs().max().item())
+        rel = max(((k.float() - p).abs() / p.abs().clamp_min(1)).max().item()
+                  for k, p in ((dg_k, dg_p), (dc_k, dc_p)))
+        ok = err <= TOL_FP32 if dtype == torch.float32 else rel <= TOL_BF16_REL
+        log("spatial", f"backward kernel at the training shard {dtype}: max abs err {err:.3e}, "
+                       f"err / max(1, |value|) {rel:.3e} (tol {TOL_FP32} abs in fp32, "
+                       f"{TOL_BF16_REL} relative in bf16)")
+        if not ok:
+            raise AssertionError(f"backward kernel disagrees at the training shard: {dtype}")
+        out[f"bwd train {dtype}"] = err
+    return out
+
+
+def spatial_rank(eval_cfg: dict, pad_cfg: dict, infer_argv: list, state: dict, items: list,
+                 clip, pos, device: str) -> dict:
+    """Phase 34's rank: ``SPATIAL`` gloo ranks on cuda:0 as one spatial
+    group; (a) the eval through ``main.test_from_config`` and the net's
+    fused output on a clip, gathered; (b) ``DDP_STEPS`` SGD steps, then one
+    step plain and with remat; (c) pad_h serving of a tree of odd LR
+    height; (d) ``batch_infer --spatial-parallel --pad-h``.  Rank 0's
+    results come back to the parent."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import main as port_main
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import Cfg
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import lstm_gates
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        gather_rows,
+        halo,
+        make_mesh,
+        mesh as mesh_mod,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import batch_infer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic_cudnn(torch)
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"backend": torch.distributed.get_backend()}
+
+    def path(name, fn):
+        """Run ``fn`` with the gate counts and the halo exchanges set to 0
+        just before it and read just after it; its wall in seconds."""
+        reset_launches(lstm_gates)
+        halo.reset_exchanges()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        out[name] = {"launches": launches(lstm_gates), "exchanges": dict(halo.EXCHANGES),
+                     "wall_s": time.perf_counter() - t0}
+        return result
+
+    # (a) the eval of phase 4's clips
+    mesh_mod._WARNED.clear()
+    predictor = path("eval", lambda: port_main.test_from_config(Cfg(eval_cfg)))
+    out["eval"].update(log=predictor.log, mesh=dict(predictor.mesh.shape),
+                       clip_ms=[x * 1e3 for x in predictor.item_seconds])
+    with torch.inference_mode():
+        inputs, axis = predictor._shard_rows([clip, pos])
+        fused = predictor.net(*(torch.from_numpy(x).to(dev) for x in inputs))[-1]
+        out["fused"] = gather_rows(fused, axis).cpu()
+    del predictor
+    # (b) the training steps of phase 27 on a (data 1, spatial SPATIAL) mesh
+    mesh = make_mesh(SPATIAL, spatial_parallel=SPATIAL, device=dev)
+    trainer = step_trainer(state, items, mesh, dev, **PHASE27_OPTIMIZER)
+    log_ = path("train", lambda: trainer._run_epoch("training")[0])
+    out["train"].update(log=log_, mesh=dict(mesh.shape),
+                        state={k: v.cpu() for k, v in trainer.net.state_dict().items()},
+                        model=type(trainer.model).__name__,
+                        local_items=next(iter(trainer.train_dataloader))["lr_imgs"].shape[0])
+    del trainer
+    for name, remat in (("step_plain", False), ("step_remat", True)):
+        trainer = step_trainer(state, items[:TRAIN_BATCH], mesh, dev,
+                               net_kwargs={**NET_KWARGS, "remat": remat}, **PHASE27_OPTIMIZER)
+        loss = path(name, lambda: trainer._run_epoch("training")[0]["Loss"])
+        out[name].update(loss=loss, state={k: v.cpu() for k, v in trainer.net.state_dict().items()})
+        del trainer
+    out["warned_train"] = sorted(k[0] for k in mesh_mod._WARNED)
+    # (c) pad_h on the tree of odd LR height; (d) batch_infer on it
+    mesh_mod._WARNED.clear()
+    predictor = path("pad_h", lambda: port_main.test_from_config(Cfg(pad_cfg)))
+    out["pad_h"].update(log=predictor.log, pad_h=predictor.pad_h,
+                        clip_ms=[x * 1e3 for x in predictor.item_seconds],
+                        warned=sorted(k[0] for k in mesh_mod._WARNED))
+    del predictor
+    summary = path("batch_infer", lambda: batch_infer.main(infer_argv))
+    out["batch_infer"]["summary"] = summary
+    return out
+
+
+def spatial_axis_card(port_main, Cfg, lstm_gates, recurrence_format, tree: dict, tmp: Path,
+                      ckpt: Path, fp32_log: dict, fused_meshless, clip, pos,
+                      reference: tuple, dev, card_line) -> dict:
+    """Phase 34: the spatial axis (height sharded over ``SPATIAL`` gloo
+    ranks sharing cuda:0, halo exchange at every conv) and pad_h."""
+    import csv
+
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.refine_net import RefineNet
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import distributed
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.synthetic_tree import (
+        write_acdc_tree,
+    )
+
+    kernels = gate_kernel_at_shards(lstm_gates, recurrence_format, dev)
+    parallel = {"num_devices": SPATIAL, "spatial_parallel": SPATIAL}
+    eval_cfg = eval_config(tree, ckpt, tmp / "spatial_test")
+    eval_cfg["parallel"] = parallel
+    odd = write_acdc_tree(tmp / "odd", {"test": (1, 1)}, cycle=CYCLE, hr=ODD_HR, scale=SCALE)
+    pad_cfg = eval_config(odd, ckpt, tmp / "spatial_pad_h")
+    pad_cfg["parallel"] = {**parallel, "pad_h": True}
+    pad_cfg["predictor"]["kwargs"]["exported"] = True  # its CSV rows for (d)
+    meshless_cfg = eval_config(odd, ckpt, tmp / "odd_meshless")
+    for cfg in (eval_cfg, pad_cfg, meshless_cfg):
+        cfg["predictor"]["kwargs"]["device"] = str(dev)
+    infer_csv = tmp / "spatial_batch_infer.csv"
+    infer_argv = [str(ckpt), str(odd["videos"]), str(odd["pos_code"]), str(infer_csv),
+                  "--net-kwargs", json.dumps(NET_KWARGS), "--device", dev.type,
+                  "--num-devices", str(SPATIAL), "--spatial-parallel", str(SPATIAL), "--pad-h"]
+    items = train_items(DDP_STEPS * TRAIN_BATCH, seed=5)  # phase 27's steps
+    state = RefineNet(**NET_KWARGS, generator=torch.Generator().manual_seed(0)).state_dict()
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(spatial_rank, (eval_cfg, pad_cfg, infer_argv, state, items,
+                                             clip.cpu().numpy(), pos.cpu().numpy(), str(dev)),
+                              world=SPATIAL, device=dev, backend="gloo")
+    wall = time.perf_counter() - t0
+    note = f"{SPATIAL} gloo ranks sharing one card: correctness only, no rate ({card_line})"
+
+    # (a) the eval against phase 4's meshless run
+    ev = ranks["eval"]
+    log_rel = max(abs(ev["log"][k] - v) / abs(v) for k, v in fp32_log.items())
+    sr_err = (ranks["fused"] - fused_meshless.cpu()).abs().max().item()
+    log("spatial", f"eval through main --test on mesh {ev['mesh']} ({ranks['backend']}): Test log "
+                   f"{ev['log']}; largest relative difference to phase 4's meshless log "
+                   f"{log_rel:.3e} (tol {TOL_SPATIAL_LOG}); gathered fused frames "
+                   f"{tuple(ranks['fused'].shape)} within {sr_err:.3e} of phase 5's meshless "
+                   f"forward (tol {TOL_FORWARD})")
+    log("spatial", f"ms a clip {', '.join(f'{x:.1f}' for x in ev['clip_ms'])}; rank 0's gate "
+                   f"launches {ev['launches']} ({LAUNCHES_PER_CLIP} x {SLICES} clips expected), "
+                   f"halo exchanges {ev['exchanges']} ({EXCHANGES_PER_CLIP} a clip expected); "
+                   f"{note}")
+    if ev["mesh"] != {"data": 1, "spatial": SPATIAL} or ranks["backend"] != "gloo":
+        raise AssertionError(f"the spatial eval ran on {ev['mesh']} over {ranks['backend']}")
+    if not (log_rel <= TOL_SPATIAL_LOG and sr_err <= TOL_FORWARD):
+        raise AssertionError(f"the spatial eval disagrees with the meshless one: {log_rel}, {sr_err}")
+    if ev["launches"] != (LAUNCHES_PER_CLIP * SLICES, 0, 0, 0) or \
+            ev["exchanges"] != {"forward": EXCHANGES_PER_CLIP * SLICES, "backward": 0}:
+        raise AssertionError(f"the spatial eval launched {ev['launches']}, exchanged {ev['exchanges']}")
+
+    # (b) the steps against phase 27's world 1, and remat against plain
+    ref_log, ref_state = reference
+    tr = ranks["train"]
+    loss_diff = abs(tr["log"]["Loss"] - ref_log["Loss"]) / abs(ref_log["Loss"])
+    param_diff = max(((tr["state"][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)).item()
+                     for k, v in ref_state.items() if v.is_floating_point())
+    plain, remat = ranks["step_plain"], ranks["step_remat"]
+    remat_loss = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    remat_param = max(((remat["state"][k] - v).abs().max() / v.abs().max().clamp_min(1e-12)).item()
+                      for k, v in plain["state"].items() if v.is_floating_point())
+    step_ms = tr["wall_s"] * 1e3 / DDP_STEPS
+    log("spatial", f"{DDP_STEPS} SGD steps of batch {TRAIN_BATCH} on mesh {tr['mesh']} "
+                   f"({tr['model']}, {tr['local_items']} items a rank, 1/{SPATIAL} of their rows): loss "
+                   f"{tr['log']['Loss']:.6f} against world 1's {ref_log['Loss']:.6f} (relative "
+                   f"{loss_diff:.3e}), parameters within {param_diff:.3e} of their largest element "
+                   f"(tol {TOL_TWO_RANKS}); {step_ms:.1f} ms a step; rank 0's gate launches "
+                   f"{tr['launches']}, halo exchanges {tr['exchanges']} ({EXCHANGES_FWD_PER_STEP} "
+                   f"forward + {EXCHANGES_BWD_PER_STEP} backward a step expected); {note}")
+    log("spatial", f"one step with remat against the plain step on the mesh: loss relative "
+                   f"{remat_loss:.3e}, parameters {remat_param:.3e} (tol {TOL_SPATIAL_REMAT}); "
+                   f"gate launches {plain['launches']} plain, {remat['launches']} remat; halo "
+                   f"exchanges {plain['exchanges']} plain, {remat['exchanges']} remat")
+    if tr["mesh"] != {"data": 1, "spatial": SPATIAL} or tr["local_items"] != TRAIN_BATCH:
+        raise AssertionError(f"the spatial steps ran on {tr['mesh']}, {tr['local_items']} items")
+    if not (loss_diff <= TOL_TWO_RANKS and param_diff <= TOL_TWO_RANKS):
+        raise AssertionError(f"the spatial steps disagree with world 1: {loss_diff}, {param_diff}")
+    if not (remat_loss <= TOL_SPATIAL_REMAT and remat_param <= TOL_SPATIAL_REMAT):
+        raise AssertionError(f"the remat step disagrees with the plain one: {remat_loss}, {remat_param}")
+    want = (FWD_PER_STEP * DDP_STEPS, BWD_PER_STEP * DDP_STEPS, 0, 0)
+    if tr["launches"] != want or tr["exchanges"] != {
+            "forward": EXCHANGES_FWD_PER_STEP * DDP_STEPS,
+            "backward": EXCHANGES_BWD_PER_STEP * DDP_STEPS}:
+        raise AssertionError(f"the spatial steps launched {tr['launches']}, exchanged {tr['exchanges']}")
+    if remat["launches"] != (REMAT_FWD_PER_STEP, BWD_PER_STEP, 0, 0) or ranks["warned_train"]:
+        raise AssertionError(f"the remat step launched {remat['launches']}; {ranks['warned_train']}")
+
+    # (c) pad_h against the meshless run of the same tree
+    meshless = port_main.test_from_config(Cfg(meshless_cfg))
+    pad = ranks["pad_h"]
+    gaps = {k: pad["log"][k] - meshless.log[k] for k in meshless.log}
+    log("spatial", f"pad_h, LR height {ODD_HR[0][0] // SCALE} over {SPATIAL} ranks: Test log "
+                   f"{pad['log']} against the meshless {meshless.log}: gaps {gaps} (bounds: PSNR "
+                   f"and CardiacPSNR {PAD_H_DPSNR} dB, SSIM {PAD_H_DSSIM}, Loss {PAD_H_LOSS_REL} "
+                   f"relative); spatial warnings {pad['warned']}; ms a clip "
+                   f"{', '.join(f'{x:.1f}' for x in pad['clip_ms'])}; gate launches "
+                   f"{pad['launches']}, halo exchanges {pad['exchanges']}")
+    if not pad["pad_h"] or pad["warned"]:
+        raise AssertionError(f"pad_h did not shard the odd height: {pad}")
+    if not (abs(gaps["PSNR"]) < PAD_H_DPSNR and abs(gaps["CardiacPSNR"]) < PAD_H_DPSNR
+            and abs(gaps["SSIM"]) < PAD_H_DSSIM
+            and abs(gaps["Loss"]) <= PAD_H_LOSS_REL * abs(meshless.log["Loss"])):
+        raise AssertionError(f"pad_h is outside the JAX package's bounds: {gaps}")
+    if pad["launches"] != (LAUNCHES_PER_CLIP, 0, 0, 0):
+        raise AssertionError(f"the pad_h eval launched {pad['launches']}")
+
+    # (d) batch_infer against the pad_h predictor's rows
+    with open(infer_csv, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    with open(tmp / "spatial_pad_h" / "results.csv", newline="") as f:
+        want = {r[0]: (float(r[1]), float(r[2])) for r in list(csv.reader(f))[1:]}
+    d_psnr = d_ssim = 0.0
+    for name, _, psnr, ssim in rows:
+        p, q = want[name.replace("2d+1d", "2d").replace("sequence", "slice")]
+        d_psnr, d_ssim = max(d_psnr, abs(float(psnr) - p)), max(d_ssim, abs(float(ssim) - q))
+    bi = ranks["batch_infer"]
+    log("spatial", f"batch_infer --spatial-parallel {SPATIAL} --pad-h: {bi['summary']}; rows "
+                   f"against the pad_h predictor's: PSNR within {d_psnr:.2e} dB (tol "
+                   f"{TOL_BATCH_PSNR}), SSIM within {d_ssim:.2e} (tol {TOL_BATCH_SSIM}); gate "
+                   f"launches {bi['launches']}, halo exchanges {bi['exchanges']}")
+    if len(rows) != len(want) or not rows or bi["launches"] != (LAUNCHES_PER_CLIP, 0, 0, 0):
+        raise AssertionError(f"batch_infer wrote {len(rows)} rows, launched {bi['launches']}")
+    if not (d_psnr <= TOL_BATCH_PSNR and d_ssim <= TOL_BATCH_SSIM):
+        raise AssertionError(f"batch_infer's rows disagree: {d_psnr}, {d_ssim}")
+    log("spatial", f"phase 34 in {wall:.1f} s with the ranks' start")
+    return {"kernels": kernels, "eval_log_rel": log_rel, "eval_sr_err": sr_err,
+            "eval_clip_ms": ev["clip_ms"], "eval_launches": ev["launches"],
+            "eval_exchanges": ev["exchanges"], "train_loss_rel": loss_diff,
+            "train_param_rel": param_diff, "train_step_ms": step_ms,
+            "train_launches": tr["launches"], "train_exchanges": tr["exchanges"],
+            "remat_loss_rel": remat_loss, "remat_param_rel": remat_param,
+            "remat_launches": remat["launches"], "remat_exchanges": remat["exchanges"],
+            "pad_h_gaps": gaps, "pad_h_clip_ms": pad["clip_ms"], "pad_h_launches": pad["launches"],
+            "batch_infer_launches": bi["launches"], "batch_infer_psnr_diff": d_psnr,
+            "batch_infer_ssim_diff": d_ssim, "wall_s": wall, "card": card_line}
 
 
 # ---------------------- 31-33 the offline pipeline, convergence, DSB15 eval
@@ -3691,6 +4008,7 @@ def main() -> int:
 
     # ------------------------------ 26-30 parallel runs and the remainders
     ddp = ddp_phases(port_main, Cfg, lstm_gates, tree, tmp, dev, card_line)
+    world1_reference = ddp.pop("world1_reference")  # phase 34 steps against it too
     skipped = skip_nonfinite_card(lstm_gates, dev)
     resumed = resume_backends(port_main, Cfg, lstm_gates, tree, tmp, dev)
     batch = batch_infer_card(port_main, Cfg, lstm_gates, tree, tmp, ckpt, dev, eval_fps, card_line)
@@ -3701,8 +4019,13 @@ def main() -> int:
     pipeline = offline_pipeline(tmp, card_line)
     converged = flagship_convergence(lstm_gates, tmp / "convergence", dev, card_line)
     dsb15 = dsb15_eval(port_main, lstm_gates, pipeline["dsb15_tree"], tmp, dev, card_line)
+
+    # ------------------------------------------------ 34 the spatial axis, pad_h
+    spatial = spatial_axis_card(port_main, Cfg, lstm_gates, recurrence_format, tree, tmp, ckpt,
+                                fp32_log, fused_k, clip, pos, world1_reference, dev, card_line)
+    print(json.dumps({"spatial_axis": spatial}), flush=True)
     tmp_dir.cleanup()
-    log("done", f"phases 1-33 in {time.perf_counter() - started:.1f} s, the kernels' builds "
+    log("done", f"phases 1-34 in {time.perf_counter() - started:.1f} s, the kernels' builds "
                 f"included ({card_line})")
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
@@ -3722,7 +4045,12 @@ def main() -> int:
                  "train_resume_backends": resumed["launches"][0],
                  "batch_infer": batch["launches"][0], "offline_pipeline": 0,
                  "convergence": converged["launches"][0],
-                 "dsb15_eval": sum(v["launches"][0] for v in dsb15.values())}
+                 "dsb15_eval": sum(v["launches"][0] for v in dsb15.values()),
+                 "spatial_eval_rank0": spatial["eval_launches"][0],
+                 "spatial_train_rank0": spatial["train_launches"][0],
+                 "spatial_remat_step_rank0": spatial["remat_launches"][0],
+                 "spatial_pad_h_rank0": spatial["pad_h_launches"][0],
+                 "spatial_batch_infer_rank0": spatial["batch_infer_launches"][0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
@@ -3733,7 +4061,10 @@ def main() -> int:
                  "train_ddp_two_ranks_rank0": ddp["two_ranks_launches"][1],
                  "train_skip_nonfinite": skipped["launches"][1],
                  "train_resume_backends": resumed["launches"][1], "batch_infer": 0,
-                 "offline_pipeline": 0, "convergence": converged["launches"][1], "dsb15_eval": 0}
+                 "offline_pipeline": 0, "convergence": converged["launches"][1], "dsb15_eval": 0,
+                 "spatial_eval_rank0": 0, "spatial_train_rank0": spatial["train_launches"][1],
+                 "spatial_remat_step_rank0": spatial["remat_launches"][1],
+                 "spatial_pad_h_rank0": 0, "spatial_batch_infer_rank0": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
@@ -3758,6 +4089,8 @@ def main() -> int:
         "layout": fwd_eval[f32]["layout"],
         "layout_bf16": fwd_eval[b16]["layout"],
         "max_abs_err_train_shape": fwd_train_errors[str(f32)],
+        "max_abs_err_spatial_shards": {k: v for k, v in spatial["kernels"].items()
+                                       if k.startswith("fwd")},
         "max_abs_err_bf16_train_shape": fwd_train_errors[str(b16)],
         "ms_train_shape": fwd_train[f32]["ms"],
         "plain_ms_train_shape": fwd_train[f32]["plain_ms"],
@@ -3781,6 +4114,8 @@ def main() -> int:
         "launches_by_path": bwd_paths,
         "max_abs_err": bwd_errors[str(f32)],
         "max_abs_err_bf16": bwd_errors[str(b16)],
+        "max_abs_err_spatial_shards": {k: v for k, v in spatial["kernels"].items()
+                                       if k.startswith("bwd")},
         "ms": bwd_train[f32]["ms"],
         "plain_ms": bwd_train[f32]["plain_ms"],
         "bound_ms": bwd_train[f32]["bound_ms"],

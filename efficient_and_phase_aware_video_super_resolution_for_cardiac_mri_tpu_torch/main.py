@@ -13,9 +13,10 @@ at full precision, and the recurrent spine would accumulate TF32 rounding
 over its 42 steps (and, in training, over its backward).
 
 A ``parallel:`` section (``num_devices``, ``model_parallel``,
-``multi_host``, ``coordinator_address``, ``num_processes``,
-``process_id``) runs over ``torch.distributed``, one process (rank) per
-device, NCCL on the card and gloo on the CPU (``parallel/``):
+``spatial_parallel``, ``pad_h``, ``multi_host``, ``coordinator_address``,
+``num_processes``, ``process_id``) runs over ``torch.distributed``, one
+process (rank) per device, NCCL on the card and gloo on the CPU
+(``parallel/``):
 
 * ``main`` spawns ``num_devices`` ranks itself (a multi-host run: this
   host's share, ranks ``process_id · local + i``), each running the train
@@ -29,10 +30,14 @@ device, NCCL on the card and gloo on the CPU (``parallel/``):
   group the caller made stays the caller's), so the engine they return
   holds a wrapped net whose group is gone; its ``net`` still runs.
 
-More CUDA devices than are visible raise ``ValueError`` as the JAX
-package's mesh does; ``spatial_parallel > 1`` and ``pad_h`` raise
-``NotImplementedError`` (ROADMAP item 10b).  A multi-host run defaults to
-``checkpoint_backend: orbax_async``, as in the JAX package.
+More CUDA devices than are visible, ``spatial_parallel`` with
+``model_parallel``, and a device count that ``spatial_parallel ×
+model_parallel`` does not divide raise ``ValueError`` as the JAX
+package's mesh does, before any rank starts; ``spatial_parallel > 1``
+with a net other than RefineNet raises ``NotImplementedError`` (ROADMAP
+item 10c).  ``pad_h`` sets the predictor's knob, as in the JAX package's
+``main``.  A multi-host run defaults to ``checkpoint_backend:
+orbax_async``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -99,21 +104,25 @@ def _build_metrics(cfg: Cfg):
 
 def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
     """The config's ``parallel:`` section ({} without one) after the JAX
-    package's refusals: more CUDA devices than are visible
-    (``ValueError``), and what is not ported (``NotImplementedError``)."""
-    from .parallel import check_devices
-    from .parallel.mesh import _SPATIAL_MSG
+    package's refusals (``ValueError``): more CUDA devices than are
+    visible, ``spatial_parallel`` with ``model_parallel``, a device count
+    their product does not divide; and a net whose spatial axis is not
+    ported (``NotImplementedError``, item 10c)."""
+    from .parallel import check_axes, check_devices
+    from .parallel.halo import NOT_READY
 
     parallel = dict(cfg.get("parallel") or {})
     if not parallel:
         return {}
-    if int(parallel.get("spatial_parallel") or 1) > 1:
-        raise NotImplementedError(
-            f"parallel.spatial_parallel={parallel['spatial_parallel']}: {_SPATIAL_MSG}")
-    if parallel.get("pad_h"):
-        raise NotImplementedError(f"parallel.pad_h: {_SPATIAL_MSG}")
     n = parallel.get("num_devices") or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    check_devices(int(n), device)
+    if not dist.is_initialized() or dist.get_backend() == "nccl":
+        # (the ranks of a gloo group made by the caller may share a card)
+        check_devices(int(n), device)
+    sp = int(parallel.get("spatial_parallel") or 1)
+    check_axes(int(n), sp, parallel.get("model_parallel", 1))
+    net = (cfg.get("net") or {}).get("name")
+    if sp > 1 and net is not None and net != "RefineNet":
+        raise NotImplementedError(f"parallel.spatial_parallel={sp}: {NOT_READY.format(net=net)}")
     return parallel
 
 
@@ -330,6 +339,10 @@ def _test(cfg: Cfg, pred_kwargs: dict, mesh, device: torch.device):
     metric_fns = _build_metrics(cfg)
 
     logger.info("Create the predictor.")
+    # parallel: {pad_h: true} edge-extends the heights that spatial_parallel
+    # does not divide (the JAX package's main)
+    if (cfg.get("parallel") or {}).get("pad_h"):
+        pred_kwargs.setdefault("pad_h", True)
     predictor = PREDICTORS.get(cfg.predictor.name)(
         device=device,
         test_dataloader=test_loader,

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.halo import HaloConv2d
+
 
 def init_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
     """In place ``U(-1/√fan_in, 1/√fan_in)`` from ``generator``."""
@@ -281,11 +283,12 @@ def per_frame(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class InBlock(nn.Module):
-    """conv3×3 + PReLU (reference ``refine_net.py:188-192``)."""
+    """conv3×3 + PReLU (reference ``refine_net.py:188-192``); the conv
+    exchanges its halo under a spatial axis (``parallel/halo.py``)."""
 
     def __init__(self, in_features: int, features: int, generator: torch.Generator):
         super().__init__()
-        self.conv = conv2d(in_features, features, 3, generator)
+        self.conv = conv2d(in_features, features, 3, generator, cls=HaloConv2d)
         self.prelu = PReLU()
 
     def forward(self, x):
@@ -295,7 +298,9 @@ class InBlock(nn.Module):
 class UpsampleBlock(nn.Module):
     """conv(C→C·r²) + PixelShuffle stages for ×{2,3,4,8}, then a final conv
     unless ``final_conv`` is off (reference ``refine_net.py:194-205``,
-    ``edsr_net.py:56-67``)."""
+    ``edsr_net.py:56-67``).  The convs exchange their halos under a
+    spatial axis; PixelShuffle is row-local, so after a shuffle each rank
+    holds r× its rows and the next conv's halo is taken at that scale."""
 
     def __init__(self, features: int, out_features: int, upscale_factor: int,
                  generator: torch.Generator, final_conv: bool = True):
@@ -305,16 +310,18 @@ class UpsampleBlock(nn.Module):
             n = int(math.log2(r))
             self.shuffles = [2] * n
             for i in range(n):
-                setattr(self, f"conv{i + 1}", conv2d(features, 4 * features, 3, generator))
+                setattr(self, f"conv{i + 1}",
+                        conv2d(features, 4 * features, 3, generator, cls=HaloConv2d))
         elif r == 3:
             n = 1
             self.shuffles = [3]
-            self.conv1 = conv2d(features, 9 * features, 3, generator)
+            self.conv1 = conv2d(features, 9 * features, 3, generator, cls=HaloConv2d)
         else:
             raise ValueError(f"The upscale factor should be 2, 3, 4 or 8. Got {r}.")
         self.final_conv = final_conv
         if final_conv:
-            setattr(self, f"conv{n + 1}", conv2d(features, out_features, 3, generator))
+            setattr(self, f"conv{n + 1}",
+                    conv2d(features, out_features, 3, generator, cls=HaloConv2d))
 
     def forward(self, x):
         for i, r in enumerate(self.shuffles):

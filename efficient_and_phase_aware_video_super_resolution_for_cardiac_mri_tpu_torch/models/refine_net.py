@@ -27,6 +27,14 @@ batch.
   frames whose graph would be thrown away.
 * The refine block's sliding window over time is one 3D conv, VALID over
   time, on the 2D weight the reference stores (``_WindowConv``).
+* Under a spatial axis (``parallel/halo.shard_spatially``; the JAX
+  package's ``spatial`` mesh axis) each rank holds a band of rows of every
+  frame, and every conv with a 3-wide window in H exchanges one halo row
+  with its neighbours: the gate conv, the window conv (not its 1×1 form
+  without the phase code), the refine block's second conv, the in-block
+  and the out-block.  The gate tail is elementwise and runs unchanged on
+  (B, 4F, H/S, W); the phase code has no H axis.  A checkpointed step
+  repeats its exchanges in the recompute, in the same order on every rank.
 
 Replicated quirk (SURVEY.md §5) #3: the refine body applies no activation
 between its convs; its registered PReLU is a dead parameter.  Fixed as in the
@@ -38,11 +46,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.lstm_gates import fused_lstm_gates
+from ..parallel.halo import HaloConv2d, halo_conv2d, halo_conv3d
 from .common import InBlock, PReLU, UpsampleBlock, conv2d, conv_format, init_uniform_, per_frame
 
 
@@ -50,6 +58,9 @@ class ConvLSTMCell(nn.Module):
     """One layer of a ConvLSTM step: the gate conv over [x ‖ h] (or [x ‖ x]
     with ``memory=False``, reference ``refine_net.py:251-255``) and the gate
     tail, split (i, f, o, g)."""
+
+    #: the spatial axis the gate conv exchanges its halo over (None: whole frames)
+    spatial_axis = None
 
     def __init__(self, in_features: int, hidden: int, memory: bool,
                  generator: torch.Generator):
@@ -68,7 +79,7 @@ class ConvLSTMCell(nn.Module):
         copies, which exist only while the forward runs).  The conv runs
         without its bias, which the gate tail adds."""
         combined = torch.cat([x, h] if self.memory else [x, x], dim=1)
-        gates = F.conv2d(combined, weight, None, padding=self.conv.padding)
+        gates = halo_conv2d(combined, weight, None, self.conv.padding, self.spatial_axis)
         return self.gate_tail(gates, c, dim=1, bias=bias)
 
 
@@ -169,6 +180,9 @@ class _WindowConv(nn.Module):
     window-times-larger concat of the reference is never built.
     """
 
+    #: the spatial axis the 3×3 window exchanges its halo over
+    spatial_axis = None
+
     def __init__(self, in_channels: int, features: int, window: int, kernel_size: int,
                  generator: torch.Generator):
         super().__init__()
@@ -185,7 +199,8 @@ class _WindowConv(nn.Module):
         out, in_ch, ks, _ = self.weight.shape
         C = in_ch // self.window
         w3 = self.weight.view(out, self.window, C, ks, ks).permute(0, 2, 1, 3, 4)
-        y = F.conv3d(feats.transpose(1, 2), w3, self.bias, padding=(0, ks // 2, ks // 2))
+        y = halo_conv3d(feats.transpose(1, 2), w3, self.bias, (0, ks // 2, ks // 2),
+                        self.spatial_axis)
         return y.transpose(1, 2)
 
 
@@ -209,7 +224,7 @@ class RefineBlock(nn.Module):
         if positional_encoding:
             self.body = nn.ModuleDict({
                 "conv1": _WindowConv(window * C, C, window, 3, generator),
-                "conv2": conv2d(C, num_features, 3, generator),
+                "conv2": conv2d(C, num_features, 3, generator, cls=HaloConv2d),
             })
         else:
             self.body = nn.ModuleDict({
@@ -259,6 +274,8 @@ class RefineNet(nn.Module):
 
     #: registered but never called (quirk #3): no gradient, no optimizer state
     unused_parameters = ("refine_block.prelu.weight",)
+    #: its every conv takes a halo (``parallel/halo.shard_spatially``)
+    spatial_ready = True
 
     def __init__(
         self,

@@ -173,11 +173,12 @@ def _rank_entry(local_rank: int, target, args: tuple, plan: dict) -> None:
 
 
 def local_device(device: torch.device | str) -> torch.device:
-    """This rank's device: on the card ``cuda:LOCAL_RANK`` (or the rank
-    modulo the visible devices), made current; the CPU as given."""
+    """This rank's device: on the card ``cuda:LOCAL_RANK`` (or the rank),
+    modulo the visible devices (gloo ranks may share a card), made
+    current; the CPU as given."""
     device = torch.device(device)
     if device.type != "cuda" or not dist.is_initialized():
         return device
-    index = int(os.environ.get("LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
+    index = int(os.environ.get("LOCAL_RANK", dist.get_rank())) % torch.cuda.device_count()
     torch.cuda.set_device(index)
     return torch.device("cuda", index)

@@ -1,4 +1,4 @@
-"""The device mesh of the port: (data, model) over the world group.
+"""The device mesh of the port: (data, spatial) or (data, model) over the world group.
 
 The JAX package lays its devices out as a named mesh with a ``data``
 axis and an optional ``model`` or ``spatial`` axis (its
@@ -12,6 +12,15 @@ device is a rank and the axes are process groups:
   A global batch that the data size does not divide is computed whole on
   every rank, with the JAX package's one-time warning: averaging unequal
   local means would give another step.
+* ``spatial``: the height of a frame sharded over the ranks of one
+  ``spatial_group`` (:func:`spatial_rows`), every conv exchanging its halo
+  rows with the neighbours (``parallel/halo.py``).  The ranks of a group
+  take the same items; DDP averages the gradients over every rank (data ×
+  spatial), and with equal shards the mean of the ranks' local means is the
+  global mean.  A height that the spatial size does not divide is computed
+  whole on every rank of the group, with the JAX package's one-time
+  warning; ``pad_h`` edge-extends it to a multiple instead
+  (:func:`pad_height_to_multiple`).  RefineNet only (ROADMAP item 10c).
 * ``model``: ZeRO-3, as the JAX package's ``param_spec`` /
   ``gather_for_compute`` do it: every parameter and its optimizer state
   are stored sharded over the model ranks (FSDP2 ``fully_shard`` on a 2-D
@@ -19,19 +28,21 @@ device is a rank and the axes are process groups:
   step.  Torch's conv weights are OIHW, so FSDP2's dim-0 shard is the
   out-feature axis that JAX shards on HWIO's last.  The ranks of one model
   group hold the same data.
-* ``spatial`` (the height axis with halo exchange) and ``pad_h`` are not
-  ported (ROADMAP item 10b): PyTorch has no GSPMD to insert the halos.
 
-Ranks are laid out (data, model) with the model axis fastest, as in the
-JAX package: rank = data_index · model + model_index.
+``spatial`` and ``model`` exclude each other, as in the JAX package.  Ranks
+are laid out with the second axis fastest, as there: rank = data_index ·
+spatial + spatial_index, or data_index · model + model_index.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from .halo import SpatialAxis, set_spatial_axis, shard_spatially
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -39,21 +50,22 @@ SPATIAL_AXIS = "spatial"
 
 LOG = logging.getLogger(__name__)
 
-_SPATIAL_MSG = ("the spatial axis (height sharded with a halo exchange) and pad_h are not "
-                "ported to PyTorch yet (ROADMAP queue 1, item 10b)")
-
 
 @dataclass
 class Mesh:
-    """A (data, model) mesh over the default process group."""
+    """A (data, spatial) or (data, model) mesh over the default process group."""
 
     data: int
     model: int
     rank: int
     device: torch.device
     #: the group of the ranks that hold the same parameter shard (one per
-    #: model index): gradients, BatchNorm statistics and logs reduce here
+    #: model index; every rank under a spatial axis): gradients, BatchNorm
+    #: statistics and the trainer's logs reduce here
     data_group: object = None
+    #: the ranks that share one frame's rows (``parallel/halo.py``)
+    spatial: int = 1
+    spatial_group: object = field(default=None, repr=False)
     #: FSDP2's 2-D device mesh, when the mesh has a model axis
     device_mesh: object = None
     #: the hosts the ranks run on (``parallel.num_processes`` of a
@@ -71,17 +83,35 @@ class Mesh:
     @property
     def shape(self) -> dict:
         out = {DATA_AXIS: self.data}
+        if self.spatial > 1:
+            out[SPATIAL_AXIS] = self.spatial
         if self.model > 1:
             out[MODEL_AXIS] = self.model
         return out
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.spatial * self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.spatial * self.model)
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def replicas(self) -> int:
+        """The ranks of ``data_group``."""
+        return self.data * self.spatial
+
+    @property
+    def spatial_axis(self) -> SpatialAxis | None:
+        """This rank's place on the spatial axis (None without one)."""
+        if self.spatial == 1:
+            return None
+        return SpatialAxis(self.spatial_group, self.spatial, self.spatial_index)
 
     @property
     def is_lead(self) -> bool:
@@ -102,15 +132,30 @@ def check_devices(n: int, device: torch.device | str) -> None:
             "its ranks on the CPU.")
 
 
+def check_axes(n: int, spatial_parallel: int = 1, model_parallel: int = 1) -> None:
+    """The JAX package's refusals of a mesh's axes (its ``make_mesh``)."""
+    sp, mp = int(spatial_parallel or 1), int(model_parallel or 1)
+    if sp > 1 and mp > 1:
+        raise ValueError(
+            "spatial_parallel and model_parallel cannot be combined: XLA's "
+            "SPMD partitioner miscompiles convs whose spatially-sharded "
+            "operands are partially replicated over a third axis (the JAX "
+            "package's parallel/mesh.py docstring has the measurements).")
+    if n % (sp * mp):
+        raise ValueError(f"{n} devices not divisible by spatial_parallel={sp} x model_parallel={mp}.")
+
+
 def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
               spatial_parallel: int = 1, device: torch.device | str | None = None,
               hosts: int = 1) -> Mesh:
     """The mesh over the default process group: ``data`` takes what is
-    left, data = n / model.  ``num_devices`` must equal the world size;
-    on the card with NCCL it may not exceed the visible devices (with gloo
-    several ranks may share one card, for correctness checks only)."""
-    if spatial_parallel and int(spatial_parallel) > 1:
-        raise NotImplementedError(f"spatial_parallel={spatial_parallel}: {_SPATIAL_MSG}")
+    left, data = n / (spatial · model).  ``num_devices`` must equal the
+    world size; on the card with NCCL it may not exceed the visible devices
+    (with gloo several ranks may share one card, for correctness checks
+    only)."""
+    sp, mp = int(spatial_parallel or 1), int(model_parallel or 1)
+    if sp > 1 and mp > 1:
+        check_axes(sp * mp, sp, mp)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialized (parallel/distributed.py)")
     world = dist.get_world_size()
@@ -120,15 +165,21 @@ def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
         check_devices(n, device)
     if n != world:
         raise ValueError(f"parallel.num_devices={n} but the process group has {world} ranks.")
-    mp = int(model_parallel or 1)
-    if n % mp:
-        raise ValueError(f"{n} devices not divisible by spatial_parallel=1 x model_parallel={mp}.")
+    check_axes(n, sp, mp)
     rank = dist.get_rank()
     host_group = dist.new_group(backend="gloo")
     backend = dist.get_backend()
     if mp == 1:
-        return Mesh(data=n, model=1, rank=rank, device=device, data_group=dist.group.WORLD,
-                    hosts=hosts, host_group=host_group, backend=backend)
+        spatial_group = None
+        if sp > 1:
+            # every rank makes every group, in the same order
+            for d in range(n // sp):
+                group = dist.new_group(list(range(d * sp, (d + 1) * sp)))
+                if rank // sp == d:
+                    spatial_group = group
+        return Mesh(data=n // sp, model=1, rank=rank, device=device, data_group=dist.group.WORLD,
+                    spatial=sp, spatial_group=spatial_group, hosts=hosts, host_group=host_group,
+                    backend=backend)
     from torch.distributed.device_mesh import init_device_mesh
 
     device_mesh = init_device_mesh(device.type, (n // mp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
@@ -162,6 +213,64 @@ def is_sharded(batch_size: int, mesh: Mesh | None) -> bool:
     return mesh is not None and mesh.data > 1 and batch_size % mesh.data == 0
 
 
+def _spatial_key(key) -> bool:
+    """Batch keys whose arrays of rank >= 4 are channels-last images with
+    the height at ``ndim - 3`` (the JAX package's ``_spatial_key``)."""
+    return isinstance(key, str) and ("img" in key or key in ("lr", "hr", "pos", "pos_code"))
+
+
+def pad_height_to_multiple(arr: np.ndarray, multiple: int) -> np.ndarray:
+    """The ``pad_h`` contract (the JAX package's): edge-extend the height
+    axis (``ndim - 3``, channels-last) at the bottom to the next multiple
+    of ``multiple``; callers crop the outputs back to the true height."""
+    arr = np.asarray(arr)
+    h_axis = arr.ndim - 3
+    pad = -arr.shape[h_axis] % multiple
+    if not pad:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[h_axis] = (0, pad)
+    return np.pad(arr, widths, mode="edge")
+
+
+def spatial_rows(shape: tuple, mesh: Mesh | None) -> slice | None:
+    """This rank's rows of a channels-last array of ``shape`` (height at
+    ``ndim - 3``) over the spatial axis; None without a spatial axis, and,
+    warned once, when the spatial size does not divide the height: the
+    item is then computed whole on every rank of the group."""
+    if mesh is None or mesh.spatial == 1:
+        return None
+    height = shape[len(shape) - 3]
+    if height % mesh.spatial:
+        _warn_once(
+            ("spatial", tuple(shape)),
+            f"height {height} of a {tuple(shape)} array is not divisible by "
+            f"spatial_parallel={mesh.spatial}; replicating it over the spatial axis (no "
+            "latency win for this item). Pad or bucket H to a multiple to shard.")
+        return None
+    local = height // mesh.spatial
+    return slice(mesh.spatial_index * local, (mesh.spatial_index + 1) * local)
+
+
+def spatial_step(net: torch.nn.Module, shape: tuple, mesh: Mesh | None) -> tuple:
+    """For an item whose LR image array has ``shape``: this rank's rows of
+    it and the spatial axis, ``net`` given that axis for the item's
+    forward (and its backward's recompute); (None, None) without a spatial
+    axis, and with the net's axis off when the height is not divisible
+    (:func:`spatial_rows`)."""
+    if mesh is None or mesh.spatial == 1:
+        return None, None
+    rows = spatial_rows(shape, mesh)
+    axis = mesh.spatial_axis if rows is not None else None
+    set_spatial_axis(net, axis)
+    return rows, axis
+
+
+def take_rows(arr, rows: slice):
+    """``arr``'s ``rows`` of its height axis (``ndim - 3``)."""
+    return arr[(slice(None),) * (arr.ndim - 3) + (rows,)]
+
+
 _WARNED: set = set()
 
 
@@ -173,7 +282,8 @@ def _warn_once(key, msg: str) -> None:
 
 def partition(net: torch.nn.Module, mesh: Mesh | None, compute_dtype: torch.dtype | None = None):
     """The module the step runs: the net itself without a mesh; DDP over
-    the data ranks for a data-only mesh (ignoring the net's
+    the data ranks for a data-only mesh (every rank under a spatial axis,
+    the net given its halo axis first; ignoring the net's
     ``unused_parameters``, which get no gradient); for a model axis the net sharded
     in place by FSDP2 over the (data, model) device mesh (replicated over
     data, ZeRO-3 over model), with ``compute_dtype`` as its parameter
@@ -181,6 +291,7 @@ def partition(net: torch.nn.Module, mesh: Mesh | None, compute_dtype: torch.dtyp
     gradients reduced and kept in fp32)."""
     if mesh is None:
         return net
+    shard_spatially(net, mesh.spatial_axis)
     if mesh.model > 1:
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
@@ -208,8 +319,9 @@ def partition(net: torch.nn.Module, mesh: Mesh | None, compute_dtype: torch.dtyp
 
 
 def all_reduce_mean(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """``t`` averaged over the data ranks (in place, returned)."""
-    if mesh is not None and mesh.data > 1:
+    """``t`` averaged over ``data_group`` (the data ranks; every rank under
+    a spatial axis), in place, returned."""
+    if mesh is not None and mesh.replicas > 1:
         dist.all_reduce(t, group=mesh.data_group)
-        t /= mesh.data
+        t /= mesh.replicas
     return t

@@ -46,12 +46,22 @@ The JAX package's serving knobs, each computing what it computes there:
   and multi-frame families.
 
 With a ``mesh`` (``parallel/mesh.py``) the items are dealt round-robin to
-the ranks (every rank holds the whole net, so a model axis splits items
-too); each rank runs its items through the same loop, and the lead rank
-gathers every rank's fetched scores, frames and telemetry and folds them
-in item order, so the Test log, the CSV and the exports are the meshless
-run's.  ``pad_h`` (the spatial axis's padding) is still to port: a config
-that sets it raises ``NotImplementedError`` (ROADMAP item 10b).
+the spatial groups (every rank holds the whole net, so a model axis splits
+items too; without a spatial axis a group is one rank); each group runs
+its items through the same loop, and the lead rank gathers every group's
+fetched scores, frames and telemetry and folds them in item order, so the
+Test log, the CSV and the exports are the meshless run's.
+
+Under a spatial axis each rank of a group feeds the net its rows of the
+item's image inputs (the phase code has no H axis and goes whole), the
+net's convs exchange their halos (``parallel/halo.py``), and the SR rows
+are gathered whole before the losses, the metrics and the exports: SSIM's
+11-tap window and the Cardiac masks see whole frames, as under the JAX
+package's GSPMD.  A height the spatial size does not divide is computed
+whole on every rank of the group (warned once).  ``pad_h`` (the parallel
+section's, as in the JAX package's ``main``) edge-extends such heights to
+the next multiple instead, after the ``t_bucket`` padding, and crops the
+output and the target back to the true height before they are scored.
 """
 from __future__ import annotations
 
@@ -70,6 +80,14 @@ import torch.distributed as dist
 from ..config import PREDICTORS
 from ..ops import telemetry as tel
 from ..ops.tiling import tiled_apply
+from ..parallel import (
+    gather_rows,
+    pad_height_to_multiple,
+    shard_spatially,
+    spatial_step,
+    take_rows,
+)
+from ..parallel.mesh import _spatial_key
 from ..utils import casting, imgio, nifti
 from ..utils.dispatch import DoubleBuffer, Fetch, upload
 from ..utils.stats import get_stats
@@ -77,12 +95,6 @@ from . import checkpoint as ckpt_io
 from . import common
 
 LOG = logging.getLogger(__name__)
-
-#: serving knobs of the JAX package that this port does not implement yet,
-#: with the default a config may leave them at
-DEFERRED_KNOBS = {
-    "pad_h": False,
-}
 
 
 def _fetch_item(total, losses, metrics, frames, collector: tel.Collector) -> Fetch:
@@ -124,7 +136,7 @@ class BasePredictor:
         seam_stats: bool | str = "first",
         parallel=None,
         mesh=None,
-        **knobs,
+        pad_h: bool = False,
     ):
         # ``tile``: the forward on fixed-shape overlapping windows, exact when
         # the overlap covers the net's receptive field; the overlap is
@@ -149,22 +161,18 @@ class BasePredictor:
                     "tile is a single-device serving strategy; unset parallel/mesh "
                     "(scale tiled serving by devices via tools/batch_infer)"
                 )
-            if knobs.get("pad_h"):
+            if pad_h:
                 raise ValueError("tile replaces pad_h; enable only one")
             self._tile, self._tile_overlap = (int(hw[0]), int(hw[1])), int(tile_overlap)
         else:
             self._tile = self._tile_overlap = None
-        for knob, value in knobs.items():
-            if knob not in DEFERRED_KNOBS:
-                raise TypeError(f"{type(self).__name__} got an unexpected keyword argument {knob!r}")
-            default = DEFERRED_KNOBS[knob]
-            if value != default and (value or default):
-                raise NotImplementedError(
-                    f"predictor knob {knob}={value!r} is not implemented in the PyTorch port yet "
-                    "(ROADMAP queue 1, item 10b)"
-                )
         self.device = torch.device(device)
         self.mesh = mesh
+        #: edge-extend heights the spatial size does not divide (a no-op
+        #: without a spatial axis)
+        self.pad_h = bool(pad_h)
+        if net is not None and mesh is not None:
+            shard_spatially(net, mesh.spatial_axis)  # refuses a net not ready for it
         self.telemetry = bool(telemetry)
         self.telemetry_warn_frac = float(telemetry_warn_frac)
         #: the run's per-site aggregate of the items' telemetry summaries
@@ -222,6 +230,33 @@ class BasePredictor:
         true T or None); fixed-shape workloads never bucket."""
         return batch, None
 
+    def _pad_spatial(self, batch):
+        """``pad_h``: edge-extend the height of the batch's image arrays to
+        the next multiple of the spatial size → (batch, true HR height or
+        None); the step crops the output and the target back to it (the
+        JAX package's ``_pad_spatial``)."""
+        sp = self.mesh.spatial if self.mesh is not None else 1
+        if not self.pad_h or sp <= 1:
+            return batch, None
+        true_h = int(np.shape(self._targets(batch))[-3])
+        new, padded = dict(batch), False
+        for key, value in batch.items():
+            if np.ndim(value) < 4 or not _spatial_key(key):
+                continue
+            extended = pad_height_to_multiple(value, sp)
+            if extended.shape != np.shape(value):
+                new[key], padded = extended, True
+        return (new, true_h) if padded else (batch, None)
+
+    def _shard_rows(self, inputs) -> tuple[list, object]:
+        """Under a spatial axis: this rank's rows of the image inputs, with
+        the net's halo axis on → (inputs, axis); the whole inputs with it
+        off when the spatial size does not divide the height (warned)."""
+        rows, axis = spatial_step(self.net, np.shape(inputs[0]), self.mesh)
+        if rows is None:
+            return list(inputs), None
+        return [take_rows(x, rows) if np.ndim(x) >= 4 else x for x in inputs], axis
+
     def _frame_losses(self, out, target):
         raise NotImplementedError
 
@@ -275,7 +310,9 @@ class BasePredictor:
         stats of a tiled item that ran the probes, the item's telemetry
         collector), every tensor still on the device; ``Fetch`` brings
         them to the host."""
-        inputs = [self._to_device(x) for x in self._model_inputs(batch)]
+        batch, out_h = self._pad_spatial(batch)
+        inputs, axis = self._shard_rows(self._model_inputs(batch))
+        inputs = [self._to_device(x) for x in inputs]
         target = self._to_device(self._targets(batch))
         seam = None
         state = casting.cast_state(self.net, self.compute_dtype)  # once for all windows
@@ -297,6 +334,9 @@ class BasePredictor:
                                         seam_stats=True, probe_fn=probe)
             else:
                 out = tiled_apply(forward, inputs, self._tile, self._tile_overlap)
+        out = gather_rows(out, axis)
+        if out_h is not None:  # pad_h: only the true rows are scored
+            out, target = out[..., :out_h, :, :], target[..., :out_h, :, :]
         losses = self._frame_losses(out, target)
         weights = self._to_device(self.loss_weights)
         total = torch.sum(losses.mean(dim=0) * weights)
@@ -320,9 +360,11 @@ class BasePredictor:
         self.item_seconds = []
         self.seam_summary = {}
         split = self.mesh is not None and self.mesh.size > 1
-        if split:
-            self.test_dataloader.set_item_shard(self.mesh.rank, self.mesh.size)
-        fetched = []  # under a split: this rank's items, folded by the lead
+        if split:  # one spatial group an item
+            sp = self.mesh.spatial
+            self.test_dataloader.set_item_shard(self.mesh.rank // sp, self.mesh.size // sp)
+        # under a split: this group's items (its first rank's), folded by the lead
+        fetched = []
 
         def finish(item):
             """Fetch one launched item (blocks on its event only); fold it
@@ -333,7 +375,8 @@ class BasePredictor:
             self.item_seconds.append(time.perf_counter() - t_item)
             record = (index, true_T, patient, sid, filename, got, seam, sites)
             if split:
-                fetched.append(record)
+                if self.mesh.spatial_index == 0:
+                    fetched.append(record)
             else:
                 fold(record)
 

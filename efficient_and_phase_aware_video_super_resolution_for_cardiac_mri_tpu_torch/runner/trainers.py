@@ -63,6 +63,17 @@ alone writes the logger's events and the ``.pth`` (gathered whole first
 under a model axis); a directory checkpoint is written by every rank.
 ``skip_nonfinite`` is checked at each epoch boundary, after the train log,
 as in the JAX package (``runner/optim.py``).
+
+Under a spatial axis (RefineNet only) the ranks of a spatial group take
+the same items, and each feeds the net its rows of the image arrays (LR
+and HR; the phase code goes whole): the net's convs exchange their halos
+(``parallel/halo.py``) and each rank's losses are over its rows.  DDP
+averages the gradients over every rank, the halos' backward having
+returned each borrowed row's gradient to its owner; with equal shards the
+mean of the ranks' local means is the global mean.  The metrics and the
+display see the outputs and targets gathered whole; the logged values are
+averaged over every rank.  A height the spatial size does not divide is
+computed whole on every rank of the group (warned once).
 """
 from __future__ import annotations
 
@@ -78,6 +89,7 @@ from .. import parallel
 from ..config import TRAINERS
 from ..models.common import batch_norm_group
 from ..ops import telemetry as tel
+from ..parallel.mesh import _spatial_key
 from ..utils import casting
 from ..utils.profiling import trace
 from ..utils.seeding import SeedState, seed_everything
@@ -302,9 +314,39 @@ class BaseTrainer:
         by its own policy)."""
         return None if self._fsdp else self.compute_dtype
 
+    def _shard_rows(self, batch):
+        """Under a spatial axis: this rank's rows of the batch's image arrays,
+        with the net's halo axis on; the whole batch with it off when the
+        spatial size does not divide the LR height (warned) → (batch, axis
+        or None)."""
+        lr = self._model_inputs(batch)[0]
+        rows, axis = parallel.spatial_step(self.net, np.shape(lr), self.mesh)
+        if rows is None:
+            return batch, None
+        out = {}
+        for key, value in batch.items():
+            if isinstance(value, np.ndarray) and value.ndim >= 4 and _spatial_key(key):
+                k = np.shape(value)[-3] // np.shape(lr)[-3]  # 1 for LR, the scale for HR
+                value = parallel.take_rows(value, slice(rows.start * k, rows.stop * k))
+            out[key] = value
+        return out, axis
+
+    @staticmethod
+    def _whole(x, axis):
+        """The outputs (a tensor or a list or tuple of them) or the target
+        with their rows gathered whole over the spatial group."""
+        if axis is None:
+            return x
+        if isinstance(x, (list, tuple)):
+            return type(x)(BaseTrainer._whole(v, axis) for v in x)
+        return parallel.gather_rows(x, axis)
+
     def _forward(self, batch, training: bool, state=None):
-        """Forward and the weighted losses → (total, losses, outputs, target);
-        ``state`` is the step's cast weights (``casting.cast_state``)."""
+        """Forward and the weighted losses → (total, losses, outputs, target,
+        spatial axis of the step or None); ``state`` is the step's cast
+        weights (``casting.cast_state``).  Under a spatial axis the outputs,
+        the target and the losses are this rank's rows'."""
+        batch, axis = self._shard_rows(batch)
         batch = self._feed(batch)
         sharded = training and self.mesh is not None and getattr(
             self.train_dataloader, "sharded", False)
@@ -314,7 +356,7 @@ class BaseTrainer:
         target = self._targets(batch)
         losses = self._compute_losses(outputs, batch, training)
         total = torch.sum(torch.stack(losses) * self.loss_weights)
-        return total, losses, outputs, target
+        return total, losses, outputs, target, axis
 
     def _train_step(self, batch):
         """One optimizer step over the batch, as ``grad_accum_steps``
@@ -336,9 +378,10 @@ class BaseTrainer:
                 for k, v in batch.items()
             }
             with self._gradient_sync(i == accum - 1):
-                total, losses, outputs, target = self._forward(micro, True, state)
+                total, losses, outputs, target, axis = self._forward(micro, True, state)
                 total.backward()  # sums the microbatches' gradients into .grad
             with torch.no_grad():
+                outputs, target = self._whole(outputs, axis), self._whole(target, axis)
                 metrics = self._compute_metrics(outputs, target)
                 displays.append(self._display_outputs(outputs).detach())
             values = torch.stack([total.detach(), *[l.detach() for l in losses], *metrics])
@@ -379,7 +422,8 @@ class BaseTrainer:
 
     @torch.inference_mode()
     def _eval_step(self, batch):
-        total, losses, outputs, target = self._forward(batch, False)
+        total, losses, outputs, target, axis = self._forward(batch, False)
+        outputs, target = self._whole(outputs, axis), self._whole(target, axis)
         return total, losses, self._compute_metrics(outputs, target), self._display_outputs(outputs)
 
     def _run_epoch(self, mode: str):
@@ -406,7 +450,9 @@ class BaseTrainer:
         log = common.init_log(self.loss_fns, self.metric_fns)
         if acc is not None:
             # each step's values are its global batch's means: average the
-            # data ranks' sums (equal slices, or the same whole batch)
+            # data ranks' sums (equal slices, or the same whole batch); under
+            # a spatial axis every rank's (the losses over equal bands of
+            # rows, the metrics the same whole-frame values on each)
             parallel.all_reduce_mean(acc, self.mesh)
             for key, val in zip(log, acc.tolist()):  # the epoch's one fetch
                 log[key] = val

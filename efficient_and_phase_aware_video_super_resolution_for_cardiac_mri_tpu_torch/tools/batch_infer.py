@@ -3,9 +3,10 @@
 The port's counterpart of the JAX package's ``tools/batch_infer.py``, with
 its CLI: the split's whole-sequence items are grouped by their LR NIfTI
 header shape (:func:`group_by_shape`, nothing decoded), each group is
-walked in chunks of one sequence per data rank, and every rank runs the
-flagship RefineNet forward on its sequence and scores its frames (PSNR and
-SSIM of the denormalized frames) on the device.  Only the two score
+walked in chunks of one sequence per data rank (a spatial group of ranks
+under ``--spatial-parallel``), and every rank runs the flagship RefineNet
+forward on its sequence and scores its frames (PSNR and SSIM of the
+denormalized frames) on the device.  Only the two score
 vectors come back to the host, one item behind the launches
 (``utils/dispatch.DoubleBuffer``).  Rank 0 gathers every rank's rows and
 writes one CSV row a frame, in the JAX tool's order, and prints the
@@ -14,13 +15,18 @@ summary with frames/s.
 On one device (the default, or ``--num-devices 1``) that is one sequence a
 forward; ``--num-devices N`` spawns N ranks (``parallel/distributed.py``),
 and under ``torchrun`` the process joins the launcher's group.
-``--tile`` / ``--tile-overlap`` run the net on fixed LR windows
-(``ops/tiling.py``); ``--spatial-parallel > 1`` and ``--pad-h`` raise
-(ROADMAP item 10b); ``--aot-cache`` is accepted and logged.
+``--spatial-parallel S`` shards each sequence's height over S ranks
+(``parallel/halo.py``; data-parallel width num_devices / S): each rank
+feeds its LR rows, and the SR rows are gathered whole before they are
+scored.  A height S does not divide is computed whole on each rank of the
+group (warned once); ``--pad-h`` edge-extends it to the next multiple and
+crops the SR output back instead.  ``--tile`` / ``--tile-overlap`` run the
+net on fixed LR windows (``ops/tiling.py``) and exclude both;
+``--aot-cache`` is accepted and logged.
 
     python -m <torch pkg>.tools.batch_infer CKPT DATA_DIR POS_CODE.pkl OUT.csv \\
-        [--factor 4] [--split test] [--num-devices N] [--net-kwargs JSON] \\
-        [--tile T --tile-overlap N] [--device cuda:0|cpu]
+        [--factor 4] [--split test] [--num-devices N] [--spatial-parallel S [--pad-h]] \\
+        [--net-kwargs JSON] [--tile T --tile-overlap N] [--device cuda:0|cpu]
 
 The device is the card unless ``--device cpu``.
 """
@@ -42,7 +48,7 @@ from .. import data as _data  # noqa: F401  (registry)
 from ..config import DATASETS
 from ..metrics import PSNR, SSIM
 from ..models import RefineNet
-from ..parallel.mesh import _SPATIAL_MSG
+from ..parallel import gather_rows, pad_height_to_multiple, spatial_step, take_rows
 from ..runner.checkpoint import load_net_state_dict
 from ..runner.common import accept_aot_cache
 from ..utils.dispatch import DoubleBuffer, Fetch, upload
@@ -90,10 +96,12 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--split", default="test")
     parser.add_argument("--num-devices", type=int, default=None)
     parser.add_argument("--spatial-parallel", type=int, default=1,
-                        help="height sharding: not ported (ROADMAP item 10b)")
+                        help="shard each volume's height axis over this many ranks (halo "
+                             "exchange); data-parallel width becomes num_devices / this")
     parser.add_argument("--net-kwargs", type=json.loads, default=None)
     parser.add_argument("--pad-h", action="store_true",
-                        help="height padding for the spatial axis: not ported (item 10b)")
+                        help="edge-extend LR heights to the next multiple of spatial_parallel "
+                             "so indivisible volumes still shard (SR output cropped back)")
     parser.add_argument("--aot-cache", default=None, metavar="DIR",
                         help="accepted and logged: the port compiles nothing per shape")
     parser.add_argument("--tile", type=int, default=None, metavar="T",
@@ -116,17 +124,16 @@ def main(argv=None):
                          f"({2 * args.tile_overlap}) and the overlap must be >= 0")
         if args.spatial_parallel > 1 or args.pad_h:
             parser.error("--tile excludes --spatial-parallel/--pad-h (pick one spatial strategy)")
-    if args.spatial_parallel > 1:
-        raise NotImplementedError(f"--spatial-parallel {args.spatial_parallel}: {_SPATIAL_MSG}")
-    if args.pad_h:
-        raise NotImplementedError(f"--pad-h: {_SPATIAL_MSG}")
     from ..main import resolve_device
-    from ..parallel import check_devices
+    from ..parallel import check_axes, check_devices
     from ..parallel.distributed import cluster_env_present, spawn
 
     device = resolve_device(args.device)
     n = args.num_devices or 1
-    check_devices(n, device)
+    check_axes(n, args.spatial_parallel)
+    if not dist.is_initialized():
+        # a group already made checks its own (gloo ranks may share a card)
+        check_devices(n, device)
     if n > 1 and not dist.is_initialized() and not cluster_env_present():
         summary = spawn(_infer, (args,), world=n, device=device)
     else:
@@ -145,7 +152,7 @@ def _infer(args) -> dict | None:
     device = torch.device(args.device)
     mesh = None
     if dist.is_initialized() or distributed_initialize(device=device):
-        mesh = make_mesh(args.num_devices, device=device)
+        mesh = make_mesh(args.num_devices, spatial_parallel=args.spatial_parallel, device=device)
     device = local_device(device)
     accept_aot_cache(args.aot_cache)
     n_dev = mesh.data if mesh is not None else 1
@@ -175,11 +182,16 @@ def _infer(args) -> dict | None:
 
     @torch.inference_mode()
     def scores(item) -> Fetch:
-        lr = upload(item["lr_imgs"][None], device)
+        lr = item["lr_imgs"][None]
+        if args.pad_h and args.spatial_parallel > 1:
+            lr = pad_height_to_multiple(lr, args.spatial_parallel)
+        rows, axis = spatial_step(net, lr.shape, mesh)
+        lr = upload(take_rows(lr, rows) if rows is not None else lr, device)
         pos = upload(item["pos_code"][None], device)
         hr = upload(item["hr_imgs"][None], device)
         if args.tile is None:
-            out = forward(lr, pos)
+            # the SR rows gathered whole, cropped to the true height (pad_h)
+            out = gather_rows(forward(lr, pos), axis)[..., :hr.shape[-3], :, :]
         else:
             from ..ops.tiling import tiled_apply
 
@@ -205,7 +217,9 @@ def _infer(args) -> dict | None:
         for start in range(0, len(indices), n_dev):
             chunk = indices[start:start + n_dev]
             if rank < len(chunk):
-                pipe.push((chunk[rank], scores(dataset[chunk[rank]])))
+                fetch = scores(dataset[chunk[rank]])
+                if mesh is None or mesh.spatial_index == 0:  # a group's rows, once
+                    pipe.push((chunk[rank], fetch))
     pipe.drain()
     if mesh is not None:
         everyone = [None] * mesh.size if lead else None

@@ -72,7 +72,7 @@ def _timed_step(trainer, batch) -> dict:
     """``VSRRefineNetTrainer._train_step`` with CUDA events between its parts."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(PHASES) + 1)]
     ev[0].record()
-    total, _, outputs, target = trainer._forward(batch, True)
+    total, _, outputs, target, _ = trainer._forward(batch, True)
     ev[1].record()
     trainer.opt.zero_grad(set_to_none=True)
     total.backward()

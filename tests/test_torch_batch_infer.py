@@ -189,8 +189,11 @@ def test_group_by_shape_equals_the_jax_tool(tree):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--spatial-parallel", "2"], NotImplementedError, "10b"),
-    (["--pad-h"], NotImplementedError, "10b"),
+    # one device cannot be 2 spatial ranks (the JAX mesh's refusal)
+    (["--spatial-parallel", "2"], ValueError, "not divisible by spatial_parallel=2"),
+    # the tile excludes the spatial strategies (--spatial-parallel with
+    # --pad-h runs: tests/test_torch_spatial.py)
+    (["--pad-h", "--tile", "8", "--tile-overlap", "2"], SystemExit, None),
     (["--tile", "8"], SystemExit, None),
     (["--tile", "8", "--tile-overlap", "4"], SystemExit, None),
 ])

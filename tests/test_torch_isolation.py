@@ -21,7 +21,6 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
     trainers,
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.predictors import (
-    DEFERRED_KNOBS,
     VSRRefineNetPredictor,
 )
 
@@ -98,31 +97,28 @@ def test_resolve_device_cpu_and_unknown():
 
 @pytest.mark.parametrize("knob,value", [("export_nifti", True), ("pad_h", True)])
 def test_deferred_predictor_knobs_raise(knob, value, tmp_path):
-    """The knobs still in ``DEFERRED_KNOBS`` raise; ``export_nifti`` has
-    left it (ported) and is accepted."""
+    """No predictor knob is deferred any more: ``export_nifti`` and
+    ``pad_h`` (item 10b) are accepted and set."""
     kwargs = {knob: value, "saved_dir": str(tmp_path)}
-    if knob in DEFERRED_KNOBS:
-        with pytest.raises(NotImplementedError, match=knob):
-            VSRRefineNetPredictor(device="cpu", **kwargs)
-    else:
-        assert knob == "export_nifti"
-        assert VSRRefineNetPredictor(device="cpu", **kwargs).export_nifti is True
+    assert getattr(VSRRefineNetPredictor(device="cpu", **kwargs), knob) is True
 
 
 def test_deferred_knobs_at_their_defaults_and_telemetry_are_accepted():
-    VSRRefineNetPredictor(device="cpu", telemetry=True, **DEFERRED_KNOBS)
+    assert VSRRefineNetPredictor(device="cpu", telemetry=True, pad_h=False).pad_h is False
     VSRRefineNetPredictor(device="cpu", t_bucket=None, telemetry=False)
     with pytest.raises(TypeError):
         VSRRefineNetPredictor(device="cpu", no_such_knob=1)
 
 
 def test_parallel_section_raises(tmp_path):
-    """A mesh of several devices runs (``tests/test_torch_parallel*.py``);
-    the spatial axis is still to port (ROADMAP item 10b)."""
+    """A mesh of several devices runs (``tests/test_torch_parallel*.py``),
+    the spatial axis for RefineNet too (``tests/test_torch_spatial.py``);
+    for the other nets it is still to port (ROADMAP item 10c)."""
     cfg = Cfg({"main": {"saved_dir": str(tmp_path)},
                "parallel": {"num_devices": 2, "spatial_parallel": 2},
-               "predictor": {"name": "AcdcVSRRefineNetPredictor", "kwargs": {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="parallel.*10b"):
+               "net": {"name": "EDSRNet", "kwargs": {}},
+               "predictor": {"name": "AcdcSISRPredictor", "kwargs": {"device": "cpu"}}})
+    with pytest.raises(NotImplementedError, match="parallel.*EDSRNet.*10c"):
         run_port_test(cfg)
     assert not (tmp_path / "config.yaml").exists()  # raised before any work
 
@@ -164,15 +160,28 @@ def test_deferred_trainer_knobs_at_their_defaults_are_accepted():
 
 
 @pytest.mark.parametrize("section,match", [
-    ({"parallel": {"num_devices": 2, "pad_h": True}}, "parallel.*10b"),
-    ({"parallel": {"num_devices": 1, "spatial_parallel": 2}}, "parallel.*10b"),
+    # accepted: the trainer has no pad_h (the JAX package's neither)
+    ({"parallel": {"num_devices": 2, "pad_h": True}}, None),
+    # one device cannot be 2 spatial ranks (the JAX mesh's refusal)
+    ({"parallel": {"num_devices": 1, "spatial_parallel": 2}},
+     "not divisible by spatial_parallel=2"),
 ])
 def test_training_sections_not_ported_raise(tmp_path, section, match):
+    """Both sections are ported (item 10b); what one process cannot be
+    still raises before any work."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
+        _check_parallel,
+    )
+
     cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "net": {"name": "RefineNet", "kwargs": {}},
                "trainer": {"name": "AcdcVSRRefineNetTrainer", "kwargs": {"device": "cpu"}},
                **section})
-    with pytest.raises(NotImplementedError, match=match):
-        run_port_train(cfg)
+    if match is None:
+        assert _check_parallel(cfg, torch.device("cpu")) == section["parallel"]
+    else:
+        with pytest.raises(ValueError, match=match):
+            run_port_train(cfg)
+        assert not (tmp_path / "config.yaml").exists()
 
 
 @pytest.mark.parametrize("knob,value", [("t_bucket", 8), ("compute_dtype", "bfloat16"),
@@ -213,16 +222,20 @@ def test_ported_trainer_knobs_are_accepted(knob, value):
 ])
 def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
     """On the card: as many devices as are visible run (``main.run`` spawns
-    a rank each), more raise the JAX package's ``ValueError``, the spatial
-    axis raises ``NotImplementedError`` (ROADMAP item 10b)."""
+    a rank each), more raise the JAX package's ``ValueError``; the spatial
+    axis runs RefineNet and raises ``NotImplementedError`` for the other
+    nets (ROADMAP item 10c)."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
-    cfg = Cfg({"parallel": parallel})
+    cfg = Cfg({"parallel": parallel, "net": {"name": "DUFNet"}})
     if error is None:
         assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
     else:
-        with pytest.raises(error, match="num_devices" if error is ValueError else "10b"):
+        with pytest.raises(error, match="num_devices" if error is ValueError else "DUFNet.*10c"):
             _check_parallel(cfg, torch.device("cuda:0"))
+    if error is NotImplementedError:
+        cfg = Cfg({"parallel": parallel, "net": {"name": "RefineNet"}})
+        assert _check_parallel(cfg, torch.device("cuda:0")) == parallel

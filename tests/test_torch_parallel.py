@@ -265,17 +265,36 @@ def test_cuda_oversubscription_raises(monkeypatch):
                                      {"num_devices": 1, "pad_h": True}])
 @pytest.mark.parametrize("test", [False, True], ids=["train", "test"])
 def test_spatial_axis_and_pad_h_name_item_10b(section, test):
+    """Item 10b is ported: both sections pass ``main``'s checks for
+    RefineNet (``tests/test_torch_spatial.py`` runs them); under
+    ``spatial_parallel > 1`` another net raises ``NotImplementedError``
+    naming item 10c before any rank starts, while ``pad_h`` alone (a no-op
+    without a spatial axis) is accepted for any net."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
+        _check_parallel,
+    )
+
     engine = "predictor" if test else "trainer"
-    cfg = Cfg({"main": {"saved_dir": "unused"}, "parallel": section,
-               engine: {"name": "AcdcVSRRefineNet" + engine.capitalize(),
-                        "kwargs": {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="10b"):
-        run(cfg, test)
+    cfg = {"main": {"saved_dir": "unused"}, "parallel": section,
+           "net": {"name": "RefineNet", "kwargs": {}},
+           engine: {"name": "AcdcVSRRefineNet" + engine.capitalize(),
+                    "kwargs": {"device": "cpu"}}}
+    assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
+    cfg["net"] = {"name": "EDSRNet", "kwargs": {}}
+    if section.get("spatial_parallel", 1) > 1:
+        with pytest.raises(NotImplementedError, match="EDSRNet.*10c"):
+            run(Cfg(cfg), test)
+    else:
+        assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
 
 
 def test_make_mesh_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="10b"):
-        parallel.make_mesh(2, spatial_parallel=2)
+    """The JAX package's refusals: spatial with model, an indivisible
+    device count; and no group."""
+    with pytest.raises(ValueError, match="cannot be combined"):
+        parallel.make_mesh(4, model_parallel=2, spatial_parallel=2)
+    with pytest.raises(ValueError, match="not divisible by spatial_parallel=2"):
+        parallel.check_axes(3, spatial_parallel=2)
     # (a test run earlier in this process may have made main's group of one)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
     with pytest.raises(RuntimeError, match="initialized"):

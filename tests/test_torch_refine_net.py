@@ -141,7 +141,9 @@ def test_gate_conv_runs_without_its_bias_and_the_tail_adds_it(monkeypatch):
         tail_biases.append(id(bias))
         return lstm_gates.lstm_gates_reference(gates, c, dim, bias)
 
-    monkeypatch.setattr(refine_net.F, "conv2d", spy_conv)
+    # the gate conv goes through parallel/halo.halo_conv2d, which calls
+    # torch.nn.functional.conv2d
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy_conv)
     refine_net.set_gate_tail(net, spy_tail)
     lr, pos = _inputs(1)
     with torch.inference_mode():

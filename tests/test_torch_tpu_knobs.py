@@ -633,14 +633,14 @@ def test_aot_cache_is_accepted_and_changes_nothing(tree, ckpt, tmp_path, caplog)
     ({"num_devices": 1, "spatial_parallel": 1, "multi_host": False}, None, None),
     # a mesh of 8 ranks needs them: main.run spawns them (test_torch_parallel_main)
     ({"num_devices": 8}, ValueError, "num_devices=8 but the process group has 1"),
-    ({"num_devices": 1, "spatial_parallel": 2}, NotImplementedError, "10b"),
+    ({"num_devices": 1, "spatial_parallel": 2}, ValueError, "not divisible by spatial_parallel=2"),
     ({"num_devices": 1, "model_parallel": 2}, ValueError, "not divisible"),
     ({"num_devices": 1, "multi_host": True}, ValueError, "multi_host"),
 ])
 def test_parallel_section_one_device(tree, ckpt, tmp_path, parallel, error, match):
     """The predictor in the process itself: a section of one device runs in
     a process group of one (same log as without it); what one process
-    cannot be raises the JAX package's errors, the spatial axis item 10b's."""
+    cannot be raises the JAX package's errors (2 spatial ranks among them)."""
     cfg = Cfg({**_test_cfg(tree, tmp_path, ckpt, exported=False), "parallel": parallel})
     if error is None:
         predictor = run_port_test(cfg)
