@@ -16,7 +16,8 @@ hand-written kernel; then EDVR ×4 with the deformable conv's three
 hand-written kernels, each held against its plain version; then the
 serving daemon, the parallel runs and the training remainders; then the
 offline data pipeline, the flagship trained from scratch against Bicubic,
-the DSB15 external eval, and the spatial axis.  Phases, one or more lines each; any failure
+the DSB15 external eval, and the spatial axis of the flagship and of the
+zoo.  Phases, one or more lines each; any failure
 exits non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -261,6 +262,20 @@ exits non-zero and no result is printed:
     versions at a rank's shapes (forward (1, 256, 32, 64), forward and
     backward (16, 256, 16, 32), fp32 and bf16).  ms a clip and a step are
     printed as correctness only: two ranks share one card.
+35. the spatial axis of the zoo, on the same two gloo ranks: the shipped
+    test YAMLs of EDSR, SRFB, DRF-SISR (SRFB's widths), Bicubic, DUF, RBPN
+    and DRF ×4 at full width with the seeded weights of phases 13, 15 and
+    17, on one 8-frame slice of their tree, through
+    ``main.test_from_config``, each against its meshless run of the same
+    items (``TOL_ZOO_LOG`` relative on the Test log, ``TOL_ZOO_SR`` on the
+    first item's gathered SR frame) with the halo exchanges predicted an
+    item (``zoo_exchanges``: EDSR 69, SRFB 58, DRF-SISR 61, Bicubic 1, DUF
+    9, RBPN 285, DRF 1 + 15 a frame); one step of
+    ``train/{srfb_net,duf_net}/exp1_x4.yaml`` on a tree of one batch against
+    the same step at world 1 from the same weights (losses and running
+    statistics 1e-5, the step's gradient from Adam's first moment in norm,
+    ``TOL_ZOO_GRAD``); no gate or DCN launch.
+    ms an item and a step are printed as correctness only.
 
 Phase 4 also checks the data path's native NIfTI reader
 (``utils/native_io.py``, built by g++ at first use): it is enabled, it
@@ -827,12 +842,12 @@ def forward_flops(net, x) -> int:
 
     plain_resize = resize._resize
 
-    def counted_resize(y, out_hw, align_corners, kind):
+    def counted_resize(y, out_hw, align_corners, kind, axis=None):
         nonlocal total
         h, w = y.shape[-3], y.shape[-2]
         planes = y.numel() // (h * w)  # every leading axis and the channels
         total += 2 * planes * (out_hw[0] * h * w + out_hw[0] * out_hw[1] * w)
-        return plain_resize(y, out_hw, align_corners, kind)
+        return plain_resize(y, out_hw, align_corners, kind, axis)
 
     plain_contract = deform_conv._contract
 
@@ -3175,6 +3190,335 @@ def spatial_axis_card(port_main, Cfg, lstm_gates, recurrence_format, tree: dict,
             "batch_infer_ssim_diff": d_ssim, "wall_s": wall, "card": card_line}
 
 
+# ------------------------------------------ 35 the spatial axis of the zoo
+# the nets of phases 13, 15 and 17 at full width with their seeded weights;
+# DRFSISRNet has no YAML and runs at SRFB's widths.  The tree is theirs
+# (write_acdc_tree, seed 0, HR 256) cut to one slice of ZOO_CYCLE frames:
+# on two ranks sharing the card an exchange costs 4-11 ms (PERF.md
+# section 5), which made RBPN's 60 windows 212 s
+ZOO_CYCLE = 8
+ZOO_NETS = {  # name → (family, predictor)
+    "EDSRNet": ("sisr", "AcdcSISRPredictor"), "SRFBNet": ("sisr", "AcdcSISRSRFBPredictor"),
+    "DRFSISRNet": ("sisr", "AcdcSISRSRFBPredictor"), "Bicubic": ("sisr", "AcdcSISRPredictor"),
+    "DUFNet": ("misr", "AcdcMISRPredictor"), "RBPNet": ("misr", "AcdcMISRPredictor"),
+    "DRFNet": ("vsr", "AcdcVSRPredictor"),
+}
+ZOO_TRAIN = ("SRFBNet", "DUFNet")  # train/{srfb_net,duf_net}/exp1_x4.yaml
+
+
+def zoo_net(name: str) -> tuple[dict, int]:
+    """``name``'s net kwargs (DRFSISRNet at SRFB's widths) and the items the
+    one-slice tree serves (frames, windows or one clip)."""
+    kwargs = {**SISR_NETS, **MISR_NETS, **VSR_NETS, "DRFSISRNet": SISR_NETS["SRFBNet"]}[name]
+    return kwargs, 1 if ZOO_NETS[name][0] == "vsr" else ZOO_CYCLE
+
+
+def zoo_exchanges(name: str, kwargs: dict, frames: int) -> int:
+    """Halo exchanges of one forward (an item: a frame, a window, a clip of
+    ``frames``): one for each conv with a window in H (3x3, the strided
+    down-projections, the transposed up-projections, the 3-D convs), one
+    for the band resize or DUF's unfold (PERF.md section 5, phase 35)."""
+    up = 3  # x4: two conv + PixelShuffle stages and the final conv
+    if name == "EDSRNet":  # head, 2 a block, body conv, 2 upsampler convs, tail conv
+        return 2 * kwargs["num_resblocks"] + 5
+    if name == "SRFBNet":  # LR conv, the skip; a step: the projections, deconv, conv
+        return 2 + kwargs["num_steps"] * (2 * kwargs["num_groups"] + 2)
+    if name == "DRFSISRNet":
+        return 1 + kwargs["num_steps"] * (2 * kwargs["num_groups"] + up)
+    if name == "DRFNet":
+        return 1 + frames * (2 * kwargs["num_groups"] + up)
+    if name == "Bicubic":
+        return 1
+    if name == "DUFNet":  # head, 6 blocks' 3x3x3, the tail's (1,3,3), the unfold
+        return 9
+    n, chain = kwargs["num_frames"] - 1, 2 * kwargs["num_resblocks"] + 1  # RBPNet
+    # feat0, feat1 a neighbour, res_feat3 for all but the first, the trunk's
+    # 5 projection blocks of 3, res_feat1 and res_feat2, the output conv
+    return 1 + n + (n - 1) * chain + 15 * n + 2 * n * chain + 1
+
+
+# predicted in PERF.md section 5 before the first run, measured there after:
+# the Test log against the meshless run's, each value relative (SSIM of
+# seeded weights is ~0.02, so a few pixels one gray level off move it by
+# ~1e-6 absolute), and the gathered SR frame of the first item against the
+# meshless forward's, relative to its largest value
+TOL_ZOO_LOG = 1e-4
+TOL_ZOO_SR = 1e-5
+# one step of a train YAML on the spatial mesh against world 1, both from
+# the same checkpoint: the train loss, the valid loss of the stepped net
+# and the BatchNorm running statistics relative (phase 27's bound), and
+# the step's gradient, read back from Adam's first moment in each
+# checkpoint (exp_avg = (1 - beta1)·g after one step), relative in norm.
+# Not the stepped parameters: Adam's first step moves an element by
+# lr·g/(|g| + 1e-8), so an element whose gradient is near 1e-8 (a sum whose
+# terms cancel; a direction a training BatchNorm leaves flat) carries the
+# rounding of g into the step at up to 1/4 of its error over 1e-8 (an
+# H100 run: SRFB's losses bit-equal, its update 2.8e-4 apart in norm and
+# 0.108 lr in one element; PERF.md section 5); those are the directions the
+# loss does not see, which the valid loss of the stepped net weighs.
+# DUF's bound is wider: world 1 normalises with ATen's BatchNorm, whose fp32
+# backward is 5.5e-4 from float64 on DUF's gradient on the CPU, against
+# 7.8e-7 for the reduced BatchNorm of models/common.py (CPU rehearsal:
+# 1.1e-3 apart; SRFB, with no BatchNorm, 4.9e-7)
+TOL_ZOO_STEP = 1e-5
+TOL_ZOO_GRAD = {"SRFBNet": 1e-4, "DUFNet": 1e-2}
+
+
+def zoo_eval_config(tree: dict, name: str, ckpt: Path, saved_dir: Path, dev) -> dict:
+    """The shipped test YAML of ``name``'s family on the tree, on ``dev``."""
+    family, predictor = ZOO_NETS[name]
+    kwargs = zoo_net(name)[0]
+    if family == "sisr":
+        cfg = sisr_eval_config(tree, "SRFBNet" if name == "DRFSISRNet" else name, ckpt, saved_dir)
+    elif family == "misr":
+        cfg = misr_eval_config(tree, name, kwargs, ckpt, saved_dir)
+    else:
+        cfg = vsr_eval_config(tree, name, kwargs, ckpt, saved_dir, dev)
+    cfg["net"] = {"name": name, "kwargs": kwargs}
+    cfg["predictor"]["name"] = predictor
+    cfg["predictor"]["kwargs"]["device"] = str(dev)
+    return cfg
+
+
+def zoo_train_config(tree: dict, name: str, start: Path, saved_dir: Path, dev) -> dict:
+    """train/{srfb_net,duf_net}/exp1_x4.yaml on a tree of one batch from
+    the weights of ``start``: one epoch of one step, its valid clip, a
+    checkpoint."""
+    cfg = (sisr_train_config(tree, name, saved_dir) if name == "SRFBNet"
+           else misr_train_config(tree, name, saved_dir))
+    cfg.pop("logger", None)
+    cfg["main"]["loaded_path"] = str(start)
+    cfg["trainer"]["kwargs"].update(device=str(dev), num_epochs=1)
+    return cfg
+
+
+def _first_sr(pred):
+    """The scored output of the predictor's first item, rows gathered."""
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        gather_rows,
+    )
+
+    batch = next(iter(pred.test_dataloader))
+    inputs, axis = pred._shard_rows(pred._model_inputs(batch))
+    with torch.inference_mode():
+        out = pred._forward(*(pred._to_device(x) for x in inputs))
+        return gather_rows(out, axis).float().cpu()
+
+
+def spatial_zoo_rank(eval_cfgs: dict, train_cfgs: dict, device: str) -> dict:
+    """Phase 35's rank: ``SPATIAL`` gloo ranks on cuda:0 as one spatial
+    group; each net's test YAML through ``main.test_from_config`` and its
+    first item's gathered SR; then one step of each train YAML through
+    ``main.train_from_config``.  Rank 0's results come back."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import main as port_main
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.config import Cfg
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv,
+        lstm_gates,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        halo,
+        mesh as mesh_mod,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic_cudnn(torch)
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"backend": torch.distributed.get_backend(), "eval": {}, "train": {}}
+
+    def path(fn):
+        """``fn()`` with the kernels' counts and the halo exchanges set to 0
+        just before it and read just after it → (its result, its record)."""
+        reset_launches(lstm_gates)
+        deform_conv.reset_launches()
+        halo.reset_exchanges()
+        mesh_mod._WARNED.clear()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        return result, {"wall_s": time.perf_counter() - t0, "exchanges": dict(halo.EXCHANGES),
+                        "launches": launches(lstm_gates), "dcn_launches": dcn_launches(deform_conv),
+                        "warned": sorted(k[0] for k in mesh_mod._WARNED)}
+
+    for name, cfg in eval_cfgs.items():
+        pred, record = path(lambda: port_main.test_from_config(Cfg(cfg)))
+        record.update(log=pred.log, mesh=dict(pred.mesh.shape), frames=pred.throughput["frames"],
+                      item_ms=[x * 1e3 for x in pred.item_seconds], sr=_first_sr(pred))
+        out["eval"][name] = record
+        del pred
+    for name, cfg in train_cfgs.items():
+        trainer, record = path(lambda: port_main.train_from_config(Cfg(cfg)))
+        record.update(history=trainer.history, mesh=dict(trainer.mesh.shape),
+                      steps_per_sec=trainer.throughput.get("train_steps_per_sec"))
+        out["train"][name] = record
+        del trainer
+    return out
+
+
+def spatial_zoo_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line) -> dict:
+    """Phase 35: the spatial axis of the zoo (height sharded over ``SPATIAL``
+    gloo ranks sharing cuda:0): each net's test YAML at full width against
+    its meshless run on the same items, and one step of the SRFB and DUF
+    train YAMLs against the same step at world 1."""
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import distributed
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.synthetic_tree import (
+        write_acdc_tree,
+    )
+
+    parallel = {"num_devices": SPATIAL, "spatial_parallel": SPATIAL}
+    tree = write_acdc_tree(tmp / "zoo", {"test": (1, 1)}, cycle=ZOO_CYCLE, hr=HR, scale=SCALE)
+    before = deterministic_cudnn(torch)  # the meshless runs as the ranks run
+    eval_cfgs, meshless, starts = {}, {}, {}
+    for name, (family, _) in ZOO_NETS.items():
+        kwargs, items = zoo_net(name)
+        ckpt = tmp / f"{name}.pth"  # phases 13, 15 and 17 wrote most of them
+        if name == "Bicubic":
+            ckpt = tmp / "no_checkpoint.pth"
+        elif not ckpt.exists():
+            make = seeded_misr_net if family == "misr" else (
+                lambda cls, kw: cls(**kw, generator=torch.Generator().manual_seed(0)))
+            torch.save({"net": make(getattr(models, name), kwargs).state_dict()}, ckpt)
+        starts[name] = ckpt
+        cfg = zoo_eval_config(tree, name, ckpt, tmp / f"zoo_meshless_{name}", dev)
+        pred = port_main.test_from_config(Cfg(cfg))
+        if pred.throughput["frames"] != items * (ZOO_CYCLE if family == "vsr" else 1):
+            raise AssertionError(f"{name}: the meshless run scored {pred.throughput['frames']}")
+        meshless[name] = {"log": pred.log, "sr": _first_sr(pred),
+                          "item_ms": [x * 1e3 for x in pred.item_seconds]}
+        del pred
+        cfg = zoo_eval_config(tree, name, ckpt, tmp / f"zoo_spatial_{name}", dev)
+        cfg["parallel"] = parallel
+        eval_cfgs[name] = cfg
+    train_cfgs, reference = {}, {}
+    # a tree of one batch each (SRFB 16 frames, DUF 12 windows); its valid
+    # clip as long
+    batches = {"SRFBNet": TRAIN_BATCH, "DUFNet": MISR_TRAIN["DUFNet"][0]}
+    for name in ZOO_TRAIN:
+        items = batches[name]
+        small = write_acdc_tree(tmp / f"zoo_train_{name}", {"train": (1, 1), "valid": (1, 1)},
+                                cycle=items, hr=HR, scale=SCALE, seed=35)
+        cfg = zoo_train_config(small, name, starts[name], tmp / f"zoo_train_{name}_world1", dev)
+        trainer = port_main.train_from_config(Cfg(cfg))
+        ckpt = load_checkpoint(tmp / f"zoo_train_{name}_world1" / "checkpoints" / "model_1.pth")
+        reference[name] = {"history": trainer.history, "state": ckpt["net"],
+                           "optimizer": ckpt["optimizer"]}
+        del trainer
+        cfg = zoo_train_config(small, name, starts[name], tmp / f"zoo_train_{name}_spatial", dev)
+        cfg["parallel"] = parallel
+        train_cfgs[name] = cfg
+    deterministic_cudnn(torch, before[0])
+    torch.backends.cudnn.benchmark = before[1]
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(spatial_zoo_rank, (eval_cfgs, train_cfgs, str(dev)),
+                              world=SPATIAL, device=dev, backend="gloo")
+    wall = time.perf_counter() - t0
+    note = f"{SPATIAL} gloo ranks sharing one card: correctness only, no rate ({card_line})"
+    if ranks["backend"] != "gloo":
+        raise AssertionError(f"phase 35 ran over {ranks['backend']}")
+
+    results = {"eval": {}, "train": {}}
+    for name in ZOO_NETS:
+        kwargs, items = zoo_net(name)
+        got, want = ranks["eval"][name], meshless[name]
+        log_rel = max(abs(got["log"][k] - v) / abs(v) for k, v in want["log"].items())
+        scale = want["sr"].abs().max().item()
+        sr_rel = (got["sr"] - want["sr"]).abs().max().item() / scale
+        per_item = zoo_exchanges(name, kwargs, ZOO_CYCLE)
+        want_exchanges = {"forward": per_item * items, "backward": 0}
+        # the median of the warm items (of both clips when there are two)
+        ms, ms_meshless = (float(np.median(x[1:] or x)) for x in (got["item_ms"], want["item_ms"]))
+        log("spatial zoo", f"{name} x{SCALE} on mesh {got['mesh']}: {items} items, Test log "
+                           f"{got['log']}; largest relative difference to the meshless log "
+                           f"{log_rel:.3e} (tol {TOL_ZOO_LOG}); the first item's gathered SR "
+                           f"{tuple(got['sr'].shape)} within {sr_rel:.3e} of the meshless "
+                           f"forward's largest value (tol {TOL_ZOO_SR}); halo exchanges "
+                           f"{got['exchanges']} ({per_item} an item predicted); gate launches "
+                           f"{got['launches']}, DCN launches {got['dcn_launches']}; median "
+                           f"{ms:.1f} ms an item (meshless {ms_meshless:.1f}); {note}")
+        if got["mesh"] != {"data": 1, "spatial": SPATIAL} or got["warned"]:
+            raise AssertionError(f"{name} ran on {got['mesh']}, warned {got['warned']}")
+        if not (log_rel <= TOL_ZOO_LOG and sr_rel <= TOL_ZOO_SR):
+            raise AssertionError(f"{name} on the spatial mesh disagrees: {log_rel}, {sr_rel}")
+        if got["exchanges"] != want_exchanges or any(got["launches"]) or any(got["dcn_launches"]):
+            raise AssertionError(f"{name} exchanged {got['exchanges']} (predicted "
+                                 f"{want_exchanges}), launched {got['launches']}, "
+                                 f"{got['dcn_launches']}")
+        results["eval"][name] = {"log_rel": log_rel, "sr_rel": sr_rel,
+                                 "exchanges": got["exchanges"], "item_ms": ms,
+                                 "meshless_item_ms": ms_meshless, "items": items,
+                                 "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+    for name in ZOO_TRAIN:
+        items = batches[name]
+        got, want = ranks["train"][name], reference[name]
+        ckpt = load_checkpoint(tmp / f"zoo_train_{name}_spatial" / "checkpoints" / "model_1.pth")
+        state, got_opt = ckpt["net"], ckpt["optimizer"]
+        loss_rel = {split: abs(got["history"][split][0]["Loss"] - want["history"][split][0]["Loss"])
+                    / abs(want["history"][split][0]["Loss"]) for split in ("train", "valid")}
+        lr = train_cfgs[name]["optimizer"]["kwargs"]["lr"]
+        start = load_checkpoint(starts[name])["net"]
+        floats = [k for k, v in want["state"].items() if v.is_floating_point()]
+        params = [k for k in floats if "running" not in k]
+        gap = torch.cat([(state[k] - want["state"][k]).flatten() for k in params])
+        update = torch.cat([(want["state"][k] - start[k]).flatten() for k in params])
+        update_rel = (gap.norm() / update.norm()).item()
+        param_lr = gap.abs().max().item() / lr
+        grads = [torch.cat([m["exp_avg"].flatten() for _, m in sorted(opt["state"].items())])
+                 for opt in (got_opt, want["optimizer"])]
+        grad_rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+        stats_rel = max([((state[k] - want["state"][k]).abs().max()
+                          / want["state"][k].abs().max().clamp_min(1e-12)).item()
+                         for k in floats if "running" in k], default=0.0)
+        per_item = zoo_exchanges(name, zoo_net(name)[0], items)
+        # the step's forward and backward (the LR input carries no gradient:
+        # the LR conv and the skip, or the head and the unfold), then the
+        # valid epoch's forwards
+        want_exchanges = {"forward": per_item * (1 + items), "backward": per_item - 2}
+        step_ms = 1e3 / got["steps_per_sec"]
+        log("spatial zoo", f"one step of {name}'s train YAML (batch {items}) on mesh "
+                           f"{got['mesh']}: train and valid loss relative to world 1's "
+                           f"{loss_rel['train']:.3e}, {loss_rel['valid']:.3e}, running "
+                           f"statistics {stats_rel:.3e} of their largest element (tol "
+                           f"{TOL_ZOO_STEP}); the step's gradient within {grad_rel:.3e} of "
+                           f"world 1's in norm (tol {TOL_ZOO_GRAD[name]}); its update "
+                           f"{update_rel:.3e} apart in norm (|update| {update.norm().item():.4g}), "
+                           f"{param_lr:.3e} of the learning rate {lr} in its largest element; "
+                           f"halo exchanges {got['exchanges']} (predicted "
+                           f"{want_exchanges}); {step_ms:.1f} ms a step, the epoch with its "
+                           f"valid clip {got['wall_s']:.2f} s; {note}")
+        if got["mesh"] != {"data": 1, "spatial": SPATIAL} or got["warned"]:
+            raise AssertionError(f"{name}'s step ran on {got['mesh']}, warned {got['warned']}")
+        if not (max(*loss_rel.values(), stats_rel) <= TOL_ZOO_STEP
+                and grad_rel <= TOL_ZOO_GRAD[name]):
+            raise AssertionError(f"{name}'s step disagrees with world 1: {loss_rel}, {stats_rel}, "
+                                 f"{grad_rel}")
+        if got["exchanges"] != want_exchanges or any(got["launches"]) or any(got["dcn_launches"]):
+            raise AssertionError(f"{name}'s step exchanged {got['exchanges']} (predicted "
+                                 f"{want_exchanges}), launched {got['launches']}")
+        results["train"][name] = {"loss_rel": loss_rel, "stats_rel": stats_rel,
+                                  "grad_rel": grad_rel, "update_rel": update_rel,
+                                  "param_lr": param_lr,
+                                  "exchanges": got["exchanges"], "step_ms": step_ms,
+                                  "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+    log("spatial zoo", f"phase 35 in {wall:.1f} s with the ranks' start")
+    results.update(wall_s=wall, card=card_line)
+    return results
+
+
 # ---------------------- 31-33 the offline pipeline, convergence, DSB15 eval
 # phase 31-32: tools/convergence.py's phantom (4 train + 2 test patients, 2
 # slices, 16 frames, HR 144x144, x4) and its flagship run
@@ -4024,9 +4368,18 @@ def main() -> int:
     spatial = spatial_axis_card(port_main, Cfg, lstm_gates, recurrence_format, tree, tmp, ckpt,
                                 fp32_log, fused_k, clip, pos, world1_reference, dev, card_line)
     print(json.dumps({"spatial_axis": spatial}), flush=True)
+
+    # -------------------------------------------- 35 the spatial axis of the zoo
+    zoo = spatial_zoo_card(port_main, Cfg, lstm_gates, deform_conv, tmp, dev, card_line)
+    print(json.dumps({"spatial_zoo": zoo}), flush=True)
     tmp_dir.cleanup()
-    log("done", f"phases 1-34 in {time.perf_counter() - started:.1f} s, the kernels' builds "
+    log("done", f"phases 1-35 in {time.perf_counter() - started:.1f} s, the kernels' builds "
                 f"included ({card_line})")
+    # the gate and DCN kernels' launches on phase 35's paths, rank 0 (none)
+    zoo_gates = [sum(r["launches"][i] for part in ("eval", "train") for r in zoo[part].values())
+                 for i in range(4)]
+    zoo_dcn = [sum(r["dcn_launches"][i] for part in ("eval", "train") for r in zoo[part].values())
+               for i in range(len(deform_conv.KERNELS))]
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
     # the single-image, multi-frame and plain video paths (phases 13-18)
@@ -4050,7 +4403,8 @@ def main() -> int:
                  "spatial_train_rank0": spatial["train_launches"][0],
                  "spatial_remat_step_rank0": spatial["remat_launches"][0],
                  "spatial_pad_h_rank0": spatial["pad_h_launches"][0],
-                 "spatial_batch_infer_rank0": spatial["batch_infer_launches"][0]}
+                 "spatial_batch_infer_rank0": spatial["batch_infer_launches"][0],
+                 "spatial_zoo_rank0": zoo_gates[0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
@@ -4064,7 +4418,8 @@ def main() -> int:
                  "offline_pipeline": 0, "convergence": converged["launches"][1], "dsb15_eval": 0,
                  "spatial_eval_rank0": 0, "spatial_train_rank0": spatial["train_launches"][1],
                  "spatial_remat_step_rank0": spatial["remat_launches"][1],
-                 "spatial_pad_h_rank0": 0, "spatial_batch_infer_rank0": 0}
+                 "spatial_pad_h_rank0": 0, "spatial_batch_infer_rank0": 0,
+                 "spatial_zoo_rank0": zoo_gates[1]}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
@@ -4148,7 +4503,8 @@ def main() -> int:
                  "edvr_train": edvr_train["EDVRNet"]["dcn_launches"][index[k]],
                  "edvr_train_bf16": edvr_train["EDVRNet_tpu"]["dcn_launches"][index[k]],
                  "serve_edvr": served_edvr["launches"] if k == "deform_im2col" else 0,
-                 "eval_loop_ab_edvr": ab["counts"]["edvr"][1][index[k]]}
+                 "eval_loop_ab_edvr": ab["counts"]["edvr"][1][index[k]],
+                 "spatial_zoo_rank0": zoo_dcn[index[k]]}
         serve32, serve16 = (dcn_res["times"][f"serving {d}"] for d in (f32, b16))
         train32, train16 = (dcn_res["times"][f"training {d}"] for d in (f32, b16))
         record["kernels"].append({

@@ -34,8 +34,9 @@ More CUDA devices than are visible, ``spatial_parallel`` with
 ``model_parallel``, and a device count that ``spatial_parallel ×
 model_parallel`` does not divide raise ``ValueError`` as the JAX
 package's mesh does, before any rank starts; ``spatial_parallel > 1``
-with a net other than RefineNet raises ``NotImplementedError`` (ROADMAP
-item 10c).  ``pad_h`` sets the predictor's knob, as in the JAX package's
+with a net whose class does not declare ``spatial_ready`` (TOFlowNet,
+FRVSRNet, EDVRNet) raises ``NotImplementedError`` (ROADMAP item 10c).
+``pad_h`` sets the predictor's knob, as in the JAX package's
 ``main``.  A multi-host run defaults to ``checkpoint_backend:
 orbax_async``, as in the JAX package.
 """
@@ -107,7 +108,8 @@ def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
     package's refusals (``ValueError``): more CUDA devices than are
     visible, ``spatial_parallel`` with ``model_parallel``, a device count
     their product does not divide; and a net whose spatial axis is not
-    ported (``NotImplementedError``, item 10c)."""
+    ported (``NotImplementedError``, item 10c): the registered net class
+    declares ``spatial_ready`` (``parallel/halo.shard_spatially``)."""
     from .parallel import check_axes, check_devices
     from .parallel.halo import NOT_READY
 
@@ -121,8 +123,11 @@ def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
     sp = int(parallel.get("spatial_parallel") or 1)
     check_axes(int(n), sp, parallel.get("model_parallel", 1))
     net = (cfg.get("net") or {}).get("name")
-    if sp > 1 and net is not None and net != "RefineNet":
-        raise NotImplementedError(f"parallel.spatial_parallel={sp}: {NOT_READY.format(net=net)}")
+    if sp > 1 and net is not None:
+        _import_components()
+        if not getattr(NETS.get(net), "spatial_ready", False):
+            raise NotImplementedError(f"parallel.spatial_parallel={sp}: "
+                                      f"{NOT_READY.format(net=net)}")
     return parallel
 
 

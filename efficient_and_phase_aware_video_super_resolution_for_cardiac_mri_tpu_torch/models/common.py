@@ -17,11 +17,12 @@ explicit ``torch.Generator``; FRVSR redraws its kernels Xavier-uniform
 (``init_xavier_``, the JAX package's ``xavier_conv_init``).  BatchNorm
 starts at weight 1, bias 0, running mean 0 and variance 1.
 
-Under a data mesh the JAX package's BatchNorm reduces over the global
-batch (GSPMD), not over each device's slice.  Inside
+Under a data or spatial mesh the JAX package's BatchNorm reduces over the
+global batch (GSPMD), not over each device's slice or rows.  Inside
 :func:`batch_norm_group` the port's BatchNorms do the same in training:
 each rank's per-channel sum, sum of squares and count go through one
-differentiable all-reduce over the data ranks (its backward all-reduces
+differentiable all-reduce over the group (the ranks holding the step's
+other items and rows, ``Mesh.statistics_group``; its backward all-reduces
 the gradients of those sums), so the normalisation, the gradients and the
 running statistics are the single-device ones.  ``nn.SyncBatchNorm`` is
 not used: it refuses CPU tensors.
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.halo import HaloConv2d
+from ..parallel.halo import HaloConv2d, HaloConv3d, HaloConvTranspose2d
 
 
 def init_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -79,13 +80,15 @@ def conv2d(in_features: int, features: int, kernel_size: int,
 
 
 def conv3d(in_features: int, features: int, kernel_size: int | tuple[int, int, int],
-           generator: torch.Generator, padding: tuple[int, int, int] | None = None) -> nn.Conv3d:
-    """``nn.Conv3d`` over (B, C, T, H, W) with torch-default init drawn from
-    ``generator`` (``fan_in = C_in·kd·kh·kw``, the JAX package's
-    ``duf_net.conv3d``); ``padding`` defaults to k//2 on each axis."""
+           generator: torch.Generator, padding: tuple[int, int, int] | None = None,
+           cls: type[nn.Conv3d] = nn.Conv3d) -> nn.Conv3d:
+    """``nn.Conv3d`` (or its subclass ``cls``) over (B, C, T, H, W) with
+    torch-default init drawn from ``generator`` (``fan_in = C_in·kd·kh·kw``,
+    the JAX package's ``duf_net.conv3d``); ``padding`` defaults to k//2 on
+    each axis."""
     ks = (kernel_size,) * 3 if isinstance(kernel_size, int) else tuple(kernel_size)
-    conv = nn.Conv3d(in_features, features, ks,
-                     padding=tuple(k // 2 for k in ks) if padding is None else tuple(padding))
+    conv = cls(in_features, features, ks,
+               padding=tuple(k // 2 for k in ks) if padding is None else tuple(padding))
     fan_in = in_features * math.prod(ks)
     init_uniform_(conv.weight, fan_in, generator)
     init_uniform_(conv.bias, fan_in, generator)
@@ -209,19 +212,20 @@ def pad_to_multiple(x: torch.Tensor, mult: int, dims=(-3, -2)):
 
 
 def conv_transpose2d(in_features: int, features: int, kernel_size: int, stride: int,
-                     padding: int, generator: torch.Generator,
-                     output_padding: int = 0) -> nn.ConvTranspose2d:
-    """``nn.ConvTranspose2d(k, s, p, output_padding)``: out = (in-1)·s − 2p
-    + k + output_padding (the extra rows and columns at the bottom and
-    right, as the JAX package's ``ConvTransposeTorch`` pads them).
+                     padding: int, generator: torch.Generator, output_padding: int = 0,
+                     cls: type[nn.ConvTranspose2d] = nn.ConvTranspose2d) -> nn.ConvTranspose2d:
+    """``nn.ConvTranspose2d(k, s, p, output_padding)`` (or its subclass
+    ``cls``): out = (in-1)·s − 2p + k + output_padding (the extra rows and
+    columns at the bottom and right, as the JAX package's
+    ``ConvTransposeTorch`` pads them).
 
     The JAX package's ``ConvTransposeTorch`` computes the same map as an
     input-dilated conv that flips its stored (kh, kw, in, out) kernel inside
     its forward, so the stored kernel is this weight (in, out, kh, kw)
     permuted, with no flip.  torch's default init uses
     ``fan_in = out·k²`` (weight dim 1)."""
-    deconv = nn.ConvTranspose2d(in_features, features, kernel_size, stride=stride,
-                                padding=padding, output_padding=output_padding)
+    deconv = cls(in_features, features, kernel_size, stride=stride, padding=padding,
+                 output_padding=output_padding)
     fan_in = features * kernel_size * kernel_size
     init_uniform_(deconv.weight, fan_in, generator)
     init_uniform_(deconv.bias, fan_in, generator)

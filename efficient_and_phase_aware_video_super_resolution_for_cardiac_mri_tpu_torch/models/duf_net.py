@@ -12,6 +12,13 @@ parameter), a contraction and a PixelShuffle, plus a residual branch.  The
 ``denseLayer.conv{i}.{bn1,conv1,bn2,conv2}``, ``denseLayer.tail.{bn,conv}``,
 ``filterNet.conv{1,2}``, ``residualNet.conv{1,2}``.  BatchNorm follows the
 module's mode: batch statistics in training, running ones in eval.
+
+Under a spatial axis (``parallel/halo.py``) the head conv, every 3×3×3 and
+(1,3,3) conv and the unfold exchange their halos (one row; sf//2 rows for
+the unfold, whose zero rows past the border are its own zero padding);
+the 1×1×1 convs, the softmax, the contraction and the PixelShuffle are
+row-local, and a training BatchNorm reduces over the ranks that hold the
+batch's other rows and items (``runner/trainers.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.halo import HaloConv2d, HaloConv3d, halo
 from .common import batch_norm, conv2d, conv3d, to_conv_layout
 
 #: backbone → (growth G, blocks that keep T, blocks that shrink T by 2,
@@ -43,7 +51,7 @@ class _DenseBlock(nn.Module):
         self.conv1 = conv3d(c, c, 1, generator)
         self.bn2 = batch_norm(c, 3)
         self.conv2 = conv3d(c, out_features, 3, generator,
-                            padding=(0, 1, 1) if shrink else (1, 1, 1))
+                            padding=(0, 1, 1) if shrink else (1, 1, 1), cls=HaloConv3d)
 
     def forward(self, x):
         x = self.conv1(F.relu(self.bn1(x)))
@@ -54,7 +62,8 @@ class _DenseTail(nn.Module):
     def __init__(self, in_features: int, generator: torch.Generator):
         super().__init__()
         self.bn = batch_norm(in_features, 3)
-        self.conv = conv3d(in_features, 256, (1, 3, 3), generator, padding=(0, 1, 1))
+        self.conv = conv3d(in_features, 256, (1, 3, 3), generator, padding=(0, 1, 1),
+                           cls=HaloConv3d)
 
     def forward(self, x):
         return self.conv(F.relu(self.bn(x)))
@@ -88,6 +97,11 @@ class _DenseBackbone(nn.Module):
 class DUFNet(nn.Module):
     """Reference ``duf_net.py:9-99``: (B, T, h, w, C) → (B, rh, rw, C)."""
 
+    #: every H window takes a halo (``parallel/halo.shard_spatially``)
+    spatial_ready = True
+    #: the axis the unfold takes its halo over
+    spatial_axis = None
+
     def __init__(self, in_channels: int, out_channels: int, num_frames: int, size_filter: int,
                  upscale_factor: int, backbone: str, generator: torch.Generator | None = None):
         super().__init__()
@@ -99,7 +113,7 @@ class DUFNet(nn.Module):
         self.size_filter = size_filter
         self.upscale_factor = r = upscale_factor
         sf = size_filter
-        self.head = conv2d(in_channels, _HEAD_FEATURES, 3, generator)
+        self.head = conv2d(in_channels, _HEAD_FEATURES, 3, generator, cls=HaloConv2d)
         self.denseLayer = _DenseBackbone(backbone, generator)
         self.filterNet = nn.ModuleDict({
             "conv1": conv3d(256, 512, 1, generator),
@@ -125,10 +139,13 @@ class DUFNet(nn.Module):
         filters = torch.softmax(f[:, :, 0].reshape(B, sf * sf, r * r, h, w), dim=1)
 
         # the reference frame's sf×sf neighbourhoods, channel by channel
-        target = lr_imgs[:, t_ref]
+        target, pad = lr_imgs[:, t_ref], sf // 2
+        if self.spatial_axis is not None:  # H padded from the halo, W with zeros
+            target = halo(target.movedim(-1, -3), sf // 2, self.spatial_axis).movedim(-3, -1)
+            pad = (0, sf // 2)
         outs = []
         for c in range(C):
-            patches = F.unfold(target[:, None, :, :, c], sf, padding=sf // 2).view(B, sf * sf, h, w)
+            patches = F.unfold(target[:, None, :, :, c], sf, padding=pad).view(B, sf * sf, h, w)
             y = torch.einsum("bkhw,bkrhw->brhw", patches, filters)
             outs.append(F.pixel_shuffle(y, r))
         duf_out = torch.cat(outs, dim=1)

@@ -11,12 +11,20 @@ reference).  Channels-last at the boundary, (B, T, h, w, C) →
 ``state_dict`` keys (the JAX package's ``utils/torch_import.rbp_net_key_map``);
 each ``res_feat{1,2,3}`` is a sequential of ``num_resblocks`` residual
 blocks, then its projection block.
+
+Under a spatial axis (``parallel/halo.py``) every conv with a window in H
+exchanges its halo: the 3×3 convs one row, the down-projections (stride r,
+``PROJ_PARAMS``) 2 HR rows above and below, the up-projections
+(transposed, stride r) one LR row.  The 1×1 convs are row-local.  The
+skipped last ``res_feat3`` depends on the neighbour's index only, so
+every rank issues the same exchanges.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..parallel.halo import HaloConv2d, HaloConvTranspose2d
 from .common import PROJ_PARAMS, PReLU, conv2d, conv_transpose2d, to_conv_layout
 
 
@@ -26,7 +34,8 @@ class ConvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, pad: int,
                  generator: torch.Generator, act: bool = True):
         super().__init__()
-        self.conv = conv2d(in_ch, out_ch, kernel, generator, stride=stride, padding=pad)
+        self.conv = conv2d(in_ch, out_ch, kernel, generator, stride=stride, padding=pad,
+                           cls=HaloConv2d)
         self.act = PReLU(0.25) if act else None
 
     def forward(self, x):
@@ -40,7 +49,8 @@ class DeconvBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, pad: int,
                  generator: torch.Generator):
         super().__init__()
-        self.deconv = conv_transpose2d(in_ch, out_ch, kernel, stride, pad, generator)
+        self.deconv = conv_transpose2d(in_ch, out_ch, kernel, stride, pad, generator,
+                                       cls=HaloConvTranspose2d)
         self.act = PReLU(0.25)
 
     def forward(self, x):
@@ -53,8 +63,8 @@ class ResnetBlock(nn.Module):
 
     def __init__(self, features: int, generator: torch.Generator):
         super().__init__()
-        self.conv1 = conv2d(features, features, 3, generator)
-        self.conv2 = conv2d(features, features, 3, generator)
+        self.conv1 = conv2d(features, features, 3, generator, cls=HaloConv2d)
+        self.conv2 = conv2d(features, features, 3, generator, cls=HaloConv2d)
         self.act = PReLU(0.25)
 
     def forward(self, x):
@@ -127,6 +137,9 @@ def _res_chain(n_blocks: int, width: int, tail: nn.Module, generator: torch.Gene
 
 class RBPNet(nn.Module):
     """Reference ``rbp_net.py:8-91``: (B, T, h, w, C) → (B, rh, rw, C)."""
+
+    #: every conv takes a halo (``parallel/halo.shard_spatially``)
+    spatial_ready = True
 
     def __init__(self, in_channels: int, out_channels: int, base_filter: int, feat: int,
                  num_stages: int, num_resblocks: int, num_frames: int, upscale_factor: int,

@@ -8,6 +8,14 @@ Channels-last at the boundary, (B, h, w, C) → (B, rh, rw, C) and (B, T,
 h, w, C) → (B, T, rh, rw, C), NCHW inside.  Module names give the
 reference's ``state_dict`` keys (the JAX package's
 ``utils/torch_import._srfb_like_key_map``).
+
+Under a spatial axis (``parallel/halo.py``) every conv with a window in H
+exchanges its halo: the 3×3 convs one row, each down-projection (a conv
+of stride r, ``PROJ_PARAMS``) p = 2 HR rows above and below, each
+up-projection (a transposed conv of stride r) one LR row; SRFBNet's
+bilinear skip is the band of the global resize (``ops/resize.py``).
+Every rank runs the same steps and frames, so the exchanges come in the
+same order on each.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import upsample_bilinear
+from ..parallel.halo import HaloConv2d, HaloConvTranspose2d
 from .common import (
     PROJ_PARAMS,
     PReLU,
@@ -39,7 +48,7 @@ class _LRFBlock(nn.Module):
     def __init__(self, in_channels: int, num_features: int, generator: torch.Generator):
         super().__init__()
         F_ = num_features
-        self.conv1 = conv2d(in_channels, 4 * F_, 3, generator)
+        self.conv1 = conv2d(in_channels, 4 * F_, 3, generator, cls=HaloConv2d)
         self.prelu1 = PReLU()
         self.conv2 = conv2d(4 * F_, F_, 1, generator)
         self.prelu2 = PReLU()
@@ -77,9 +86,9 @@ class _Projection(nn.Module):
             self.prelu1 = PReLU()
             self.names = [("conv1", "prelu1")]
         if up:
-            proj = conv_transpose2d(F_, F_, k, s, p, generator)
+            proj = conv_transpose2d(F_, F_, k, s, p, generator, cls=HaloConvTranspose2d)
         else:
-            proj = conv2d(F_, F_, k, generator, stride=s, padding=p)
+            proj = conv2d(F_, F_, k, generator, stride=s, padding=p, cls=HaloConv2d)
         kind = "deconv" if up else "conv"
         proj_name, prelu_name = (f"{kind}2", "prelu2") if group > 0 else (kind, "prelu")
         setattr(self, proj_name, proj)
@@ -124,9 +133,10 @@ class _RBlock(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         k, s, p = PROJ_PARAMS[upscale_factor]
-        self.deconv1 = conv_transpose2d(num_features, num_features, k, s, p, generator)
+        self.deconv1 = conv_transpose2d(num_features, num_features, k, s, p, generator,
+                                        cls=HaloConvTranspose2d)
         self.prelu1 = PReLU()
-        self.conv2 = conv2d(num_features, out_channels, 3, generator)
+        self.conv2 = conv2d(num_features, out_channels, 3, generator, cls=HaloConv2d)
 
     def forward(self, x):
         return self.conv2(self.prelu1(self.deconv1(x)))
@@ -136,6 +146,11 @@ class SRFBNet(nn.Module):
     """Reference ``srfb_net.py:8-50``: a list of ``num_steps`` outputs, each the
     bilinear (``align_corners=False``) upscale of the input plus the
     reconstruction of that step's hidden state."""
+
+    #: every conv and the skip take a halo (``parallel/halo.shard_spatially``)
+    spatial_ready = True
+    #: the axis the bilinear skip takes its band over
+    spatial_axis = None
 
     def __init__(self, in_channels: int, out_channels: int, num_steps: int, num_features: int,
                  num_groups: int, upscale_factor: int, generator: torch.Generator | None = None):
@@ -150,7 +165,8 @@ class SRFBNet(nn.Module):
         self.r_block = _RBlock(num_features, out_channels, upscale_factor, generator)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        upscaled = upsample_bilinear(x, self.upscale_factor, align_corners=False)
+        upscaled = upsample_bilinear(x, self.upscale_factor, align_corners=False,
+                                     axis=self.spatial_axis)
         # the LR features are the same at every step: computed once
         features = self.lrf_block(to_conv_layout(x))
         outputs, hidden = [], features
@@ -164,6 +180,8 @@ class DRFSISRNet(nn.Module):
     """DRF SISR variant (reference ``drf_sisr_net.py:8-148``): the feature-space
     sum of the LR features and the hidden state through the shared
     PixelShuffle ``UpsampleBlock``, one output a step."""
+
+    spatial_ready = True
 
     def __init__(self, in_channels: int, out_channels: int, num_steps: int, num_features: int,
                  num_groups: int, upscale_factor: int, generator: torch.Generator | None = None):
@@ -195,7 +213,10 @@ class DRFNet(nn.Module):
     ``remat``: each frame step (feedback block and upsampler) is a
     non-reentrant ``torch.utils.checkpoint`` under autograd, so the
     backward keeps only the hidden states across frames and recomputes
-    the rest (the JAX package's ``nn.remat`` of ``_DRFStep``)."""
+    the rest (the JAX package's ``nn.remat`` of ``_DRFStep``); under a
+    spatial axis the recompute reissues the step's halo exchanges."""
+
+    spatial_ready = True
 
     def __init__(self, in_channels: int, out_channels: int, num_features: int, num_groups: int,
                  upscale_factor: int, remat: bool = False, generator: torch.Generator | None = None):

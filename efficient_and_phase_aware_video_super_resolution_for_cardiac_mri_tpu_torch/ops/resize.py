@@ -22,6 +22,15 @@ which out-of-range taps are clamped to the border and their weights
 accumulated into the edge column; the 2-D resize is two matrix products.
 Those matrices are the oracle: ``F.interpolate`` rounds and treats the
 border on its own terms, and its last rows differ.
+
+Under a spatial axis (``parallel/halo.py``) each rank holds a band of a
+frame's rows and computes the band of output rows they scale to: the
+rows of the **global** height matrix for that band, against the rank's
+rows with the halo those rows reach attached (:func:`band_plan`).  The
+zero halo rows past the frame's border meet zero columns, since a clamped
+tap's weight sits in the edge column.  Where the halo would exceed a band
+(a few rows a rank under bicubic), the frame is gathered whole instead;
+the resizes' input is a net's input, which carries no gradient.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..parallel.halo import SpatialAxis, gather_rows, halo
 
 
 def _cubic_kernel(x: np.ndarray, A: float = -0.75) -> np.ndarray:
@@ -86,13 +97,71 @@ def _device_matrix(in_size: int, out_size: int, align_corners: bool, kind: str,
         return torch.from_numpy(resize_matrix(in_size, out_size, align_corners, kind)).to(device)
 
 
-def _resize(x: torch.Tensor, out_hw, align_corners: bool, kind: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def band_plan(in_size: int, out_size: int, align_corners: bool, kind: str,
+              parts: int) -> tuple[int | None, tuple[np.ndarray, ...]]:
+    """The height resize of a frame of ``in_size`` rows held in ``parts``
+    equal bands → (halo, one matrix a band).  ``halo`` is the most rows any
+    band's output rows reach past its own input rows, from the nonzero
+    columns of the global matrix's rows for that band; each band's matrix
+    is those rows over its ``in/parts + 2·halo`` halo'd input rows (zero
+    columns past the border).  When the halo exceeds a band, ``halo`` is
+    None and each band's matrix spans the whole gathered frame.  Cached:
+    callers must not write to the result."""
+    mat = resize_matrix(in_size, out_size, align_corners, kind)
+    n_in, n_out = in_size // parts, out_size // parts
+    need = 0
+    for i in range(parts):
+        cols = np.flatnonzero(np.any(mat[i * n_out:(i + 1) * n_out] != 0, axis=0))
+        need = max(need, i * n_in - cols[0], cols[-1] + 1 - (i + 1) * n_in)
+    if need > n_in:
+        return None, tuple(mat[i * n_out:(i + 1) * n_out] for i in range(parts))
+    padded = np.zeros((out_size, in_size + 2 * need), np.float32)
+    padded[:, need:need + in_size] = mat
+    return need, tuple(padded[i * n_out:(i + 1) * n_out, i * n_in:(i + 1) * n_in + 2 * need]
+                       for i in range(parts))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_band(in_size: int, out_size: int, align_corners: bool, kind: str, parts: int,
+                 index: int, device: torch.device) -> tuple[int | None, torch.Tensor]:
+    """Band ``index`` of :func:`band_plan` on ``device``, uploaded once per
+    shape (outside inference mode, as :func:`_device_matrix`)."""
+    k, mats = band_plan(in_size, out_size, align_corners, kind, parts)
+    with torch.inference_mode(False):
+        return k, torch.from_numpy(mats[index]).to(device)
+
+
+def _band_rows(x: torch.Tensor, out_h: int, align_corners: bool, kind: str,
+               axis: SpatialAxis) -> tuple[torch.Tensor, torch.Tensor]:
+    """This rank's band of (..., H_local, W, C) → (the rows its output band
+    reads, the height matrix of that band)."""
+    parts = axis.size
+    k, mh = _device_band(x.shape[-3] * parts, out_h * parts, align_corners, kind, parts,
+                         axis.index, x.device)
+    if k is None:
+        if x.requires_grad:  # gather_rows returns no gradient
+            raise ValueError(f"a band of {x.shape[-3]} rows is narrower than its resize's halo, "
+                             "and a gathered frame carries no gradient back")
+        return gather_rows(x, axis), mh
+    # the halo exchange runs over (…, H, W): channels to the front and back
+    return halo(x.movedim(-1, -3), k, axis).movedim(-3, -1), mh
+
+
+def _resize(x: torch.Tensor, out_hw, align_corners: bool, kind: str,
+            axis: SpatialAxis | None = None) -> torch.Tensor:
+    """``axis``: ``x`` holds this rank's band of rows, ``out_hw[0]`` is its
+    output band's height."""
     H, W = x.shape[-3], x.shape[-2]
     oh, ow = out_hw
     # a float32 matrix against bf16 input computes in float32, as JAX
     # promotes the einsum of its float32 matrix with a bf16 array
     dtype = torch.promote_types(x.dtype, torch.float32)
-    mh = _device_matrix(H, oh, align_corners, kind, x.device).to(dtype)
+    if axis is None:
+        mh = _device_matrix(H, oh, align_corners, kind, x.device)
+    else:
+        x, mh = _band_rows(x, oh, align_corners, kind, axis)
+    mh = mh.to(dtype)
     mw = _device_matrix(W, ow, align_corners, kind, x.device).to(dtype)
     x = torch.einsum("oh,...hwc->...owc", mh, x.to(dtype))
     return torch.einsum("pw,...hwc->...hpc", mw, x)
@@ -110,17 +179,20 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     return _resize(x, out_hw, align_corners, "linear")
 
 
-def upsample_bicubic(x: torch.Tensor, scale_factor: int, align_corners: bool = True) -> torch.Tensor:
-    """torch ``nn.Upsample(mode='bicubic')`` over (..., H, W, C)."""
+def upsample_bicubic(x: torch.Tensor, scale_factor: int, align_corners: bool = True,
+                     axis: SpatialAxis | None = None) -> torch.Tensor:
+    """torch ``nn.Upsample(mode='bicubic')`` over (..., H, W, C); under
+    ``axis``, this rank's band of the whole frame's."""
     H, W = x.shape[-3], x.shape[-2]
-    return resize_bicubic(x, (H * scale_factor, W * scale_factor), align_corners)
+    return _resize(x, (H * scale_factor, W * scale_factor), align_corners, "cubic", axis)
 
 
-def upsample_bilinear(x: torch.Tensor, scale_factor: int,
-                      align_corners: bool = False) -> torch.Tensor:
-    """torch ``F.interpolate(mode='bilinear')`` with an integer scale factor."""
+def upsample_bilinear(x: torch.Tensor, scale_factor: int, align_corners: bool = False,
+                      axis: SpatialAxis | None = None) -> torch.Tensor:
+    """torch ``F.interpolate(mode='bilinear')`` with an integer scale
+    factor; under ``axis``, this rank's band of the whole frame's."""
     H, W = x.shape[-3], x.shape[-2]
-    return resize_bilinear(x, (H * scale_factor, W * scale_factor), align_corners)
+    return _resize(x, (H * scale_factor, W * scale_factor), align_corners, "linear", axis)
 
 
 def resize_bicubic_np(x: np.ndarray, out_hw: tuple[int, int],

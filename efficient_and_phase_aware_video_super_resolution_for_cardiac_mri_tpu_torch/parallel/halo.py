@@ -19,14 +19,25 @@ written out:
   is reduced and the exchange is exact in any dtype.
 * :func:`halo_conv2d` and :func:`halo_conv3d` pad H from the halo and W
   (and T) with zeros, then convolve with no H padding; without an axis
-  they are ``F.conv2d`` / ``F.conv3d``.  :class:`HaloConv2d` is an
-  ``nn.Conv2d`` whose forward goes through :func:`halo_conv2d` while it
-  has an axis (same ``state_dict`` keys).
+  they are ``F.conv2d`` / ``F.conv3d``.  A conv of stride s (the
+  back-projections' down-projection, k = s + 2p) takes p rows each side:
+  each rank's rows are a multiple of s, so its output band is its input
+  band over s.  :func:`halo_conv_transpose2d` (the
+  up-projection, k = s + 2p again) takes ⌈p/s⌉ rows each side and pads H
+  by p + ⌈p/s⌉·s, so that its output is exactly s times the rank's rows;
+  the zero rows past the border add nothing.  :class:`HaloConv2d`,
+  :class:`HaloConv3d` and :class:`HaloConvTranspose2d` are the ``nn``
+  modules whose forward goes through them while they have an axis (same
+  ``state_dict`` keys).
 * :func:`gather_rows` puts whole frames back together (no gradient).
 * :func:`shard_spatially` gives a net its axis: every module that declares
   a ``spatial_axis`` attribute takes it.  Only nets that declare
-  ``spatial_ready`` are accepted (RefineNet); the others need more than a
-  conv halo (ROADMAP item 10c).
+  ``spatial_ready`` are accepted: RefineNet, EDSRNet, SRFBNet,
+  DRFSISRNet, DRFNet, Bicubic, DUFNet and RBPNet, in each of which an
+  output row reads a bounded band of input rows (the resizes of
+  ``ops/resize.py`` take the band of their global matrix).  The warps of
+  TOFlowNet and FRVSRNet and EDVRNet's deformable convs read rows an
+  unbounded flow or offset points at (ROADMAP item 10c).
 
 Every rank of a spatial group runs the same graph, so the halo collectives
 come in the same order on every rank, in forward, in backward and in the
@@ -45,9 +56,11 @@ from torch import nn
 #: their backwards)
 EXCHANGES = {"forward": 0, "backward": 0}
 
-#: the refusal of a net whose spatial sharding needs more than conv halos
-NOT_READY = ("the spatial axis is ported for RefineNet only; {net} needs more than a conv "
-             "halo exchange (ROADMAP queue 1, item 10c)")
+#: the refusal of a net whose output rows read an unbounded band of input rows
+NOT_READY = ("the spatial axis is ported for RefineNet, EDSRNet, SRFBNet, DRFSISRNet, DRFNet, "
+             "Bicubic, DUFNet and RBPNet; {net} warps or samples rows an unbounded flow or "
+             "offset points at, which a fixed halo does not reach (TOFlowNet, FRVSRNet, "
+             "EDVRNet: ROADMAP queue 1, item 10c)")
 
 
 @dataclass(frozen=True)
@@ -118,13 +131,43 @@ def halo(x: torch.Tensor, k: int, axis: SpatialAxis) -> torch.Tensor:
     return _Halo.apply(x, k, axis)
 
 
-def halo_conv2d(x, weight, bias=None, padding=1, axis: SpatialAxis | None = None):
-    """``F.conv2d(x, weight, bias, padding=padding)`` (stride 1) on a
-    height-sharded ``x``: H padded from the halo, W with zeros."""
-    ph, pw = (padding, padding) if isinstance(padding, int) else tuple(padding)
-    if axis is None or ph == 0:
-        return F.conv2d(x, weight, bias, padding=(ph, pw))
-    return F.conv2d(halo(x, ph, axis), weight, bias, padding=(0, pw))
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def halo_conv2d(x, weight, bias=None, padding=1, axis: SpatialAxis | None = None, stride=1):
+    """``F.conv2d(x, weight, bias, stride, padding)`` on a height-sharded
+    ``x``: H padded from the halo (p rows above, k − s − p = p below), W
+    with zeros.  The band must map onto the output's: k = s + 2p in H
+    (every stride-1 'same' conv; every back-projection) and the rank's rows
+    a multiple of the stride."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    if axis is None:
+        return F.conv2d(x, weight, bias, stride=(sh, sw), padding=(ph, pw))
+    kh, rows = weight.shape[-2], x.shape[-2]
+    if kh != sh + 2 * ph or rows % sh:
+        raise ValueError(f"a conv (k {kh}, stride {sh}, padding {ph}) does not map a band of "
+                         f"{rows} rows onto a band of its output (needs k = s + 2p)")
+    xh = halo(x, ph, axis) if ph else x
+    return F.conv2d(xh, weight, bias, stride=(sh, sw), padding=(0, pw))
+
+
+def halo_conv_transpose2d(x, weight, bias=None, stride=1, padding=0,
+                          axis: SpatialAxis | None = None):
+    """``F.conv_transpose2d(x, weight, bias, stride, padding)`` on a
+    height-sharded ``x`` whose kernel is k = s + 2p in H (the output is s
+    times the input): ⌈p/s⌉ halo rows each side, H padded by p + ⌈p/s⌉·s,
+    so that the output is exactly this rank's s·H_local rows."""
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    if axis is None:
+        return F.conv_transpose2d(x, weight, bias, stride=(sh, sw), padding=(ph, pw))
+    kh = weight.shape[-2]
+    if kh != sh + 2 * ph:
+        raise ValueError(f"a transposed conv (k {kh}, stride {sh}, padding {ph}) does not map "
+                         "a band of rows onto a band of its output (needs k = s + 2p)")
+    k = -(-ph // sh)
+    xh = halo(x, k, axis) if k else x
+    return F.conv_transpose2d(xh, weight, bias, stride=(sh, sw), padding=(ph + k * sh, pw))
 
 
 def halo_conv3d(x, weight, bias=None, padding=(0, 1, 1), axis: SpatialAxis | None = None):
@@ -137,15 +180,43 @@ def halo_conv3d(x, weight, bias=None, padding=(0, 1, 1), axis: SpatialAxis | Non
 
 
 class HaloConv2d(nn.Conv2d):
-    """``nn.Conv2d`` (stride 1, zero padding) that exchanges its H halo
-    while :func:`shard_spatially` has given it an axis."""
+    """``nn.Conv2d`` (zero padding, any stride :func:`halo_conv2d` takes)
+    that exchanges its H halo while :func:`shard_spatially` has given it an
+    axis."""
 
     spatial_axis: SpatialAxis | None = None
 
     def forward(self, x):
         if self.spatial_axis is None:
             return super().forward(x)
-        return halo_conv2d(x, self.weight, self.bias, self.padding, self.spatial_axis)
+        return halo_conv2d(x, self.weight, self.bias, self.padding, self.spatial_axis, self.stride)
+
+
+class HaloConv3d(nn.Conv3d):
+    """``nn.Conv3d`` (stride 1, zero padding) that exchanges its H halo
+    while it has an axis."""
+
+    spatial_axis: SpatialAxis | None = None
+
+    def forward(self, x):
+        if self.spatial_axis is None:
+            return super().forward(x)
+        return halo_conv3d(x, self.weight, self.bias, self.padding, self.spatial_axis)
+
+
+class HaloConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (k = s + 2p in H, no output padding) that
+    exchanges its H halo while it has an axis."""
+
+    spatial_axis: SpatialAxis | None = None
+
+    def forward(self, x, output_size=None):
+        if self.spatial_axis is None:
+            return super().forward(x, output_size)
+        if output_size is not None or self.output_padding != (0, 0):
+            raise ValueError("a sharded transposed conv takes no output size or padding")
+        return halo_conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
+                                     self.spatial_axis)
 
 
 def gather_rows(x: torch.Tensor, axis: SpatialAxis | None, dim: int = -3) -> torch.Tensor:

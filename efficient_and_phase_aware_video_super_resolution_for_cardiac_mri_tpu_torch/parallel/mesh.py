@@ -20,7 +20,11 @@ device is a rank and the axes are process groups:
   global mean.  A height that the spatial size does not divide is computed
   whole on every rank of the group, with the JAX package's one-time
   warning; ``pad_h`` edge-extends it to a multiple instead
-  (:func:`pad_height_to_multiple`).  RefineNet only (ROADMAP item 10c).
+  (:func:`pad_height_to_multiple`).  A training BatchNorm reduces its
+  statistics over the ranks that hold the step's other rows and other
+  items, and no further (:meth:`Mesh.statistics_group`): a replicated
+  item or batch is counted once.  The nets whose class declares
+  ``spatial_ready`` (ROADMAP item 10c).
 * ``model``: ZeRO-3, as the JAX package's ``param_spec`` /
   ``gather_for_compute`` do it: every parameter and its optimizer state
   are stored sharded over the model ranks (FSDP2 ``fully_shard`` on a 2-D
@@ -66,6 +70,9 @@ class Mesh:
     #: the ranks that share one frame's rows (``parallel/halo.py``)
     spatial: int = 1
     spatial_group: object = field(default=None, repr=False)
+    #: under a spatial axis, the ranks of this spatial index: they hold
+    #: other items and the same rows (None with one data index)
+    item_group: object = field(default=None, repr=False)
     #: FSDP2's 2-D device mesh, when the mesh has a model axis
     device_mesh: object = None
     #: the hosts the ranks run on (``parallel.num_processes`` of a
@@ -116,6 +123,20 @@ class Mesh:
     @property
     def is_lead(self) -> bool:
         return self.rank == 0
+
+    def statistics_group(self, items_split: bool, rows_split: bool):
+        """The group whose ranks' training BatchNorm statistics together
+        make the global batch's: the ranks that hold the step's other
+        items (when the batch is split over ``data``) and its other rows
+        (when the height is split over ``spatial``); None when this rank
+        holds the whole batch.  A rank holding a copy is left out, so that
+        every item is counted once, as the JAX package's replicated arrays
+        are (the unbiased running variance reads the count)."""
+        if items_split and (rows_split or self.spatial == 1):
+            return self.data_group
+        if rows_split:
+            return self.spatial_group
+        return self.item_group if items_split else None
 
 
 def check_devices(n: int, device: torch.device | str) -> None:
@@ -170,16 +191,21 @@ def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
     host_group = dist.new_group(backend="gloo")
     backend = dist.get_backend()
     if mp == 1:
-        spatial_group = None
+        spatial_group = item_group = None
         if sp > 1:
             # every rank makes every group, in the same order
             for d in range(n // sp):
                 group = dist.new_group(list(range(d * sp, (d + 1) * sp)))
                 if rank // sp == d:
                     spatial_group = group
+            if n // sp > 1:
+                for s in range(sp):
+                    group = dist.new_group(list(range(s, n, sp)))
+                    if rank % sp == s:
+                        item_group = group
         return Mesh(data=n // sp, model=1, rank=rank, device=device, data_group=dist.group.WORLD,
-                    spatial=sp, spatial_group=spatial_group, hosts=hosts, host_group=host_group,
-                    backend=backend)
+                    spatial=sp, spatial_group=spatial_group, item_group=item_group, hosts=hosts,
+                    host_group=host_group, backend=backend)
     from torch.distributed.device_mesh import init_device_mesh
 
     device_mesh = init_device_mesh(device.type, (n // mp, mp), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))

@@ -334,7 +334,9 @@ class BasePredictor:
                                         seam_stats=True, probe_fn=probe)
             else:
                 out = tiled_apply(forward, inputs, self._tile, self._tile_overlap)
-        out = gather_rows(out, axis)
+        # contiguous whichever path made it (a gather, a resize's permuted
+        # view): the losses and metrics then reduce in one order
+        out = gather_rows(out, axis).contiguous()
         if out_h is not None:  # pad_h: only the true rows are scored
             out, target = out[..., :out_h, :, :], target[..., :out_h, :, :]
         losses = self._frame_losses(out, target)

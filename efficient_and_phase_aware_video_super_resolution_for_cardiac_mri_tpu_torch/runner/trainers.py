@@ -54,7 +54,8 @@ With ``EVSR_PROFILE_DIR`` set, each train and valid epoch is traced by
 With a ``mesh`` (``parallel/mesh.py``) the step runs on the module
 ``parallel.partition`` gives: DDP over the data ranks, or FSDP2 (ZeRO-3)
 for a model axis.  The loaders yield each rank's slice of the global
-batch; BatchNorm reduces over the data ranks while the batch is sliced;
+batch; BatchNorm reduces over the ranks holding the step's other items
+and rows (``Mesh.statistics_group``);
 ``grad_accum_steps`` syncs the gradients on the last microbatch only
 (``no_sync`` / ``set_requires_gradient_sync``); the epoch's logged sums
 are averaged over the data ranks before the log, the monitor and the
@@ -64,13 +65,15 @@ under a model axis); a directory checkpoint is written by every rank.
 ``skip_nonfinite`` is checked at each epoch boundary, after the train log,
 as in the JAX package (``runner/optim.py``).
 
-Under a spatial axis (RefineNet only) the ranks of a spatial group take
-the same items, and each feeds the net its rows of the image arrays (LR
-and HR; the phase code goes whole): the net's convs exchange their halos
-(``parallel/halo.py``) and each rank's losses are over its rows.  DDP
-averages the gradients over every rank, the halos' backward having
-returned each borrowed row's gradient to its owner; with equal shards the
-mean of the ranks' local means is the global mean.  The metrics and the
+Under a spatial axis (the nets whose class declares ``spatial_ready``) the
+ranks of a spatial group take the same items, and each feeds the net its
+rows of the image arrays (LR and HR; the phase code goes whole): the
+net's convs exchange their halos (``parallel/halo.py``) and each rank's
+losses are over its rows.  DDP averages the gradients over every rank, the
+halos' backward having returned each borrowed row's gradient to its
+owner; with equal shards the mean of the ranks' local means is the global
+mean.  A training BatchNorm reduces over the ranks holding the step's
+other rows and items (``Mesh.statistics_group``).  The metrics and the
 display see the outputs and targets gathered whole; the logged values are
 averaged over every rank.  A height the spatial size does not divide is
 computed whole on every rank of the group (warned once).
@@ -348,9 +351,11 @@ class BaseTrainer:
         the target and the losses are this rank's rows'."""
         batch, axis = self._shard_rows(batch)
         batch = self._feed(batch)
-        sharded = training and self.mesh is not None and getattr(
-            self.train_dataloader, "sharded", False)
-        with batch_norm_group(self.mesh.data_group if sharded else None):
+        group = None
+        if training and self.mesh is not None:
+            group = self.mesh.statistics_group(getattr(self.train_dataloader, "sharded", False),
+                                               axis is not None)
+        with batch_norm_group(group):
             outputs = casting.forward_in(self.model, self._step_dtype,
                                          *self._model_inputs(batch), state=state)
         target = self._targets(batch)

@@ -104,11 +104,11 @@ def _ops(net, x) -> int:
 
     plain_resize, plain_contract = resize._resize, deform_conv._contract
 
-    def counted_resize(y, out_hw, align_corners, kind):  # rows, then columns
+    def counted_resize(y, out_hw, align_corners, kind, axis=None):  # rows, then columns
         nonlocal total
         hh, ww = y.shape[-3], y.shape[-2]
         total += 2 * (y.numel() // (hh * ww)) * (out_hw[0] * hh * ww + out_hw[0] * out_hw[1] * ww)
-        return plain_resize(y, out_hw, align_corners, kind)
+        return plain_resize(y, out_hw, align_corners, kind, axis)
 
     def counted_contract(col, weight, bias, g):  # the DCN's (Cout, C·K) @ col GEMM
         nonlocal total

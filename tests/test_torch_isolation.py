@@ -112,15 +112,23 @@ def test_deferred_knobs_at_their_defaults_and_telemetry_are_accepted():
 
 def test_parallel_section_raises(tmp_path):
     """A mesh of several devices runs (``tests/test_torch_parallel*.py``),
-    the spatial axis for RefineNet too (``tests/test_torch_spatial.py``);
-    for the other nets it is still to port (ROADMAP item 10c)."""
-    cfg = Cfg({"main": {"saved_dir": str(tmp_path)},
-               "parallel": {"num_devices": 2, "spatial_parallel": 2},
-               "net": {"name": "EDSRNet", "kwargs": {}},
-               "predictor": {"name": "AcdcSISRPredictor", "kwargs": {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="parallel.*EDSRNet.*10c"):
+    the spatial axis for RefineNet and the nets a bounded halo reaches too
+    (``tests/test_torch_spatial.py``, ``tests/test_torch_spatial_zoo.py``);
+    for the warping and deformable nets it is still to port (ROADMAP item
+    10c)."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
+        _check_parallel,
+    )
+
+    section = {"num_devices": 2, "spatial_parallel": 2}
+    cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "parallel": section,
+               "net": {"name": "TOFlowNet", "kwargs": {}},
+               "predictor": {"name": "AcdcMISRPredictor", "kwargs": {"device": "cpu"}}})
+    with pytest.raises(NotImplementedError, match="parallel.*TOFlowNet.*10c"):
         run_port_test(cfg)
     assert not (tmp_path / "config.yaml").exists()  # raised before any work
+    cfg["net"] = {"name": "EDSRNet", "kwargs": {}}
+    assert _check_parallel(cfg, torch.device("cpu")) == section
 
 
 @pytest.mark.parametrize("device", [None, "cuda:0", "cuda"])
@@ -223,19 +231,21 @@ def test_ported_trainer_knobs_are_accepted(knob, value):
 def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
     """On the card: as many devices as are visible run (``main.run`` spawns
     a rank each), more raise the JAX package's ``ValueError``; the spatial
-    axis runs RefineNet and raises ``NotImplementedError`` for the other
-    nets (ROADMAP item 10c)."""
+    axis runs RefineNet and the nets a bounded halo reaches (DUFNet among
+    them) and raises ``NotImplementedError`` for EDVRNet, TOFlowNet and
+    FRVSRNet (ROADMAP item 10c)."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
-    cfg = Cfg({"parallel": parallel, "net": {"name": "DUFNet"}})
+    cfg = Cfg({"parallel": parallel, "net": {"name": "EDVRNet"}})
     if error is None:
         assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
     else:
-        with pytest.raises(error, match="num_devices" if error is ValueError else "DUFNet.*10c"):
+        with pytest.raises(error, match="num_devices" if error is ValueError else "EDVRNet.*10c"):
             _check_parallel(cfg, torch.device("cuda:0"))
     if error is NotImplementedError:
-        cfg = Cfg({"parallel": parallel, "net": {"name": "RefineNet"}})
-        assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
+        for net in ("RefineNet", "DUFNet"):
+            cfg = Cfg({"parallel": parallel, "net": {"name": net}})
+            assert _check_parallel(cfg, torch.device("cuda:0")) == parallel

@@ -266,10 +266,12 @@ def test_cuda_oversubscription_raises(monkeypatch):
 @pytest.mark.parametrize("test", [False, True], ids=["train", "test"])
 def test_spatial_axis_and_pad_h_name_item_10b(section, test):
     """Item 10b is ported: both sections pass ``main``'s checks for
-    RefineNet (``tests/test_torch_spatial.py`` runs them); under
-    ``spatial_parallel > 1`` another net raises ``NotImplementedError``
-    naming item 10c before any rank starts, while ``pad_h`` alone (a no-op
-    without a spatial axis) is accepted for any net."""
+    RefineNet (``tests/test_torch_spatial.py`` runs them) and for the nets
+    a bounded halo reaches, EDSRNet among them
+    (``tests/test_torch_spatial_zoo.py``); under ``spatial_parallel > 1`` a
+    warping net raises ``NotImplementedError`` naming item 10c before any
+    rank starts, while ``pad_h`` alone (a no-op without a spatial axis) is
+    accepted for any net."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
@@ -281,8 +283,10 @@ def test_spatial_axis_and_pad_h_name_item_10b(section, test):
                     "kwargs": {"device": "cpu"}}}
     assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
     cfg["net"] = {"name": "EDSRNet", "kwargs": {}}
+    assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
+    cfg["net"] = {"name": "FRVSRNet", "kwargs": {}}
     if section.get("spatial_parallel", 1) > 1:
-        with pytest.raises(NotImplementedError, match="EDSRNet.*10c"):
+        with pytest.raises(NotImplementedError, match="FRVSRNet.*10c"):
             run(Cfg(cfg), test)
     else:
         assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section

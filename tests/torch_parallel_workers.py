@@ -29,7 +29,9 @@ from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.
 )
 from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.trainers import (
     MISRTrainer,
+    SISRSRFBTrainer,
     VSRRefineNetTrainer,
+    VSRTrainer,
 )
 
 
@@ -51,10 +53,10 @@ def train_steps(kind: str, net_state: dict, net_kwargs: dict, items: list, batch
                 model_parallel: int = 1, onednn: bool = True, spatial_parallel: int = 1,
                 **trainer_kwargs) -> dict:
     """One epoch over ``items`` (batches of ``batch``, in order) of the
-    RefineNet (``kind='refine'``) or DUF (``'duf'``) trainer from the
-    weights ``net_state``, under a mesh of ``world`` ranks, ``model_parallel``
-    of them a model group or ``spatial_parallel`` a spatial group (None: no
-    mesh), with oneDNN's convs or without them (its bf16 convs keep no fp32
+    RefineNet (``kind='refine'``), DUF (``'duf'``), SRFB (``'srfb'``) or
+    DRF (``'drf'``) trainer from the weights ``net_state``, under a mesh
+    of ``world`` ranks, ``model_parallel`` of them a model group or
+    ``spatial_parallel`` a spatial group (None: no mesh), with oneDNN's convs or without them (its bf16 convs keep no fp32
     sum) → the epoch's train log, the net's state and the data-axis
     warnings issued."""
     with torch.backends.mkldnn.flags(enabled=onednn):
@@ -65,20 +67,23 @@ def train_steps(kind: str, net_state: dict, net_kwargs: dict, items: list, batch
 def _train_steps(kind, net_state, net_kwargs, items, batch, world, optimizer, model_parallel,
                  spatial_parallel=1, save_to=None, **trainer_kwargs):
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (
+        DRFNet,
         DUFNet,
         RefineNet,
+        SRFBNet,
     )
 
     mesh = make_mesh(world, model_parallel, spatial_parallel) if world else None
     net_cls, trainer_cls = {"refine": (RefineNet, VSRRefineNetTrainer),
-                            "duf": (DUFNet, MISRTrainer)}[kind]
+                            "duf": (DUFNet, MISRTrainer), "srfb": (SRFBNet, SISRSRFBTrainer),
+                            "drf": (DRFNet, VSRTrainer)}[kind]
     net = net_cls(**net_kwargs)
     net.load_state_dict(net_state, strict=True)
     loader = Dataloader(ListDataset(items), batch_size=batch, shuffle=False)
     name, kwargs = optimizer
     trainer = trainer_cls(
         device="cpu", train_dataloader=loader, valid_dataloader=loader, net=net,
-        loss_fns=[PL.L1Loss() if kind == "refine" else PL.MSELoss()], loss_weights=[1.0],
+        loss_fns=[PL.MSELoss() if kind == "duf" else PL.L1Loss()], loss_weights=[1.0],
         metric_fns=[PM.PSNR()], optimizer=Optimizer(name, **kwargs), num_epochs=1,
         mesh=mesh, telemetry=False, **trainer_kwargs)
     mesh_mod._WARNED.clear()
@@ -215,6 +220,128 @@ def spatial_knobs(net_state: dict, net_kwargs: dict, items: list, poisoned: list
         "skip": _train_steps("refine", net_state, net_kwargs, poisoned, batch, world,
                              ("SGD", {"lr": 1e-2, "skip_nonfinite": 3}), 1, spatial),
     }
+
+
+# ---------------------------------------------- the spatial axis of the zoo
+def zoo_halo_errors(seed: int = 0) -> dict:
+    """Over every rank of the group, against the whole op on each rank, the
+    largest error of any rank: the strided ``halo_conv2d`` and
+    ``halo_conv_transpose2d`` at each ``PROJ_PARAMS`` factor (output, input
+    gradient, weight gradient summed over the ranks; float64, 2 LR rows a
+    rank), and the band resizes of ``ops/resize.py`` (bilinear
+    ``align_corners=False``, bicubic ``align_corners=True``, ×2, ×3, ×4)
+    at 2 rows and 1 row a rank, with the halo each took (None: gathered)."""
+    import torch.distributed as dist
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.common import (
+        PROJ_PARAMS,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        resize,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel.halo import (
+        SpatialAxis,
+        halo_conv2d,
+        halo_conv_transpose2d,
+    )
+
+    S, i = dist.get_world_size(), dist.get_rank()
+    axis = SpatialAxis(dist.new_group(list(range(S))), S, i)
+    gen = torch.Generator().manual_seed(seed)
+    errors, halos = {}, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    def band(t, rows, dim=-2):
+        index = [slice(None)] * t.dim()
+        index[dim] = slice(i * rows, (i + 1) * rows)
+        return t[tuple(index)]
+
+    for r, (k, s, p) in PROJ_PARAMS.items():
+        L = 2  # LR rows a rank
+        for name, op, rows_in, rows_out, w, width in (
+                ("conv", lambda x, w, b, a: halo_conv2d(x, w, b, p, a, s), s * L, L,
+                 randn(4, 3, k, k), 2 * s),
+                ("deconv", lambda x, w, b, a: halo_conv_transpose2d(x, w, b, s, p, a), L, s * L,
+                 randn(3, 4, k, k), 3)):
+            x, b = randn(2, 3, S * rows_in, width), randn(4)
+            xw, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+            whole = op(xw, ww, b, None)
+            dy = randn(*whole.shape)
+            whole.backward(dy)
+            xl, wl = band(x, rows_in).contiguous().requires_grad_(), w.clone().requires_grad_()
+            yl = op(xl, wl, b, axis)
+            yl.backward(band(dy, rows_out))
+            dw = wl.grad.clone()
+            dist.all_reduce(dw)
+            errors[f"{name} x{r}"] = {
+                "out": (yl - band(whole.detach(), rows_out)).abs().max().item(),
+                "dx": (xl.grad - band(xw.grad, rows_in)).abs().max().item(),
+                "dw": (dw - ww.grad).abs().max().item()}
+    for rows in (2, 1):
+        for kind, fn, ac in (("bilinear", resize.upsample_bilinear, False),
+                             ("bicubic", resize.upsample_bicubic, True)):
+            for r in (2, 3, 4):
+                x = torch.randn(2, S * rows, 5, 2, generator=gen)
+                whole = fn(x, r, ac)
+                got = fn(band(x, rows, -3).contiguous(), r, ac, axis=axis)
+                key = f"{kind} x{r} {rows} rows"
+                errors[key] = {"out": (got - band(whole, rows * r, -3)).abs().max().item()}
+                halos[key] = resize.band_plan(S * rows, S * rows * r, ac,
+                                              "linear" if kind == "bilinear" else "cubic", S)[0]
+    everyone = [None] * S
+    dist.all_gather_object(everyone, errors)
+    return {"errors": {name: {k: max(e[name][k] for e in everyone) for k in errors[name]}
+                       for name in errors}, "halos": halos}
+
+
+def zoo_forward(name: str, net_kwargs: dict, net_state: dict, lr: np.ndarray,
+                spatial: int) -> dict:
+    """The net ``name``'s outputs (each step's, for the feedback nets) on a
+    (data, spatial) mesh of every rank: each rank its data slice's rows,
+    the rows gathered whole → rank 0's slice of the batch, stacked over the
+    outputs, and the halo exchanges of the forward."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        batch_slice,
+        gather_rows,
+        halo,
+        shard_spatially,
+        spatial_rows,
+        take_rows,
+    )
+
+    mesh = make_mesh(None, spatial_parallel=spatial)
+    net = getattr(models, name)(**net_kwargs)
+    net.load_state_dict(net_state, strict=True)
+    shard_spatially(net.eval(), mesh.spatial_axis)
+    lr = lr[batch_slice(len(lr), mesh)]
+    halo.reset_exchanges()
+    with torch.no_grad():
+        out = net(torch.from_numpy(take_rows(lr, spatial_rows(lr.shape, mesh))))
+    outs = out if isinstance(out, list) else [out]
+    return {"out": np.stack([gather_rows(o, mesh.spatial_axis).numpy() for o in outs]),
+            "exchanges": dict(halo.EXCHANGES)}
+
+
+def zoo_steps(kind: str, net_state: dict, net_kwargs: dict, items: list, batch: int,
+              spatial: int, optimizer: tuple, remat: tuple = (False,)) -> dict:
+    """One epoch of the ``kind`` trainer (``train_steps``) on a (data,
+    spatial) mesh of every rank, once per ``remat`` setting → each one's
+    log, state, warnings and halo exchanges."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import (
+        halo,
+    )
+
+    out = {}
+    for flag in remat:
+        halo.reset_exchanges()
+        kwargs = {**net_kwargs, "remat": True} if flag else net_kwargs
+        out[flag] = _train_steps(kind, net_state, kwargs, items, batch,
+                                 torch.distributed.get_world_size(), optimizer, 1, spatial)
+        out[flag]["exchanges"] = dict(halo.EXCHANGES)
+    return out
 
 
 def predict_from_config(cfg: dict) -> dict:
