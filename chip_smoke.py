@@ -16,8 +16,9 @@ hand-written kernel; then EDVR ×4 with the deformable conv's three
 hand-written kernels, each held against its plain version; then the
 serving daemon, the parallel runs and the training remainders; then the
 offline data pipeline, the flagship trained from scratch against Bicubic,
-the DSB15 external eval, and the spatial axis of the flagship and of the
-zoo.  Phases, one or more lines each; any failure
+the DSB15 external eval, and the spatial axis of the flagship, of the zoo
+and of the warping and deformable nets.  Phases, one or more lines each;
+any failure
 exits non-zero and no result is printed:
 
 1. device: ``nvidia-smi`` name and power limit, the torch device name;
@@ -272,10 +273,28 @@ exits non-zero and no result is printed:
     item (``zoo_exchanges``: EDSR 69, SRFB 58, DRF-SISR 61, Bicubic 1, DUF
     9, RBPN 285, DRF 1 + 15 a frame); one step of
     ``train/{srfb_net,duf_net}/exp1_x4.yaml`` on a tree of one batch against
-    the same step at world 1 from the same weights (losses and running
-    statistics 1e-5, the step's gradient from Adam's first moment in norm,
-    ``TOL_ZOO_GRAD``); no gate or DCN launch.
-    ms an item and a step are printed as correctness only.
+    the same step at world 1 from the same weights, with the YAML's Adam
+    (losses and running statistics 1e-5, the step's gradient from Adam's
+    first moment in norm, ``TOL_ZOO_GRAD``) and with SGD (losses,
+    parameters and running statistics 1e-5); DUF's gradient through each
+    BatchNorm path against a float64 step (``duf_batch_norm_precision``);
+    no gate or DCN launch.  ms an item and a step are printed as
+    correctness only.
+36. the spatial axis of TOFlow, FRVSR and EDVR, on the same two gloo ranks:
+    first the three DCN kernels on a band with its window rows and a
+    negative row origin, and on the whole frame read from a band's first
+    row, each against its plain version at that geometry (fp32 and bf16)
+    and the band's im2col against the whole frame's; then each net's test
+    YAML and its ``_tpu`` knobs (bf16, ``max_flow: 4`` / ``dcn_max_offset:
+    2``) at full width with the seeded weights of phases 15, 17 and 20 on
+    phase 35's slice, each against its meshless run (``TOL_ZOO_LOG`` and
+    ``TOL_ZOO_SR``; the bf16 SSIMs ``TOL_VIDEO_BF16_SSIM`` absolute and
+    FRVSR ``_tpu``'s SR ``TOL_VIDEO_FRVSR_BF16_SR``, each between its sound
+    and its faulted reading; the windowed runs' telemetry), with the halo exchanges, whole-frame gathers, DCN launches
+    and DCN operands ``video_counts`` predicts; one SGD step of each
+    family's train YAML (``edvr_net/exp1_x4_tpu.yaml`` too) against world 1
+    (losses, parameters, running statistics).  ms an item and a step are
+    printed as correctness only.
 
 Phase 4 also checks the data path's native NIfTI reader
 (``utils/native_io.py``, built by g++ at first use): it is enabled, it
@@ -3245,23 +3264,31 @@ def zoo_exchanges(name: str, kwargs: dict, frames: int) -> int:
 TOL_ZOO_LOG = 1e-4
 TOL_ZOO_SR = 1e-5
 # one step of a train YAML on the spatial mesh against world 1, both from
-# the same checkpoint: the train loss, the valid loss of the stepped net
-# and the BatchNorm running statistics relative (phase 27's bound), and
-# the step's gradient, read back from Adam's first moment in each
-# checkpoint (exp_avg = (1 - beta1)·g after one step), relative in norm.
-# Not the stepped parameters: Adam's first step moves an element by
-# lr·g/(|g| + 1e-8), so an element whose gradient is near 1e-8 (a sum whose
-# terms cancel; a direction a training BatchNorm leaves flat) carries the
-# rounding of g into the step at up to 1/4 of its error over 1e-8 (an
+# the same checkpoint, twice: with the YAML's Adam and with SGD (phases 27
+# and 34's optimizer).  The SGD step bounds the train loss, the valid loss of
+# the stepped net, the stepped parameters (the largest difference relative
+# to the largest parameter) and the BatchNorm running statistics (phase 27's
+# bound).  Its update in norm is printed only: the stepped parameters'
+# fp32 rounding (~1e-9 an element) weighs against lr times the gradient (the
+# CPU rehearsal: DUF's 2.1e-4 apart with its gradients 8.9e-7 apart).  The Adam step bounds
+# the losses, the statistics and the step's gradient, read back from Adam's
+# first moment in each checkpoint (exp_avg = (1 - beta1)·g after one step),
+# relative in norm; not its parameters: Adam's first step moves an element
+# by lr·g/(|g| + 1e-8), so an element whose gradient is near 1e-8 (a sum
+# whose terms cancel; a direction a training BatchNorm leaves flat) carries
+# the rounding of g into the step at up to 1/4 of its error over 1e-8 (an
 # H100 run: SRFB's losses bit-equal, its update 2.8e-4 apart in norm and
-# 0.108 lr in one element; PERF.md section 5); those are the directions the
-# loss does not see, which the valid loss of the stepped net weighs.
-# DUF's bound is wider: world 1 normalises with ATen's BatchNorm, whose fp32
-# backward is 5.5e-4 from float64 on DUF's gradient on the CPU, against
-# 7.8e-7 for the reduced BatchNorm of models/common.py (CPU rehearsal:
-# 1.1e-3 apart; SRFB, with no BatchNorm, 4.9e-7)
+# 0.108 lr in one element; PERF.md section 5).
 TOL_ZOO_STEP = 1e-5
-TOL_ZOO_GRAD = {"SRFBNet": 1e-4, "DUFNet": 1e-2}
+ZOO_SGD_LR = 1e-2
+# the Adam step's gradient against world 1's, relative in norm.  DUF's is
+# wider than SRFB's: world 1 normalises with ATen's BatchNorm, the spatial
+# ranks with the reduced one of models/common.py, and each fp32 backward
+# differs from the float64 gradient (duf_batch_norm_precision measures both
+# on the card: 9.084e-4 and 9.961e-4 on an H100 80GB HBM3 at 700 W, the two
+# 7.526e-4 apart); two gradients each within those of float64 are within
+# their sum, 1.9e-3, of each other (measured 4.591e-4)
+TOL_ZOO_GRAD = {"SRFBNet": 1e-4, "DUFNet": 2e-3}
 
 
 def zoo_eval_config(tree: dict, name: str, ckpt: Path, saved_dir: Path, dev) -> dict:
@@ -3308,7 +3335,7 @@ def _first_sr(pred):
 
 
 def spatial_zoo_rank(eval_cfgs: dict, train_cfgs: dict, device: str) -> dict:
-    """Phase 35's rank: ``SPATIAL`` gloo ranks on cuda:0 as one spatial
+    """Phases 35 and 36's rank: ``SPATIAL`` gloo ranks on cuda:0 as one spatial
     group; each net's test YAML through ``main.test_from_config`` and its
     first item's gathered SR; then one step of each train YAML through
     ``main.train_from_config``.  Rank 0's results come back."""
@@ -3334,24 +3361,28 @@ def spatial_zoo_rank(eval_cfgs: dict, train_cfgs: dict, device: str) -> dict:
     out = {"backend": torch.distributed.get_backend(), "eval": {}, "train": {}}
 
     def path(fn):
-        """``fn()`` with the kernels' counts and the halo exchanges set to 0
-        just before it and read just after it → (its result, its record)."""
+        """``fn()`` with the kernels' counts, the halo exchanges and gathers
+        and the DCN's spatial calls set to 0 just before it and read just
+        after it → (its result, its record)."""
         reset_launches(lstm_gates)
         deform_conv.reset_launches()
         halo.reset_exchanges()
+        deform_conv.SPATIAL_CALLS.update(band=0, frame=0)
         mesh_mod._WARNED.clear()
         sync()
         t0 = time.perf_counter()
         result = fn()
         sync()
         return result, {"wall_s": time.perf_counter() - t0, "exchanges": dict(halo.EXCHANGES),
+                        "gathers": dict(halo.GATHERS), "dcn_calls": dict(deform_conv.SPATIAL_CALLS),
                         "launches": launches(lstm_gates), "dcn_launches": dcn_launches(deform_conv),
                         "warned": sorted(k[0] for k in mesh_mod._WARNED)}
 
     for name, cfg in eval_cfgs.items():
         pred, record = path(lambda: port_main.test_from_config(Cfg(cfg)))
         record.update(log=pred.log, mesh=dict(pred.mesh.shape), frames=pred.throughput["frames"],
-                      item_ms=[x * 1e3 for x in pred.item_seconds], sr=_first_sr(pred))
+                      item_ms=[x * 1e3 for x in pred.item_seconds], sr=_first_sr(pred),
+                      telemetry=pred.telemetry_summary)
         out["eval"][name] = record
         del pred
     for name, cfg in train_cfgs.items():
@@ -3360,6 +3391,65 @@ def spatial_zoo_rank(eval_cfgs: dict, train_cfgs: dict, device: str) -> dict:
                       steps_per_sec=trainer.throughput.get("train_steps_per_sec"))
         out["train"][name] = record
         del trainer
+    return out
+
+
+def duf_batch_norm_precision(ckpt: Path, dev) -> dict:
+    """DUF's training gradient on the card through each BatchNorm path of
+    phase 35's Adam step, against the same gradient in float64 (ATen's
+    BatchNorm): world 1's ATen BatchNorm and the spatial ranks' reduced one
+    (``models/common.global_batch_norm``, here in a group of one), both in
+    fp32 without TF32, on one train batch of the DUF YAML's shape (12
+    windows of 7 LR frames 32x32, seeded) with its Huber loss → each path's
+    gradient relative to the float64 one in norm, and to each other."""
+    import torch
+    import torch.distributed as dist
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import (
+        losses as port_losses,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import DUFNet
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models.common import (
+        batch_norm_group,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import distributed
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+
+    batch = MISR_TRAIN["DUFNet"][0]
+    gen = torch.Generator().manual_seed(35)
+    lr = torch.randn(batch, MISR_T, PATCH, PATCH, 1, generator=gen)
+    hr = torch.randn(batch, PATCH * SCALE, PATCH * SCALE, 1, generator=gen)
+    loss_fn = port_losses.HuberLoss(delta=0.01)
+    state = load_checkpoint(ckpt)["net"]
+
+    def gradient(dtype, group=None):
+        net = DUFNet(**MISR_NETS["DUFNet"]).to(dev)
+        net.load_state_dict(state)
+        net = net.to(dtype).train()
+        with batch_norm_group(group):
+            loss = loss_fn(net(lr.to(dev, dtype)), hr.to(dev, dtype))
+        loss.backward()
+        return torch.cat([p.grad.flatten().double() for p in net.parameters()])
+
+    g64 = gradient(torch.float64)
+    aten = gradient(torch.float32)
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{distributed.free_port()}")
+    try:
+        reduced = gradient(torch.float32, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    out = {"aten_fp32_vs_fp64": ((aten - g64).norm() / g64.norm()).item(),
+           "reduced_fp32_vs_fp64": ((reduced - g64).norm() / g64.norm()).item(),
+           "aten_vs_reduced": ((aten - reduced).norm() / reduced.norm()).item()}
+    log("spatial zoo", f"DUF's training gradient (batch {batch}, full width) in fp32 against "
+                       f"float64, relative in norm: world 1's ATen BatchNorm "
+                       f"{out['aten_fp32_vs_fp64']:.3e}, the reduced BatchNorm of the spatial "
+                       f"ranks {out['reduced_fp32_vs_fp64']:.3e}; the two apart "
+                       f"{out['aten_vs_reduced']:.3e} (the Adam step's bound "
+                       f"{TOL_ZOO_GRAD['DUFNet']})")
     return out
 
 
@@ -3406,21 +3496,25 @@ def spatial_zoo_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line)
         eval_cfgs[name] = cfg
     train_cfgs, reference = {}, {}
     # a tree of one batch each (SRFB 16 frames, DUF 12 windows); its valid
-    # clip as long
+    # clip as long; the YAML's Adam step, then an SGD step
     batches = {"SRFBNet": TRAIN_BATCH, "DUFNet": MISR_TRAIN["DUFNet"][0]}
     for name in ZOO_TRAIN:
         items = batches[name]
         small = write_acdc_tree(tmp / f"zoo_train_{name}", {"train": (1, 1), "valid": (1, 1)},
                                 cycle=items, hr=HR, scale=SCALE, seed=35)
-        cfg = zoo_train_config(small, name, starts[name], tmp / f"zoo_train_{name}_world1", dev)
-        trainer = port_main.train_from_config(Cfg(cfg))
-        ckpt = load_checkpoint(tmp / f"zoo_train_{name}_world1" / "checkpoints" / "model_1.pth")
-        reference[name] = {"history": trainer.history, "state": ckpt["net"],
-                           "optimizer": ckpt["optimizer"]}
-        del trainer
-        cfg = zoo_train_config(small, name, starts[name], tmp / f"zoo_train_{name}_spatial", dev)
-        cfg["parallel"] = parallel
-        train_cfgs[name] = cfg
+        for key in (name, f"{name}_sgd"):
+            cfgs = [zoo_train_config(small, name, starts[name], tmp / f"zoo_train_{key}_{where}",
+                                     dev) for where in ("world1", "spatial")]
+            if key.endswith("_sgd"):
+                for cfg in cfgs:
+                    cfg["optimizer"] = {"name": "SGD", "kwargs": {"lr": ZOO_SGD_LR}}
+            trainer = port_main.train_from_config(Cfg(cfgs[0]))
+            ckpt = load_checkpoint(tmp / f"zoo_train_{key}_world1" / "checkpoints" / "model_1.pth")
+            reference[key] = {"history": trainer.history, "state": ckpt["net"],
+                              "optimizer": ckpt["optimizer"]}
+            del trainer
+            cfgs[1]["parallel"] = parallel
+            train_cfgs[key] = cfgs[1]
     deterministic_cudnn(torch, before[0])
     torch.backends.cudnn.benchmark = before[1]
     t0 = time.perf_counter()
@@ -3462,14 +3556,15 @@ def spatial_zoo_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line)
                                  "exchanges": got["exchanges"], "item_ms": ms,
                                  "meshless_item_ms": ms_meshless, "items": items,
                                  "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
-    for name in ZOO_TRAIN:
+    for key in train_cfgs:
+        name, sgd = key.removesuffix("_sgd"), key.endswith("_sgd")
         items = batches[name]
-        got, want = ranks["train"][name], reference[name]
-        ckpt = load_checkpoint(tmp / f"zoo_train_{name}_spatial" / "checkpoints" / "model_1.pth")
+        got, want = ranks["train"][key], reference[key]
+        ckpt = load_checkpoint(tmp / f"zoo_train_{key}_spatial" / "checkpoints" / "model_1.pth")
         state, got_opt = ckpt["net"], ckpt["optimizer"]
         loss_rel = {split: abs(got["history"][split][0]["Loss"] - want["history"][split][0]["Loss"])
                     / abs(want["history"][split][0]["Loss"]) for split in ("train", "valid")}
-        lr = train_cfgs[name]["optimizer"]["kwargs"]["lr"]
+        lr = train_cfgs[key]["optimizer"]["kwargs"]["lr"]
         start = load_checkpoint(starts[name])["net"]
         floats = [k for k, v in want["state"].items() if v.is_floating_point()]
         params = [k for k in floats if "running" not in k]
@@ -3477,9 +3572,11 @@ def spatial_zoo_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line)
         update = torch.cat([(want["state"][k] - start[k]).flatten() for k in params])
         update_rel = (gap.norm() / update.norm()).item()
         param_lr = gap.abs().max().item() / lr
-        grads = [torch.cat([m["exp_avg"].flatten() for _, m in sorted(opt["state"].items())])
-                 for opt in (got_opt, want["optimizer"])]
-        grad_rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+        # the largest parameter difference relative to the largest parameter
+        # (not each tensor's own largest element: a BatchNorm bias steps by
+        # an ill-conditioned sum of terms that cancel, whose rounding is
+        # large against its own ~1e-6 value)
+        param_rel = (gap.abs().max() / max(want["state"][k].abs().max() for k in params)).item()
         stats_rel = max([((state[k] - want["state"][k]).abs().max()
                           / want["state"][k].abs().max().clamp_min(1e-12)).item()
                          for k in floats if "running" in k], default=0.0)
@@ -3489,32 +3586,510 @@ def spatial_zoo_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line)
         # valid epoch's forwards
         want_exchanges = {"forward": per_item * (1 + items), "backward": per_item - 2}
         step_ms = 1e3 / got["steps_per_sec"]
-        log("spatial zoo", f"one step of {name}'s train YAML (batch {items}) on mesh "
-                           f"{got['mesh']}: train and valid loss relative to world 1's "
-                           f"{loss_rel['train']:.3e}, {loss_rel['valid']:.3e}, running "
+        if sgd:
+            what = (f"parameters within {param_rel:.3e} of the largest parameter (tol "
+                    f"{TOL_ZOO_STEP}; SGD at {lr}), the update (lr times the gradient) "
+                    f"{update_rel:.3e} apart in norm (not bounded: the fp32 rounding of the "
+                    f"stepped parameters, ~1e-9 an element, weighs against a small update)")
+            ok = param_rel <= TOL_ZOO_STEP
+            grad_rel = None
+        else:
+            grads = [torch.cat([m["exp_avg"].flatten() for _, m in sorted(opt["state"].items())])
+                     for opt in (got_opt, want["optimizer"])]
+            grad_rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+            what = (f"the step's gradient within {grad_rel:.3e} of world 1's in norm (tol "
+                    f"{TOL_ZOO_GRAD[name]}); its Adam update {update_rel:.3e} apart in norm "
+                    f"(|update| {update.norm().item():.4g}), {param_lr:.3e} of the learning rate "
+                    f"{lr} in its largest element (not bounded)")
+            ok = grad_rel <= TOL_ZOO_GRAD[name]
+        log("spatial zoo", f"one {'SGD' if sgd else 'Adam'} step of {name}'s train YAML (batch "
+                           f"{items}) on mesh {got['mesh']}: train and valid loss relative to "
+                           f"world 1's {loss_rel['train']:.3e}, {loss_rel['valid']:.3e}, running "
                            f"statistics {stats_rel:.3e} of their largest element (tol "
-                           f"{TOL_ZOO_STEP}); the step's gradient within {grad_rel:.3e} of "
-                           f"world 1's in norm (tol {TOL_ZOO_GRAD[name]}); its update "
-                           f"{update_rel:.3e} apart in norm (|update| {update.norm().item():.4g}), "
-                           f"{param_lr:.3e} of the learning rate {lr} in its largest element; "
-                           f"halo exchanges {got['exchanges']} (predicted "
-                           f"{want_exchanges}); {step_ms:.1f} ms a step, the epoch with its "
-                           f"valid clip {got['wall_s']:.2f} s; {note}")
+                           f"{TOL_ZOO_STEP}); {what}; halo exchanges {got['exchanges']} "
+                           f"(predicted {want_exchanges}); {step_ms:.1f} ms a step, the epoch "
+                           f"with its valid clip {got['wall_s']:.2f} s; {note}")
         if got["mesh"] != {"data": 1, "spatial": SPATIAL} or got["warned"]:
-            raise AssertionError(f"{name}'s step ran on {got['mesh']}, warned {got['warned']}")
-        if not (max(*loss_rel.values(), stats_rel) <= TOL_ZOO_STEP
-                and grad_rel <= TOL_ZOO_GRAD[name]):
-            raise AssertionError(f"{name}'s step disagrees with world 1: {loss_rel}, {stats_rel}, "
-                                 f"{grad_rel}")
+            raise AssertionError(f"{key}'s step ran on {got['mesh']}, warned {got['warned']}")
+        if not (max(*loss_rel.values(), stats_rel) <= TOL_ZOO_STEP and ok):
+            raise AssertionError(f"{key}'s step disagrees with world 1: {loss_rel}, {stats_rel}, "
+                                 f"{param_rel if sgd else grad_rel}")
         if got["exchanges"] != want_exchanges or any(got["launches"]) or any(got["dcn_launches"]):
-            raise AssertionError(f"{name}'s step exchanged {got['exchanges']} (predicted "
+            raise AssertionError(f"{key}'s step exchanged {got['exchanges']} (predicted "
                                  f"{want_exchanges}), launched {got['launches']}")
-        results["train"][name] = {"loss_rel": loss_rel, "stats_rel": stats_rel,
-                                  "grad_rel": grad_rel, "update_rel": update_rel,
-                                  "param_lr": param_lr,
-                                  "exchanges": got["exchanges"], "step_ms": step_ms,
-                                  "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+        results["train"][key] = {"loss_rel": loss_rel, "stats_rel": stats_rel,
+                                 "grad_rel": grad_rel, "param_rel": param_rel,
+                                 "update_rel": update_rel, "param_lr": param_lr,
+                                 "exchanges": got["exchanges"], "step_ms": step_ms,
+                                 "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+    results["duf_batch_norm"] = duf_batch_norm_precision(starts["DUFNet"], dev)
     log("spatial zoo", f"phase 35 in {wall:.1f} s with the ranks' start")
+    results.update(wall_s=wall, card=card_line)
+    return results
+
+
+# ------------------- 36 the spatial axis of the warping and deformable nets
+def _resize_count(in_rows: int, out_rows: int, align_corners: bool, kind: str,
+                  spatial: int) -> tuple[int, int]:
+    """(exchanges, gathers) of one band resize of a frame of ``in_rows`` rows
+    to ``out_rows``: a halo, or the frame gathered whole when the halo
+    exceeds a band (``ops/resize.band_plan``)."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops.resize import (
+        band_plan,
+    )
+
+    return (1, 0) if band_plan(in_rows, out_rows, align_corners, kind, spatial)[0] is not None \
+        else (0, 1)
+
+
+def _window_count(rows: int, window: int | None, spatial: int) -> tuple[int, int]:
+    """(exchanges, gathers) of a warp or a DCN over a frame of ``rows`` rows
+    whose band reads ``window`` rows past its own (None: unbounded): a halo
+    while the band can lend it, else the frame gathered whole."""
+    return (1, 0) if window is not None and window <= rows // spatial else (0, 1)
+
+
+def video_counts(name: str, kwargs: dict, lr_hw: tuple[int, int], frames: int, spatial: int,
+                 train: bool = False) -> dict:
+    """The halo exchanges and whole-frame gathers (``parallel/halo``'s
+    ``EXCHANGES`` and ``GATHERS``) of one forward of TOFlowNet, FRVSRNet or
+    EDVRNet over an item (a window; FRVSR a clip of ``frames``) of LR
+    ``lr_hw`` on ``spatial`` ranks, and with ``train`` of the training
+    forward and its backward → {"forward": (exchanges, gathers),
+    "backward": (...)}.  One exchange a conv with an H window, one a pool
+    pair, one a band resize (or a gather, ``_resize_count``), one a warp or
+    a DCN (a gather when unbounded or wider than a band,
+    ``_window_count``); a backward for each of those whose input carries a
+    gradient (not the LR input's, not a warp's image)."""
+    S = spatial
+    fwd, bwd = [0, 0], [0, 0]
+
+    def add(acc, counts, n=1):
+        acc[0] += counts[0] * n
+        acc[1] += counts[1] * n
+
+    conv = (1, 0)
+    h, w = lr_hw
+    if name == "TOFlowNet":
+        from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops.warp import (
+            _ceil_div,
+        )
+
+        r, R = kwargs["upscale_factor"], kwargs.get("max_flow")
+        H, W = (-(-v * r // 16) * 16 for v in (h, w))
+
+        def warp(rows, cols):
+            if R is None:
+                return (0, 1)
+            win = max(_ceil_div(2 * R * cols + cols - 1, 2 * cols - 2),
+                      _ceil_div(2 * R * rows + rows - 1, 2 * rows - 2))
+            return _window_count(rows, win, S)
+
+        calls = kwargs["num_frames"] - 1 if train else 1  # SpyNet per neighbour, or batched
+        add(fwd, _resize_count(h, h * r, False, "cubic", S))
+        for level in range(4):
+            rows = H // 8 * 2 ** level
+            up = _resize_count(rows // 2, rows, True, "linear", S)
+            add(fwd, up, calls)
+            add(fwd, warp(rows, W // 8 * 2 ** level), calls)
+            add(fwd, conv, 5 * calls)
+            if train:  # level 0's flow, warp and first conv read no gradient
+                add(bwd, up, calls if level else 0)
+                add(bwd, conv, (5 if level else 4) * calls)
+        add(fwd, warp(H, W), calls)
+        add(fwd, conv, 2)
+        if train:
+            add(bwd, conv, 2)
+    elif name == "FRVSRNet":
+        r, R, n = kwargs["upscale_factor"], kwargs.get("max_flow"), kwargs["num_resblocks"]
+        lh = -(-h // 8) * 8
+        window = None if R is None else R + 1
+        step, back = [0, 0], [0, 0]
+        add(step, conv, 14)  # FNet
+        add(back, conv, 13)  # its first conv reads the LR pair
+        for k in (8, 4, 2):
+            add(step, _resize_count(lh // k, lh // k * 2, False, "linear", S))
+            add(back, _resize_count(lh // k, lh // k * 2, False, "linear", S))
+        add(step, _resize_count(h, h * r, True, "linear", S))
+        add(back, _resize_count(h, h * r, True, "linear", S))
+        add(step, _window_count(h * r, window, S))  # the SR warp (a detached frame)
+        add(step, _window_count(h, window, S))  # the LR warp (the input frame)
+        add(step, conv, 4 + 2 * n)  # SRNet: head, the blocks, two deconvs, tail
+        add(back, conv, 4 + 2 * n)
+        add(fwd, step, frames)
+        if train:
+            add(bwd, back, frames)
+    elif name == "EDVRNet":
+        R, N = kwargs.get("dcn_max_offset"), kwargs["nframes"]
+        lh = -(-h // 4) * 4
+        window = None if R is None else R + 2
+        body = [0, 0]
+        add(body, conv, 4 + 2 * kwargs["front_RBs"])  # after conv_first: RBs, L2, L3
+        for k in (4, 2, 1):  # PCD: L3, L2, L1, then the cascade at L1
+            add(body, conv, (3 if k == 4 else 5) * N)
+            add(body, _window_count(lh // k, window, S), N)
+            if k < 4:  # the coarser offsets and features upsampled
+                add(body, _resize_count(lh // k // 2, lh // k, False, "linear", S), 2 * N)
+        add(body, conv, 3 * N)
+        add(body, _window_count(lh, window, S), N)
+        if kwargs.get("w_TSA", True):  # 6 convs, 2 pool pairs, 2 resizes
+            add(body, conv, 8)
+            add(body, _resize_count(lh // 4, lh // 2, False, "linear", S))
+            add(body, _resize_count(lh // 2, lh, False, "linear", S))
+        add(body, conv, 2 * kwargs["back_RBs"] + 4)
+        add(fwd, conv)  # conv_first
+        add(fwd, body)
+        add(fwd, _resize_count(h, h * 4, False, "linear", S))  # the centre frame's base
+        if train:
+            add(bwd, body)
+    else:
+        raise ValueError(name)
+    out = {"forward": tuple(fwd)}
+    if train:
+        out["backward"] = tuple(bwd)
+    return out
+
+
+# the nets of phases 15, 17 and 20 at full width with their seeded weights,
+# each test YAML and its _tpu knobs (bf16, max_flow 4 / dcn_max_offset 2),
+# on phase 35's tree (one slice of ZOO_CYCLE frames, LR 64x64): key → (net,
+# kwargs, family, predictor knobs)
+VIDEO_NETS = {
+    "TOFlowNet": ("TOFlowNet", MISR_NETS["TOFlowNet"], "misr", {}),
+    "TOFlowNet_tpu": ("TOFlowNet", TOFLOW_TPU_NET, "misr", {"compute_dtype": "bfloat16"}),
+    "FRVSRNet": ("FRVSRNet", {**VSR_NETS["FRVSRNet"], "is_prediction": True}, "vsr", {}),
+    "FRVSRNet_tpu": ("FRVSRNet", {**VSR_NETS["FRVSRNet"], "is_prediction": True, "max_flow": 4},
+                     "vsr", {"compute_dtype": "bfloat16"}),
+    "EDVRNet": ("EDVRNet", EDVR_NET, "edvr", {}),
+    "EDVRNet_tpu": ("EDVRNet", {**EDVR_NET, "dcn_max_offset": EDVR_TPU_R}, "edvr",
+                    {"compute_dtype": "bfloat16"}),
+}
+# one SGD step of each family's train YAML (edvr_net/exp1_x4_tpu.yaml too)
+# from the same weights, on a tree of one batch of 16 windows or clips
+VIDEO_TRAIN = ("TOFlowNet", "FRVSRNet", "EDVRNet", "EDVRNet_tpu")
+VIDEO_TRAIN_ITEMS = 16
+# every run's Test log within TOL_ZOO_LOG of its meshless run's, and its
+# first SR within TOL_ZOO_SR, but the bf16 runs' SSIMs (absolute: a
+# CardiacSSIM can be ~0.02) and FRVSR _tpu's SR.  A band's conv on the card
+# picks its own cuDNN algorithm, which sums in another order; bf16 rounds
+# the difference to a last bit now and then, and FRVSR's recurrence warps
+# each SR frame into the next.  Readings on an H100 80GB HBM3 at 700 W
+# (tools/spatial_fault_probe.py), sound and with the halo rows of every
+# windowed warp and DCN band zeroed: the bf16 logs 1.4e-7 / 1.2e-5 / 0
+# against 3.4e-6 / 3.0e-5 / 2.5e-7 (TOFlow / FRVSR / EDVR; the SSIMs
+# absolute), the SRs 1.2e-7 / 2.5e-2 / 7.2e-8 against 4.1e-3 / 2.1e-1 /
+# 6.9e-5: the SR bounds lie between, the log bounds do not see the fault
+TOL_VIDEO_BF16_SSIM = 1e-4
+TOL_VIDEO_FRVSR_BF16_SR = 5e-2
+# the windowed runs' telemetry against the meshless run's: the same sample
+# counts; the share out of the window and the largest displacement from
+# flows computed by other cuDNN algorithms (exact on the CPU)
+TOL_VIDEO_TELEMETRY = 1e-3
+# the bf16 train step (EDVR's _tpu YAML: bf16, grad_accum_steps 2) against
+# world 1's: losses and parameters
+TOL_VIDEO_BF16_STEP = 1e-3
+
+def video_eval_config(tree: dict, key: str, ckpt: Path, saved_dir: Path, dev) -> dict:
+    name, kwargs, family, knobs = VIDEO_NETS[key]
+    if family == "vsr":
+        cfg = vsr_eval_config(tree, name, kwargs, ckpt, saved_dir, dev, **knobs)
+    elif family == "edvr":
+        cfg = misr_eval_config(tree, name, kwargs, ckpt, saved_dir, num_frames=EDVR_T,
+                               loss=EDVR_LOSS, **knobs)
+    else:
+        cfg = misr_eval_config(tree, name, kwargs, ckpt, saved_dir, **knobs)
+    cfg["predictor"]["kwargs"]["device"] = str(dev)
+    return cfg
+
+
+def video_train_config(tree: dict, key: str, start: Path, saved_dir: Path, dev) -> dict:
+    """The train YAML of ``key``'s family on a tree of one batch from the
+    weights of ``start``: one epoch of one SGD step, its valid clip."""
+    if key.startswith("EDVRNet"):
+        cfg = edvr_train_config(tree, key, saved_dir)
+    elif key == "FRVSRNet":
+        cfg = vsr_train_config(tree, key, saved_dir, dev)
+    else:
+        cfg = misr_train_config(tree, key, saved_dir)
+    cfg.pop("logger", None)
+    cfg["main"]["loaded_path"] = str(start)
+    cfg["trainer"]["kwargs"].update(device=str(dev), num_epochs=1)
+    cfg["optimizer"] = {"name": "SGD", "kwargs": {"lr": ZOO_SGD_LR}}
+    return cfg
+
+
+def _video_train_kwargs(key: str) -> dict:
+    """The net of ``key``'s train YAML."""
+    return {"TOFlowNet": MISR_NETS["TOFlowNet"], "FRVSRNet": VSR_NETS["FRVSRNet"],
+            "EDVRNet": EDVR_NET, "EDVRNet_tpu": {**EDVR_NET, "dcn_max_offset": EDVR_TPU_R}}[key]
+
+
+def dcn_row_origin(dcn, dev, card_line) -> dict:
+    """Phase 36's kernels check: the three DCN kernels on rank 1 of 4 bands
+    of EDVR's serving L1 frame (1, 128, 64, 64) in fp32 and bf16: on the
+    band with its R + 2 window rows above and below (``dcn_max_offset`` 2,
+    pad_h = 1 - 4) and on the whole frame read from the band's first row
+    (exact, pad_h = 1 - 16), each against its plain version at that geometry
+    and against the whole frame's call cut to the band's rows."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(36)
+    shape, S, i = DCN_SHAPES["serving"], 4, 1
+    B, C, H, W = shape
+    rows = H // S
+    r0 = i * rows
+    errors = {k: {} for k in dcn.KERNELS}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+    for dtype, tol in ((torch.float32, TOL_DCN_FP32), (torch.bfloat16, TOL_DCN_BF16)):
+        for case, R in (("band", EDVR_TPU_R), ("frame", None)):
+            x, off, mask, grad_col, g = dcn_operands(dcn, shape, dtype, dev, gen, "fractional", R)
+            band = slice(r0, r0 + rows)
+            off_b, mask_b = off[:, :, band].contiguous(), mask[:, :, band].contiguous()
+            gc_b = grad_col.view(B, C * 9, H, W)[:, :, band].reshape(B, C * 9, rows * W)
+            if case == "band":
+                k = R + 2
+                xb = x[:, :, r0 - k:r0 + rows + k].contiguous()
+                pad_h = 1 - k
+            else:
+                xb, pad_h = x, 1 - r0
+            gb = dcn.geometry(xb.shape, 3, 3, 1, 1, 1, DCN_DG, R, pad_h=pad_h, out_h=rows)
+            got = {"deform_im2col": dcn.deform_im2col(xb, off_b, mask_b, gb),
+                   "deform_col2im": dcn.deform_col2im(gc_b, off_b, mask_b, gb),
+                   "deform_col2im_coord": dcn.deform_col2im_coord(gc_b, xb, off_b, mask_b, gb)}
+            want = {"deform_im2col": dcn.deform_im2col_reference(xb, off_b, mask_b, gb),
+                    "deform_col2im": dcn.deform_col2im_reference(gc_b, off_b, mask_b, gb),
+                    "deform_col2im_coord": dcn.deform_col2im_coord_reference(
+                        gc_b, xb, off_b, mask_b, gb)}
+            # the whole frame's im2col cut to the band: the same samples
+            whole = dcn.deform_im2col(x, off, mask, g).view(B, C * 9, H, W)[:, :, band]
+            cut = rel(got["deform_im2col"].view(B, C * 9, rows, W), whole)
+            for name in dcn.KERNELS:
+                pairs = list(zip(*(v if isinstance(v, tuple) else (v,)
+                                   for v in (got[name], want[name]))))
+                err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+                r = max(rel(a, b) for a, b in pairs)
+                errors[name][f"{case} {dtype}"] = err
+                log("spatial video", f"{name} {dtype} on the {case} of rank {i} of {S} "
+                                     f"(x {tuple(xb.shape)}, pad_h {pad_h}, Ho {rows}, R {R}): "
+                                     f"max abs err {err:.3e} against its plain version, {r:.3e} "
+                                     f"of the largest element (tol {tol})")
+                if not r <= tol:
+                    raise AssertionError(f"{name} at a row origin disagrees: {case} {dtype} {r}")
+            log("spatial video", f"deform_im2col {dtype} on the {case}: against the whole "
+                                 f"frame's call cut to the band's rows {cut:.3e} (tol {tol})")
+            if not cut <= tol:
+                raise AssertionError(f"the {case}'s im2col is not the frame's: {cut}")
+            errors["deform_im2col"][f"{case} {dtype} against the frame"] = cut
+    return {"errors": errors, "card": card_line}
+
+
+def spatial_video_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_line) -> dict:
+    """Phase 36: the spatial axis of TOFlowNet, FRVSRNet and EDVRNet (height
+    sharded over ``SPATIAL`` gloo ranks sharing cuda:0): each test YAML and
+    its _tpu knobs at full width against its meshless run on the same
+    items, the exchanges and gathers ``video_counts`` predicts, and one SGD
+    step of each family's train YAML against the same step at world 1; the
+    DCN kernels at a row origin first (``dcn_row_origin``)."""
+    import numpy as np
+    import torch
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel import distributed
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools.synthetic_tree import (
+        write_acdc_tree,
+    )
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch import models
+
+    kernels = dcn_row_origin(dcn, dev, card_line)
+    parallel = {"num_devices": SPATIAL, "spatial_parallel": SPATIAL}
+    tree = write_acdc_tree(tmp / "zoo", {"test": (1, 1)}, cycle=ZOO_CYCLE, hr=HR, scale=SCALE)
+    before = deterministic_cudnn(torch)  # the meshless runs as the ranks run
+    eval_cfgs, meshless, starts = {}, {}, {}
+    for key, (name, kwargs, family, _) in VIDEO_NETS.items():
+        ckpt = tmp / f"{name}.pth"  # phases 15, 17 and 20 wrote them
+        if not ckpt.exists():
+            net = {"EDVRNet": lambda: seeded_edvr(EDVR_NET),
+                   "TOFlowNet": lambda: seeded_misr_net(models.TOFlowNet, MISR_NETS[name]),
+                   "FRVSRNet": lambda: models.FRVSRNet(
+                       **VSR_NETS[name], generator=torch.Generator().manual_seed(0))}[name]()
+            torch.save({"net": net.state_dict()}, ckpt)
+        starts[key] = ckpt
+        pred = port_main.test_from_config(Cfg(video_eval_config(
+            tree, key, ckpt, tmp / f"video_meshless_{key}", dev)))
+        meshless[key] = {"log": pred.log, "sr": _first_sr(pred), "telemetry": pred.telemetry_summary,
+                         "item_ms": [x * 1e3 for x in pred.item_seconds],
+                         "frames": pred.throughput["frames"]}
+        del pred
+        cfg = video_eval_config(tree, key, ckpt, tmp / f"video_spatial_{key}", dev)
+        cfg["parallel"] = parallel
+        eval_cfgs[key] = cfg
+    train_cfgs, reference, small = {}, {}, {}
+    for key in VIDEO_TRAIN:
+        family = "edvr" if key.startswith("EDVR") else key
+        if family not in small:
+            small[family] = write_acdc_tree(tmp / f"video_train_{family}",
+                                            {"train": (1, 1), "valid": (1, 1)},
+                                            cycle=VIDEO_TRAIN_ITEMS, hr=HR, scale=SCALE, seed=36)
+        start = starts[key]
+        cfg = video_train_config(small[family], key, start, tmp / f"video_train_{key}_world1", dev)
+        trainer = port_main.train_from_config(Cfg(cfg))
+        ckpt = load_checkpoint(tmp / f"video_train_{key}_world1" / "checkpoints" / "model_1.pth")
+        reference[key] = {"history": trainer.history, "state": ckpt["net"]}
+        del trainer
+        cfg = video_train_config(small[family], key, start, tmp / f"video_train_{key}_spatial",
+                                 dev)
+        cfg["parallel"] = parallel
+        train_cfgs[key] = cfg
+    deterministic_cudnn(torch, before[0])
+    torch.backends.cudnn.benchmark = before[1]
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(spatial_zoo_rank, (eval_cfgs, train_cfgs, str(dev)),
+                              world=SPATIAL, device=dev, backend="gloo")
+    wall = time.perf_counter() - t0
+    note = f"{SPATIAL} gloo ranks sharing one card: correctness only, no rate ({card_line})"
+    if ranks["backend"] != "gloo":
+        raise AssertionError(f"phase 36 ran over {ranks['backend']}")
+
+    def log_gap(got_log, want_log, bf16):
+        worst = {}
+        for k, v in want_log.items():
+            d = abs(got_log[k] - v)
+            worst[k] = d if bf16 and "SSIM" in k else d / abs(v)
+        ok = all(d <= (TOL_VIDEO_BF16_SSIM if bf16 and "SSIM" in k else TOL_ZOO_LOG)
+                 for k, d in worst.items())
+        return worst, ok
+
+    results = {"eval": {}, "train": {}, "kernels": kernels}
+    lr_hw = (HR // SCALE, HR // SCALE)
+    for key, (name, kwargs, family, knobs) in VIDEO_NETS.items():
+        got, want = ranks["eval"][key], meshless[key]
+        bf16 = "compute_dtype" in knobs
+        gaps, log_ok = log_gap(got["log"], want["log"], bf16)
+        scale = want["sr"].abs().max().item()
+        sr_rel = (got["sr"] - want["sr"]).abs().max().item() / scale
+        sr_tol = TOL_VIDEO_FRVSR_BF16_SR if bf16 and name == "FRVSRNet" else TOL_ZOO_SR
+        items = 1 if family == "vsr" else ZOO_CYCLE
+        counts = video_counts(name, kwargs, lr_hw, ZOO_CYCLE if family == "vsr" else 0, SPATIAL)
+        want_ex = {"forward": counts["forward"][0] * items, "backward": 0}
+        want_ga = {"forward": counts["forward"][1] * items, "backward": 0}
+        windowed = kwargs.get("max_flow", kwargs.get("dcn_max_offset")) is not None
+        # 4 DCN packs (L3, L2, L1, cascade) a frame of the window, each
+        # launching one im2col, on its band while the window's R + 2 rows fit
+        # in it (``ops/deform_conv.spatial_operand``), else on the frame
+        want_dcn = [DCN_PER_FORWARD * items if name == "EDVRNet" else 0, 0, 0]
+        want_calls = {"band": 0, "frame": 0}
+        if name == "EDVRNet":
+            for k in (4, 2, 1, 1):
+                fits = windowed and EDVR_TPU_R + 2 <= lr_hw[0] // k // SPATIAL
+                want_calls["band" if fits else "frame"] += kwargs["nframes"] * items
+        tel_gap = 0.0
+        if set(got["telemetry"]) != set(want["telemetry"]):
+            raise AssertionError(f"{key}: telemetry sites {got['telemetry']} against "
+                                 f"{want['telemetry']}")
+        for site, stats in want["telemetry"].items():
+            g = got["telemetry"][site]
+            if g["n"] != stats["n"]:
+                raise AssertionError(f"{key} {site}: {g['n']} samples against {stats['n']}")
+            tel_gap = max(tel_gap, abs(g["frac_out"] - stats["frac_out"]),
+                          abs(g["max_abs"] - stats["max_abs"]) / max(stats["max_abs"], 1e-12))
+        ms, ms_meshless = (float(np.median(x[1:] or x)) for x in (got["item_ms"], want["item_ms"]))
+        log("spatial video", f"{key} x{SCALE} on mesh {got['mesh']}: {items} items, Test log "
+                             f"{got['log']}; largest difference to the meshless log "
+                             f"{max(gaps.values()):.3e} ({'bf16: SSIM absolute, the rest ' if bf16 else ''}"
+                             f"relative; tol {(TOL_ZOO_LOG, TOL_VIDEO_BF16_SSIM) if bf16 else TOL_ZOO_LOG}); "
+                             f"the first item's gathered SR {tuple(got['sr'].shape)} within "
+                             f"{sr_rel:.3e} of the meshless forward's largest value (tol "
+                             f"{sr_tol}); telemetry "
+                             f"{got['telemetry']} within {tel_gap:.3e} of the meshless run's (tol "
+                             f"{TOL_VIDEO_TELEMETRY}); halo exchanges {got['exchanges']} (predicted "
+                             f"{want_ex}), gathers {got['gathers']} (predicted {want_ga}); DCN "
+                             f"launches {got['dcn_launches']} (predicted {want_dcn}), calls "
+                             f"{got['dcn_calls']}; gate launches {got['launches']}; median "
+                             f"{ms:.1f} ms an item (meshless {ms_meshless:.1f}); {note}")
+        if got["mesh"] != {"data": 1, "spatial": SPATIAL} or got["warned"]:
+            raise AssertionError(f"{key} ran on {got['mesh']}, warned {got['warned']}")
+        if not (log_ok and sr_rel <= sr_tol and tel_gap <= TOL_VIDEO_TELEMETRY):
+            raise AssertionError(f"{key} on the spatial mesh disagrees: {gaps}, {sr_rel}, "
+                                 f"{tel_gap}")
+        if (got["exchanges"] != want_ex or got["gathers"] != want_ga or any(got["launches"])
+                or list(got["dcn_launches"][:3]) != want_dcn or got["dcn_calls"] != want_calls):
+            raise AssertionError(f"{key} exchanged {got['exchanges']} (predicted {want_ex}), "
+                                 f"gathered {got['gathers']} (predicted {want_ga}), launched "
+                                 f"{got['launches']}, {got['dcn_launches']}, {got['dcn_calls']}")
+        results["eval"][key] = {"log_gaps": gaps, "sr_rel": sr_rel, "telemetry_gap": tel_gap,
+                                "exchanges": got["exchanges"], "gathers": got["gathers"],
+                                "item_ms": ms, "meshless_item_ms": ms_meshless, "items": items,
+                                "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+    for key in VIDEO_TRAIN:
+        got, want = ranks["train"][key], reference[key]
+        name = key.removesuffix("_tpu")
+        bf16 = key.endswith("_tpu")
+        tol = TOL_VIDEO_BF16_STEP if bf16 else TOL_ZOO_STEP
+        state = load_checkpoint(tmp / f"video_train_{key}_spatial" / "checkpoints"
+                                / "model_1.pth")["net"]
+        loss_rel = {split: abs(got["history"][split][0]["Loss"] - want["history"][split][0]["Loss"])
+                    / abs(want["history"][split][0]["Loss"]) for split in ("train", "valid")}
+        floats = [k for k, v in want["state"].items() if v.is_floating_point()]
+        params = [k for k in floats if "running" not in k]
+        start = load_checkpoint(starts[key])["net"]
+        gap = torch.cat([(state[k] - want["state"][k]).flatten() for k in params])
+        update = torch.cat([(want["state"][k] - start[k]).flatten() for k in params])
+        # as phase 35's SGD step: the largest parameter difference relative
+        # to the largest parameter, the update apart in norm
+        param_rel = (gap.abs().max() / max(want["state"][k].abs().max() for k in params)).item()
+        update_rel = (gap.norm() / update.norm()).item()
+        stats_rel = max([((state[k] - want["state"][k]).abs().max()
+                          / want["state"][k].abs().max().clamp_min(1e-12)).item()
+                         for k in floats if "running" in k], default=0.0)
+        kwargs = _video_train_kwargs(key)
+        accum = 2 if bf16 else 1
+        frames = VSR_TRAIN["FRVSRNet"][1] if name == "FRVSRNet" else 0
+        step = video_counts(name, kwargs, (PATCH, PATCH), frames, SPATIAL, train=True)
+        valid = video_counts(name, kwargs, lr_hw, VIDEO_TRAIN_ITEMS if name == "FRVSRNet" else 0,
+                             SPATIAL)["forward"]
+        n_valid = 1 if name == "FRVSRNet" else VIDEO_TRAIN_ITEMS
+        want_ex = {"forward": accum * step["forward"][0] + n_valid * valid[0],
+                   "backward": accum * step["backward"][0]}
+        want_ga = {"forward": accum * step["forward"][1] + n_valid * valid[1],
+                   "backward": accum * step["backward"][1]}
+        dcn_fwd = DCN_PER_FORWARD * (accum + n_valid) if name == "EDVRNet" else 0
+        dcn_bwd = DCN_PER_FORWARD * accum if name == "EDVRNet" else 0
+        want_dcn = [dcn_fwd, dcn_bwd, dcn_bwd]
+        step_ms = 1e3 / got["steps_per_sec"]
+        log("spatial video", f"one SGD step of {key}'s train YAML (batch {VIDEO_TRAIN_ITEMS}"
+                             f"{', 2 microbatches' if accum == 2 else ''}) on mesh {got['mesh']}: "
+                             f"train and valid loss relative to world 1's "
+                             f"{loss_rel['train']:.3e}, {loss_rel['valid']:.3e}, parameters "
+                             f"within {param_rel:.3e} of the largest parameter, running "
+                             f"statistics {stats_rel:.3e} of their largest element (tol {tol}; "
+                             f"SGD at {ZOO_SGD_LR}), the update {update_rel:.3e} apart in norm "
+                             f"(not bounded: phase 35's SGD note); halo "
+                             f"exchanges {got['exchanges']} (predicted {want_ex}), gathers "
+                             f"{got['gathers']} (predicted {want_ga}); DCN launches "
+                             f"{got['dcn_launches']} (predicted {want_dcn}); {step_ms:.1f} ms a "
+                             f"step, the epoch with its valid pass {got['wall_s']:.2f} s; {note}")
+        if got["mesh"] != {"data": 1, "spatial": SPATIAL} or got["warned"]:
+            raise AssertionError(f"{key}'s step ran on {got['mesh']}, warned {got['warned']}")
+        if not max(*loss_rel.values(), param_rel, stats_rel) <= tol:
+            raise AssertionError(f"{key}'s step disagrees with world 1: {loss_rel}, {param_rel}, "
+                                 f"{stats_rel}")
+        if (got["exchanges"] != want_ex or got["gathers"] != want_ga or any(got["launches"])
+                or list(got["dcn_launches"][:3]) != want_dcn):
+            raise AssertionError(f"{key}'s step exchanged {got['exchanges']} (predicted "
+                                 f"{want_ex}), gathered {got['gathers']} (predicted {want_ga}), "
+                                 f"launched {got['launches']}, {got['dcn_launches']}")
+        results["train"][key] = {"loss_rel": loss_rel, "param_rel": param_rel,
+                                 "update_rel": update_rel,
+                                 "stats_rel": stats_rel, "exchanges": got["exchanges"],
+                                 "gathers": got["gathers"], "step_ms": step_ms,
+                                 "launches": got["launches"], "dcn_launches": got["dcn_launches"]}
+    log("spatial video", f"phase 36 in {wall:.1f} s with the ranks' start")
     results.update(wall_s=wall, card=card_line)
     return results
 
@@ -4372,14 +4947,23 @@ def main() -> int:
     # -------------------------------------------- 35 the spatial axis of the zoo
     zoo = spatial_zoo_card(port_main, Cfg, lstm_gates, deform_conv, tmp, dev, card_line)
     print(json.dumps({"spatial_zoo": zoo}), flush=True)
+
+    # --------------- 36 the spatial axis of the warping and deformable nets
+    video = spatial_video_card(port_main, Cfg, lstm_gates, deform_conv, tmp, dev, card_line)
+    print(json.dumps({"spatial_video": video}), flush=True)
     tmp_dir.cleanup()
-    log("done", f"phases 1-35 in {time.perf_counter() - started:.1f} s, the kernels' builds "
+    log("done", f"phases 1-36 in {time.perf_counter() - started:.1f} s, the kernels' builds "
                 f"included ({card_line})")
     # the gate and DCN kernels' launches on phase 35's paths, rank 0 (none)
     zoo_gates = [sum(r["launches"][i] for part in ("eval", "train") for r in zoo[part].values())
                  for i in range(4)]
     zoo_dcn = [sum(r["dcn_launches"][i] for part in ("eval", "train") for r in zoo[part].values())
                for i in range(len(deform_conv.KERNELS))]
+    # and on phase 36's (EDVR's DCN packs; no gate kernel)
+    video_gates = [sum(r["launches"][i] for part in ("eval", "train")
+                       for r in video[part].values()) for i in range(4)]
+    video_dcn = [sum(r["dcn_launches"][i] for part in ("eval", "train")
+                     for r in video[part].values()) for i in range(len(deform_conv.KERNELS))]
 
     replaces = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu/ops/pallas/lstm_gates.py"
     # the single-image, multi-frame and plain video paths (phases 13-18)
@@ -4404,7 +4988,7 @@ def main() -> int:
                  "spatial_remat_step_rank0": spatial["remat_launches"][0],
                  "spatial_pad_h_rank0": spatial["pad_h_launches"][0],
                  "spatial_batch_infer_rank0": spatial["batch_infer_launches"][0],
-                 "spatial_zoo_rank0": zoo_gates[0]}
+                 "spatial_zoo_rank0": zoo_gates[0], "spatial_video_rank0": video_gates[0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
@@ -4419,7 +5003,7 @@ def main() -> int:
                  "spatial_eval_rank0": 0, "spatial_train_rank0": spatial["train_launches"][1],
                  "spatial_remat_step_rank0": spatial["remat_launches"][1],
                  "spatial_pad_h_rank0": 0, "spatial_batch_infer_rank0": 0,
-                 "spatial_zoo_rank0": zoo_gates[1]}
+                 "spatial_zoo_rank0": zoo_gates[1], "spatial_video_rank0": video_gates[1]}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",
@@ -4504,7 +5088,8 @@ def main() -> int:
                  "edvr_train_bf16": edvr_train["EDVRNet_tpu"]["dcn_launches"][index[k]],
                  "serve_edvr": served_edvr["launches"] if k == "deform_im2col" else 0,
                  "eval_loop_ab_edvr": ab["counts"]["edvr"][1][index[k]],
-                 "spatial_zoo_rank0": zoo_dcn[index[k]]}
+                 "spatial_zoo_rank0": zoo_dcn[index[k]],
+                 "spatial_video_rank0": video_dcn[index[k]]}
         serve32, serve16 = (dcn_res["times"][f"serving {d}"] for d in (f32, b16))
         train32, train16 = (dcn_res["times"][f"training {d}"] for d in (f32, b16))
         record["kernels"].append({
@@ -4516,6 +5101,7 @@ def main() -> int:
             "launches_by_path": paths,
             "max_abs_err": dcn_res["errors"][k][str(f32)],
             "max_abs_err_bf16": dcn_res["errors"][k][str(b16)],
+            "max_abs_err_row_origin": video["kernels"]["errors"][k],
             "ms": serve32[k]["ms"],
             "plain_ms": serve32[k]["plain_ms"],
             "bound_ms": serve32[k]["bound_ms"],

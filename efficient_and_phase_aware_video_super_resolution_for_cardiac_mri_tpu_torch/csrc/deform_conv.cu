@@ -17,7 +17,10 @@
 //   col      (B, C*K, P)           T; row c*K + tap
 //   d_x      (B, C, H, W)          float
 // Sample of (b, c, tap, p), c in group g = c / Cg:
-//   py = ho*stride - pad + i*dil + offset_y,  px likewise
+//   py = ho*stride - pad_h + i*dil + offset_y,  px = wo*stride - pad_w + ...
+// pad_h is a row origin: it may differ from pad_w and be negative (a band of
+// a frame's rows with its neighbours' rows attached, or the gathered frame
+// read from a band's first row), and Ho is the caller's.
 //   col = mask * bilinear(x[b, c], py, px), 0 unless -1 < py < H, -1 < px < W
 // Each of the four corners adds weight * x at (y0 + {0,1}, x0 + {0,1}) when it
 // lies inside the image.  Exact path (R < 0): y0 = floor(py), the fraction
@@ -123,7 +126,10 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 16;  // a block's channels: a group's, in chunks of 16
 
 struct Geom {
-  int B, C, H, W, Ho, Wo, kh, kw, stride, pad, dil, dg, R;
+  // pad_h last: the fields before it keep the offsets they had before the
+  // row origin (with it between stride and dil, bf16 im2col without a row
+  // origin ran 15-23% longer on an H100, PERF.md section 6)
+  int B, C, H, W, Ho, Wo, kh, kw, stride, pad_w, dil, dg, R, pad_h;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -146,12 +152,16 @@ struct Corners {
   float fy, fx;
 };
 
+// kOrigin: the row origin pad_h may differ from pad_w; without it pad_w
+// serves both axes (and the geometry's pad_h is never read)
+template <bool kOrigin>
 __device__ __forceinline__ Corners corners(const Geom& g, int ho, int wo, int tap, float oy,
                                            float ox) {
   Corners c;
   const int i = tap / g.kw, j = tap % g.kw;
-  const float by = static_cast<float>(ho * g.stride - g.pad + i * g.dil);
-  const float bx = static_cast<float>(wo * g.stride - g.pad + j * g.dil);
+  const int pad_h = kOrigin ? g.pad_h : g.pad_w;
+  const float by = static_cast<float>(ho * g.stride - pad_h + i * g.dil);
+  const float bx = static_cast<float>(wo * g.stride - g.pad_w + j * g.dil);
   const float py = by + oy, px = bx + ox;
   const float H = static_cast<float>(g.H), W = static_cast<float>(g.W);
   c.any = py > -1.f && px > -1.f && py < H && px < W;
@@ -223,8 +233,12 @@ __device__ __forceinline__ Block block_of(const Geom& g) {
 // (W float4: im2col, col2im) or its fractions (fy, fx) (W float2:
 // col2im_coord).  The stride kStride (the block's thread count) and the
 // choice W are compile-time: with blockDim.x and a null test in their place
-// bf16 im2col took more registers and ran 14-26% longer.
-template <typename T, int kPos, int kStride, typename W>
+// bf16 im2col took more registers and ran 14-26% longer.  So is kOrigin
+// (corners): reading the row origin takes bf16 im2col from 32 registers to
+// 39 and 14-21% longer (an H100, PERF.md section 6), so im2col reads it only
+// for the geometries that have one (the spatial axis's bands and gathered
+// frames); col2im and col2im_coord always read it, at no measured cost.
+template <typename T, int kPos, int kStride, typename W, bool kOrigin = true>
 __device__ __forceinline__ void corner_table(const Geom& g, const Block& k, const float* offset,
                                              const T* mask, int4* corner, W* weight, float* mk) {
   static_assert(std::is_same_v<W, float4> || std::is_same_v<W, float2>, "weights or fractions");
@@ -237,8 +251,8 @@ __device__ __forceinline__ void corner_table(const Geom& g, const Block& k, cons
     W w{};
     float m = 0.f;
     if (p < P) {
-      const Corners cr =
-          corners(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p], op[(2 * tap + 1) * P + p]);
+      const Corners cr = corners<kOrigin>(g, p / g.Wo, p % g.Wo, tap, op[2 * tap * P + p],
+                                          op[(2 * tap + 1) * P + p]);
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         if (cr.ok[c]) e[c] = ((k.b * g.H + cr.y0 + (c >> 1)) * g.W + cr.x0 + (c & 1)) * g.C;
@@ -279,7 +293,7 @@ __device__ __forceinline__ void accumulate(float (&v)[8], const __nv_bfloat16* x
   }
 }
 
-template <typename T>
+template <typename T, bool kOrigin>
 __global__ void __launch_bounds__(kThreads)
 deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                      const T* __restrict__ mask, T* __restrict__ col, Geom g) {
@@ -290,7 +304,7 @@ deform_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
   int4* corner = reinterpret_cast<int4*>(smem);            // [n]
   float4* weight = reinterpret_cast<float4*>(corner + n);  // [n]
   float* mk = reinterpret_cast<float*>(weight + n);        // [n]
-  corner_table<T, kPos, kThreads>(g, k, offset, mask, corner, weight, mk);
+  corner_table<T, kPos, kThreads, float4, kOrigin>(g, k, offset, mask, corner, weight, mk);
   __syncthreads();
 
   // 2. kLanes / kVec lanes a sample, kVec channels a lane, one 16-byte load a
@@ -553,7 +567,7 @@ Geom geom_of(const int64_t* v) {
               static_cast<int>(v[3]), static_cast<int>(v[4]), static_cast<int>(v[5]),
               static_cast<int>(v[6]), static_cast<int>(v[7]), static_cast<int>(v[8]),
               static_cast<int>(v[9]), static_cast<int>(v[10]), static_cast<int>(v[11]),
-              static_cast<int>(v[12])};
+              static_cast<int>(v[12]), static_cast<int>(v[13])};
 }
 
 // dynamic shared memory above the 48 KB default needs the kernel's opt-in
@@ -596,8 +610,9 @@ int im2col(const void* x_nchw, int x_bf16, void* x_cl, const void* offset, const
                : transpose<float, T>(x_nchw, x_cl, g.B, g.C, g.H * g.W, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(launch_tiles<T>(deform_im2col_kernel<T>, g, st, x_cl, offset, mask,
-                                          static_cast<T*>(col)));
+  return static_cast<int>(launch_tiles<T>(g.pad_h != g.pad_w ? deform_im2col_kernel<T, true>
+                                                              : deform_im2col_kernel<T, false>,
+                                          g, st, x_cl, offset, mask, static_cast<T*>(col)));
 }
 
 // grad_x_cl: a zeroed channels-last fp32 buffer the scatter adds into, then

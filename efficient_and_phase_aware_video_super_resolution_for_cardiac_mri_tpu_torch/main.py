@@ -33,9 +33,8 @@ process (rank) per device, NCCL on the card and gloo on the CPU
 More CUDA devices than are visible, ``spatial_parallel`` with
 ``model_parallel``, and a device count that ``spatial_parallel ×
 model_parallel`` does not divide raise ``ValueError`` as the JAX
-package's mesh does, before any rank starts; ``spatial_parallel > 1``
-with a net whose class does not declare ``spatial_ready`` (TOFlowNet,
-FRVSRNet, EDVRNet) raises ``NotImplementedError`` (ROADMAP item 10c).
+package's mesh does, before any rank starts.  Every net of the zoo
+takes ``spatial_parallel > 1``.
 ``pad_h`` sets the predictor's knob, as in the JAX package's
 ``main``.  A multi-host run defaults to ``checkpoint_backend:
 orbax_async``, as in the JAX package.
@@ -107,11 +106,8 @@ def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
     """The config's ``parallel:`` section ({} without one) after the JAX
     package's refusals (``ValueError``): more CUDA devices than are
     visible, ``spatial_parallel`` with ``model_parallel``, a device count
-    their product does not divide; and a net whose spatial axis is not
-    ported (``NotImplementedError``, item 10c): the registered net class
-    declares ``spatial_ready`` (``parallel/halo.shard_spatially``)."""
+    their product does not divide."""
     from .parallel import check_axes, check_devices
-    from .parallel.halo import NOT_READY
 
     parallel = dict(cfg.get("parallel") or {})
     if not parallel:
@@ -122,12 +118,6 @@ def _check_parallel(cfg: Cfg, device: torch.device) -> dict:
         check_devices(int(n), device)
     sp = int(parallel.get("spatial_parallel") or 1)
     check_axes(int(n), sp, parallel.get("model_parallel", 1))
-    net = (cfg.get("net") or {}).get("name")
-    if sp > 1 and net is not None:
-        _import_components()
-        if not getattr(NETS.get(net), "spatial_ready", False):
-            raise NotImplementedError(f"parallel.spatial_parallel={sp}: "
-                                      f"{NOT_READY.format(net=net)}")
     return parallel
 
 

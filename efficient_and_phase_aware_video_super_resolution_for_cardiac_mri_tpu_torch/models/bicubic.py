@@ -17,8 +17,6 @@ from ..ops.resize import upsample_bicubic
 
 
 class Bicubic(nn.Module):
-    #: the band resize takes the spatial axis (``parallel/halo.shard_spatially``)
-    spatial_ready = True
     spatial_axis = None
 
     def __init__(self, upscale_factor: int = 4, generator: torch.Generator | None = None):

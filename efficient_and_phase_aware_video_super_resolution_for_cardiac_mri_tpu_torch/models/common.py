@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.halo import HaloConv2d, HaloConv3d, HaloConvTranspose2d
+from ..parallel.halo import HaloConv2d, HaloConv3d, HaloConvTranspose2d, halo_conv2d
 
 
 def init_uniform_(tensor: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -54,14 +54,18 @@ def init_xavier_(tensor: torch.Tensor, generator: torch.Generator) -> torch.Tens
         return nn.init.xavier_uniform_(tensor, generator=generator)
 
 
-class PromotedConv2d(nn.Conv2d):
+class PromotedConv2d(HaloConv2d):
     """``nn.Conv2d`` in the promoted dtype of its input and its parameters,
     as flax's ``nn.Conv`` computes: under ``compute_dtype: bfloat16`` a
-    conv fed an fp32 resize product runs in fp32 on bf16-rounded weights."""
+    conv fed an fp32 resize product runs in fp32 on bf16-rounded weights.
+    Under a spatial axis it exchanges its H halo (:class:`HaloConv2d`)."""
 
     def forward(self, x):
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if self.spatial_axis is None:
+            return self._conv_forward(x, w, b)
+        return halo_conv2d(x, w, b, self.padding, self.spatial_axis, self.stride)
 
 
 def conv2d(in_features: int, features: int, kernel_size: int,
@@ -187,28 +191,116 @@ def batch_norm(features: int, dims: int = 2, cls: type[nn.Module] | None = None)
     return cls(features, eps=1e-5, momentum=0.1)
 
 
-def pad_to_multiple(x: torch.Tensor, mult: int, dims=(-3, -2)):
+class _GroupMin(torch.autograd.Function):
+    """The minimum of a tensor over the ranks of ``group``; its gradient
+    is shared by the elements that hold it on every rank, as
+    ``torch.amin``'s and JAX's ``min`` share it among ties."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        wide = torch.promote_types(x.dtype, torch.float32)  # gloo gathers no bf16
+        m = _gather_scalars(x.amin().to(wide), group).min()
+        ctx.mask = x == m.to(x.dtype)
+        ctx.ties = _gather_scalars(ctx.mask.sum().to(wide), group).sum()
+        return m.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _gather_scalars(grad.to(ctx.ties.dtype), ctx.group).sum()
+        return (ctx.mask * (total / ctx.ties)).to(grad.dtype), None
+
+
+def _gather_scalars(t: torch.Tensor, group) -> torch.Tensor:
+    """A 0-d tensor of every rank of ``group``, (ranks,), by ``all_gather``
+    (which gloo takes on CUDA tensors too)."""
+    n = torch.distributed.get_world_size(group)
+    parts = [torch.empty(1, dtype=t.dtype, device=t.device) for _ in range(n)]
+    torch.distributed.all_gather(parts, t.reshape(1).contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def pad_to_multiple(x: torch.Tensor, mult: int, dims=(-3, -2), axis=None):
     """Pad ``dims`` of ``x`` to multiples of ``mult`` with the WHOLE tensor's
     minimum (over batch and frames, as ``jnp.min(x)`` in the JAX package's
     ``pad_to_multiple``, the reference's ``F.pad(value=x.min())``), centred:
     ``diff // 2`` before, the rest after.  Returns ``(padded, crops)``:
-    ``crops`` is a tuple of one slice per dimension of ``x`` that cuts the
-    input back out, or ``None`` when nothing was padded.  The pad value stays
-    on the device and in the autograd graph (its gradient reaches the
-    minimum, as through ``lax.pad``'s padding value)."""
-    crops = [slice(None)] * x.dim()
+    ``crops`` is a tuple of one slice per dimension of ``x`` (a concrete
+    one for each of ``dims``) that cuts the input back out, or ``None``
+    when nothing was padded here.  The pad value stays on the device and in
+    the autograd graph (its gradient reaches the minimum, as through
+    ``lax.pad``'s padding value).
+
+    Under a spatial ``axis`` (``parallel/halo.py``) ``dims[0]`` is the
+    height, of which ``x`` holds this rank's band: the sizes are the
+    frame's, the minimum is the group's (the spatial group's, or in
+    training the BatchNorm group's, which holds the step's other rows and
+    items), and the rows of the centred pad go to the top and the bottom
+    rank, never to a band edge inside the frame.  The bands must stay
+    equal: no pad in H, or an even one over 2 ranks."""
+    nd = x.dim()
+    h = dims[0] % nd
+    S, i = (1, 0) if axis is None else (axis.size, axis.index)
+    crops = [slice(None)] * nd
     shape = list(x.shape)
+    padded_any = False
     for d in dims:
-        size = x.shape[d]
+        d %= nd
+        size = x.shape[d] * (S if d == h else 1)
         diff = (mult - size % mult) % mult
-        if diff:
-            crops[d % x.dim()] = slice(diff // 2, diff // 2 + size)
-            shape[d % x.dim()] = size + diff
+        before, after = diff // 2, diff - diff // 2
+        if d == h and S > 1:
+            if diff and (S > 2 or diff % 2):
+                raise ValueError(
+                    f"a frame of {size} rows padded to a multiple of {mult} over {S} spatial "
+                    "ranks would give unequal bands; pick a height that needs no pad (or an "
+                    "even one over 2 ranks)")
+            before, after = (before if i == 0 else 0), (after if i == S - 1 else 0)
+        padded_any = padded_any or diff > 0
+        crops[d] = slice(before, before + x.shape[d])
+        shape[d] = x.shape[d] + before + after
+    if not padded_any:
+        return x, None
+    if axis is None:
+        value = x.amin()
+    else:  # every rank of the group takes part, padded here or not
+        value = _GroupMin.apply(x, _BN_GROUP if batch_norm_active() else axis.group)
     if shape == list(x.shape):
         return x, None
-    padded = x.amin().expand(shape).clone(memory_format=torch.contiguous_format)
+    padded = value.expand(shape).clone(memory_format=torch.contiguous_format)
     padded[tuple(crops)] = x
     return padded, tuple(crops)
+
+
+def band_misfit(rows: int, ranks: int, multiple: int, least: int) -> str | None:
+    """Why a frame of ``rows`` rows, padded centred to a multiple of
+    ``multiple`` (:func:`pad_to_multiple`), does not split over ``ranks``
+    spatial ranks into bands of a multiple of ``multiple`` rows and at
+    least ``least`` each; None when it does.  The pad's rows go to the top
+    and the bottom band, so the pad must be even over 2 ranks and absent
+    over more."""
+    diff = -rows % multiple
+    if rows % ranks or (diff and (ranks > 2 or diff % 2)):
+        return (f"{rows} rows padded to a multiple of {multiple} do not split into equal bands "
+                f"over {ranks} ranks")
+    bands = [rows // ranks] * ranks
+    bands[0] += diff // 2
+    bands[-1] += diff - diff // 2
+    if any(b % multiple or b < least for b in bands):
+        return (f"{rows} rows give bands of {bands[0]} rows after the pad, where a band must be "
+                f"a multiple of {multiple} and at least {least}")
+    return None
+
+
+def check_band(rows: int, multiple: int, least: int, net: str, axis) -> None:
+    """Under a spatial ``axis``: a band of ``rows`` rows (after the net's
+    pad) must be a multiple of its pyramid's factor and at least as deep as
+    its widest halo.  ``parallel/mesh.spatial_step`` replicates an item
+    whose bands would not be (the net's ``band_misfit``), so only a caller
+    that gives the net an axis itself reaches this."""
+    if axis is not None and (rows % multiple or rows < least):
+        raise ValueError(f"{net} on {axis.size} spatial ranks needs bands of a multiple of "
+                         f"{multiple} rows and at least {least} after its pad; got {rows}")
 
 
 def conv_transpose2d(in_features: int, features: int, kernel_size: int, stride: int,

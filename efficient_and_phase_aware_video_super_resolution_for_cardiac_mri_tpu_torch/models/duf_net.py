@@ -97,8 +97,6 @@ class _DenseBackbone(nn.Module):
 class DUFNet(nn.Module):
     """Reference ``duf_net.py:9-99``: (B, T, h, w, C) → (B, rh, rw, C)."""
 
-    #: every H window takes a halo (``parallel/halo.shard_spatially``)
-    spatial_ready = True
     #: the axis the unfold takes its halo over
     spatial_axis = None
 

@@ -36,9 +36,6 @@ class _ResBlock(nn.Module):
 
 
 class EDSRNet(nn.Module):
-    #: every conv takes a halo (``parallel/halo.shard_spatially``)
-    spatial_ready = True
-
     def __init__(self, in_channels: int, out_channels: int, num_resblocks: int,
                  num_features: int, upscale_factor: int, res_scale: float = 0.1,
                  generator: torch.Generator | None = None):

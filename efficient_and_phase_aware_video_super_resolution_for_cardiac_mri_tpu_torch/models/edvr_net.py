@@ -31,6 +31,16 @@ bf16-rounded weights, as the JAX package's net computes.
 (``pcd_align/{L3,L2,L1,cas}_dcnpack/dcn_offset_window``, the five
 neighbours' calls merged), recorded only inside ``telemetry.collect``.
 
+Under a spatial axis (``parallel/halo.py``) each rank holds a band of rows
+of every frame, a multiple of 4 LR rows: the pad is the frame's
+(``models/common.pad_to_multiple``), every conv exchanges its halo (the
+3×3/s2/p1 pyramid convs one row from above), the resizes take their band
+(``ops/resize.py``), TSA's pools take one row from above (−inf past the
+frame's border for the max, zeros for the count-including average), the
+PixelShuffles are row-local, and each DCN pack samples its band's window
+rows from the neighbours under ``dcn_max_offset``, else the frame
+gathered whole (``ops/deform_conv.spatial_operand``).
+
 Channels-last at the boundary, (B, N, h, w, C) → (B, 4h, 4w, C); NCHW
 inside.  Keys are the reference's (the JAX package's
 ``utils/torch_import.edvr_net_key_map``).
@@ -43,7 +53,8 @@ from torch import nn
 
 from ..ops.deform_conv import ModulatedDeformConvPack
 from ..ops.resize import resize_bilinear, upsample_bilinear
-from .common import PromotedConv2d, conv2d, pad_to_multiple
+from ..parallel.halo import halo
+from .common import PromotedConv2d, band_misfit, check_band, conv2d, pad_to_multiple
 
 
 def _lrelu(x):
@@ -56,14 +67,19 @@ def _conv(in_features: int, features: int, kernel_size: int, generator: torch.Ge
                   cls=PromotedConv2d)
 
 
-def _resize(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+def _resize(x: torch.Tensor, hw: tuple[int, int], axis=None) -> torch.Tensor:
     """``F.interpolate(mode='bilinear', align_corners=False)`` of NCHW ``x``
-    through the dense matrices of ``ops/resize.py`` (fp32)."""
-    return resize_bilinear(x.unsqueeze(-1), hw, align_corners=False)[..., 0]
+    through the dense matrices of ``ops/resize.py`` (fp32); under ``axis``
+    (a ×2 resize) this rank's band of the frame's."""
+    if axis is None:
+        return resize_bilinear(x.unsqueeze(-1), hw, align_corners=False)[..., 0]
+    if hw != (x.shape[-2] * 2, x.shape[-1] * 2):
+        raise ValueError(f"a sharded resize here is ×2; got {tuple(x.shape[-2:])} → {hw}")
+    return upsample_bilinear(x.unsqueeze(-1), 2, align_corners=False, axis=axis)[..., 0]
 
 
-def _up2(x: torch.Tensor) -> torch.Tensor:
-    return _resize(x, (x.shape[-2] * 2, x.shape[-1] * 2))
+def _up2(x: torch.Tensor, axis=None) -> torch.Tensor:
+    return _resize(x, (x.shape[-2] * 2, x.shape[-1] * 2), axis)
 
 
 class ResidualBlockNoBN(nn.Module):
@@ -100,6 +116,9 @@ class DCNPack(ModulatedDeformConvPack):
 class PCDAlign(nn.Module):
     """Pyramid, cascading and deformable alignment (``EDVR_arch.py:191-251``)."""
 
+    #: the axis the offsets' and features' resizes take their band over
+    spatial_axis = None
+
     def __init__(self, nf: int, groups: int, max_offset: int | None, generator: torch.Generator):
         super().__init__()
         g = generator
@@ -118,22 +137,23 @@ class PCDAlign(nn.Module):
         self.cas_dcnpack = DCNPack(nf, 3, groups, max_offset, g)
 
     def forward(self, nbr, ref):
+        a = self.spatial_axis
         # L3
         off = _lrelu(self.L3_offset_conv1(torch.cat([nbr[2], ref[2]], dim=1)))
         L3_offset = _lrelu(self.L3_offset_conv2(off))
         L3_fea = _lrelu(self.L3_dcnpack(nbr[2], L3_offset))
         # L2
         off = _lrelu(self.L2_offset_conv1(torch.cat([nbr[1], ref[1]], dim=1)))
-        off = _lrelu(self.L2_offset_conv2(torch.cat([off, _up2(L3_offset) * 2], dim=1)))
+        off = _lrelu(self.L2_offset_conv2(torch.cat([off, _up2(L3_offset, a) * 2], dim=1)))
         L2_offset = _lrelu(self.L2_offset_conv3(off))
         L2_fea = self.L2_dcnpack(nbr[1], L2_offset)
-        L2_fea = _lrelu(self.L2_fea_conv(torch.cat([L2_fea, _up2(L3_fea)], dim=1)))
+        L2_fea = _lrelu(self.L2_fea_conv(torch.cat([L2_fea, _up2(L3_fea, a)], dim=1)))
         # L1
         off = _lrelu(self.L1_offset_conv1(torch.cat([nbr[0], ref[0]], dim=1)))
-        off = _lrelu(self.L1_offset_conv2(torch.cat([off, _up2(L2_offset) * 2], dim=1)))
+        off = _lrelu(self.L1_offset_conv2(torch.cat([off, _up2(L2_offset, a) * 2], dim=1)))
         L1_offset = _lrelu(self.L1_offset_conv3(off))
         L1_fea = self.L1_dcnpack(nbr[0], L1_offset)
-        L1_fea = self.L1_fea_conv(torch.cat([L1_fea, _up2(L2_fea)], dim=1))
+        L1_fea = self.L1_fea_conv(torch.cat([L1_fea, _up2(L2_fea, a)], dim=1))
         # cascading
         off = _lrelu(self.cas_offset_conv1(torch.cat([L1_fea, ref[0]], dim=1)))
         off = _lrelu(self.cas_offset_conv2(off))
@@ -142,6 +162,9 @@ class PCDAlign(nn.Module):
 
 class TSAFusion(nn.Module):
     """Temporal and spatial attention fusion (``EDVR_arch.py:254-321``)."""
+
+    #: the axis the pools and resizes take their rows over
+    spatial_axis = None
 
     def __init__(self, nf: int, nframes: int, center: int, generator: torch.Generator):
         super().__init__()
@@ -162,11 +185,23 @@ class TSAFusion(nn.Module):
         self.sAtt_add_2 = _conv(nf, nf, 1, g)
 
     @staticmethod
-    def _pools(x):
+    def _pools(x, axis=None):
         # max pool pads with -inf; the average divides by the full window
         # (count_include_pad), the JAX package's _torch_avg_pool_3x3s2p1
-        return torch.cat([F.max_pool2d(x, 3, 2, 1),
-                          F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)], dim=1)
+        if axis is None:
+            return torch.cat([F.max_pool2d(x, 3, 2, 1),
+                              F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)], dim=1)
+        # a band's outputs read one row above it and none below: the row of
+        # the rank above, or past the frame's border -inf for the max and
+        # zero for the average (which still divides by 9)
+        rows = x.shape[-2]
+        xa = halo(x, 1, axis)[..., :rows + 1, :]
+        xm = xa
+        if axis.index == 0:
+            xm = torch.cat([torch.full_like(xa[..., :1, :], float("-inf")), xa[..., 1:, :]],
+                           dim=-2)
+        return torch.cat([F.max_pool2d(xm, 3, 2, (0, 1)),
+                          F.avg_pool2d(xa, 3, 2, (0, 1), count_include_pad=True)], dim=1)
 
     def forward(self, aligned):
         B, N, C, H, W = aligned.shape
@@ -175,14 +210,15 @@ class TSAFusion(nn.Module):
         cor_prob = torch.sigmoid((emb * emb_ref[:, None]).sum(2, keepdim=True))  # (B, N, 1, H, W)
         merged = (aligned * cor_prob).reshape(B, N * C, H, W)  # frame-major channels
 
+        a = self.spatial_axis
         fea = _lrelu(self.fea_fusion(merged))
         att = _lrelu(self.sAtt_1(merged))
-        att = _lrelu(self.sAtt_2(self._pools(att)))
+        att = _lrelu(self.sAtt_2(self._pools(att, a)))
         att_L = _lrelu(self.sAtt_L1(att))
-        att_L = _lrelu(self.sAtt_L2(self._pools(att_L)))
-        att_L = _up2(_lrelu(self.sAtt_L3(att_L)))
+        att_L = _lrelu(self.sAtt_L2(self._pools(att_L, a)))
+        att_L = _up2(_lrelu(self.sAtt_L3(att_L)), a)
         att = _lrelu(self.sAtt_3(att)) + att_L
-        att = _resize(_lrelu(self.sAtt_4(att)), (H, W))
+        att = _resize(_lrelu(self.sAtt_4(att)), (H, W), a)
         att = self.sAtt_5(att)
         att_add = self.sAtt_add_2(_lrelu(self.sAtt_add_1(att)))
         return fea * torch.sigmoid(att) * 2 + att_add
@@ -190,6 +226,9 @@ class TSAFusion(nn.Module):
 
 class PredeblurPyramid(nn.Module):
     """``EDVR_arch.py:148-188``."""
+
+    #: the axis the resizes take their band over
+    spatial_axis = None
 
     def __init__(self, in_channels: int, nf: int, HR_in: bool, generator: torch.Generator):
         super().__init__()
@@ -216,14 +255,23 @@ class PredeblurPyramid(nn.Module):
             L1 = _lrelu(self.conv_first(x))
         L2 = _lrelu(self.deblur_L2_conv(L1))
         L3 = _lrelu(self.deblur_L3_conv(L2))
-        L3 = _up2(self.RB_L3_1(L3))
-        L2 = _up2(self.RB_L2_2(self.RB_L2_1(L2) + L3))
+        L3 = _up2(self.RB_L3_1(L3), self.spatial_axis)
+        L2 = _up2(self.RB_L2_2(self.RB_L2_1(L2) + L3), self.spatial_axis)
         L1 = self.RB_L1_2(self.RB_L1_1(L1)) + L2
         return self.RB_L1_5(self.RB_L1_4(self.RB_L1_3(L1)))
 
 
 class EDVRNet(nn.Module):
     """``EDVR_arch.py:13-145``: (B, N, h, w, C) → (B, 4h, 4w, C)."""
+
+    spatial_axis = None
+    #: a band after the centred pad: a multiple of the two stride-2 levels' 4
+    spatial_band = (4, 4)
+
+    def band_misfit(self, rows: int, ranks: int) -> str | None:
+        """Why LR frames of ``rows`` rows do not split over ``ranks``
+        spatial ranks into bands this net takes; None when they do."""
+        return band_misfit(rows, ranks, *self.spatial_band)
 
     def __init__(self, in_channels: int, out_channels: int, nf: int = 64, nframes: int = 5,
                  groups: int = 8, front_RBs: int = 5, back_RBs: int = 10,
@@ -263,8 +311,10 @@ class EDVRNet(nn.Module):
         self.conv_last = _conv(64, out_channels, 3, g)
 
     def forward(self, lr_imgs: torch.Tensor) -> torch.Tensor:
-        x, crops = pad_to_multiple(lr_imgs, 4, dims=(-3, -2))
+        axis = self.spatial_axis
+        x, crops = pad_to_multiple(lr_imgs, 4, dims=(-3, -2), axis=axis)
         B, N, H, W, C = x.shape
+        check_band(H, *self.spatial_band, "EDVRNet", axis)
         x_center = x[:, self.center]
         frames = x.permute(0, 1, 4, 2, 3).reshape(B * N, C, H, W)
         if self.predeblur:
@@ -295,7 +345,8 @@ class EDVRNet(nn.Module):
         out = _lrelu(F.pixel_shuffle(self.upconv1(out), 2))
         out = _lrelu(F.pixel_shuffle(self.upconv2(out), 2))
         out = self.conv_last(_lrelu(self.HRconv(out))).permute(0, 2, 3, 1)
-        base = x_center if self.HR_in else upsample_bilinear(x_center, 4, align_corners=False)
+        base = (x_center if self.HR_in
+                else upsample_bilinear(x_center, 4, align_corners=False, axis=axis))
         out = out + base
         if crops is not None:  # crops of (B, N, H, W, C) at input scale, ×4 (JAX's crop)
             hs, ws = crops[2], crops[3]

@@ -27,6 +27,16 @@ forward folds the per-frame triples over time into the telemetry sites
 inside ``telemetry.collect``.  ``remat`` checkpoints each frame step under
 autograd (non-reentrant), as ``DRFNet`` does.
 
+Under a spatial axis (``parallel/halo.py``) each rank holds a band of rows
+of every frame and of the carry: FNet's pad is the frame's
+(``models/common.pad_to_multiple``), its convs and SRNet's exchange their
+halos (the ×2 transposed convs with ``output_padding`` one row below the
+band, ``parallel/halo.halo_conv_transpose2d``), the pools and
+``pixel_unshuffle`` are row-local, the resizes take their band, the warps
+read the rows their window reaches from the neighbours under ``max_flow``,
+else the frame gathered whole (``ops/warp.py``), and the flows are
+measured against the frame's height.
+
 Channels-last at the boundary: (B, T, h, w, C) → (B, T, rh, rw, C) SR
 frames and (B, T, h, w, C) warped LR frames; NCHW inside, flows (B, h, w,
 2).  Keys: ``fnet.body.conv{1..6}_{1,2}``, ``fnet.tail.conv{1,2}``,
@@ -44,8 +54,11 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import telemetry
 from ..ops.resize import upsample_bilinear
 from ..ops.warp import stn_warp
+from ..parallel.halo import HaloConvTranspose2d
 from .common import (
     PromotedConv2d,
+    band_misfit,
+    check_band,
     conv2d,
     conv_format,
     conv_transpose2d,
@@ -83,7 +96,8 @@ class SRNet(nn.Module):
         self.body = nn.ModuleList(_ResBlock(64, generator) for _ in range(num_resblocks))
         deconvs = {}
         for i in (1, 2):
-            deconv = conv_transpose2d(64, 64, 3, 2, 1, generator, output_padding=1)
+            deconv = conv_transpose2d(64, 64, 3, 2, 1, generator, output_padding=1,
+                                      cls=HaloConvTranspose2d)
             init_xavier_(deconv.weight, generator)
             deconvs[f"deconv{i}"] = deconv
         self.tail = nn.ModuleDict({**deconvs, "conv": _xconv(64, out_channels, generator)})
@@ -102,6 +116,9 @@ class FNet(nn.Module):
     (B, h, w, 2), on the pair padded to a multiple of 8 with its minimum
     (``F.pad(value=x.min())``), cropped back."""
 
+    #: the axis the pad and the resizes take their rows over
+    spatial_axis = None
+
     def __init__(self, in_channels: int, out_channels: int, generator: torch.Generator):
         super().__init__()
         body, f, c_in = {}, 32, 2 * in_channels
@@ -118,14 +135,16 @@ class FNet(nn.Module):
                                    "conv2": _xconv(32, out_channels, generator)})
 
     def forward(self, a, b):
-        x, crops = pad_to_multiple(torch.cat([a, b], dim=1), 8, dims=(-2, -1))
+        axis = self.spatial_axis
+        x, crops = pad_to_multiple(torch.cat([a, b], dim=1), 8, dims=(-2, -1), axis=axis)
+        check_band(x.shape[-2], *FRVSRNet.spatial_band, "FRVSRNet", axis)
         for i in range(1, 7):
             x = F.leaky_relu(self.body[f"conv{i}_1"](x), 0.2)
             x = F.leaky_relu(self.body[f"conv{i}_2"](x), 0.2)
             if i <= 3:
                 x = F.max_pool2d(x, 2)
             else:  # the resize product is fp32: later convs promote to it
-                x = upsample_bilinear(x.permute(0, 2, 3, 1), 2, align_corners=False)
+                x = upsample_bilinear(x.permute(0, 2, 3, 1), 2, align_corners=False, axis=axis)
                 x = x.permute(0, 3, 1, 2).contiguous(memory_format=conv_format(x.dtype))
         x = F.leaky_relu(self.tail["conv1"](x), 0.2)
         x = torch.tanh(self.tail["conv2"](x))
@@ -137,6 +156,15 @@ class FNet(nn.Module):
 class FRVSRNet(nn.Module):
     """Reference ``frvsr_net.py:11-62``: (B, T, h, w, C) → (sr_seq,
     warped_lr_seq), or sr_seq alone when ``is_prediction``."""
+
+    spatial_axis = None
+    #: a band after FNet's centred pad: a multiple of its three 2×2 pools' 8
+    spatial_band = (8, 8)
+
+    def band_misfit(self, rows: int, ranks: int) -> str | None:
+        """Why LR frames of ``rows`` rows do not split over ``ranks``
+        spatial ranks into bands this net takes; None when they do."""
+        return band_misfit(rows, ranks, *self.spatial_band)
 
     def __init__(self, in_channels: int, out_channels: int, upscale_factor: int,
                  is_prediction: bool = False, num_resblocks: int = 10,
@@ -170,21 +198,22 @@ class FRVSRNet(nn.Module):
         the LR frame ``x`` (B, C, h, w) → (new carry, SR frame (B, C, rh,
         rw), previous LR frame warped to ``x``, the (sr, lr) flows'
         exceedance triples when ``triples`` (else None))."""
-        r = self.upscale_factor
+        r, axis = self.upscale_factor, self.spatial_axis
         lr_last, sr_last = carry
         lr_flow = self.fnet(lr_last, x)
-        sr_flow = upsample_bilinear(lr_flow, r, align_corners=True)
+        sr_flow = upsample_bilinear(lr_flow, r, align_corners=True, axis=axis)
         warped_sr = stn_warp(sr_last.detach(), sr_flow[..., 0], sr_flow[..., 1], "border",
-                             max_flow=self.max_flow)
+                             max_flow=self.max_flow, axis=axis)
         packed = F.pixel_unshuffle(warped_sr, r)
         sr = self.srnet(torch.cat([packed, x], dim=1))
         warped_lr = stn_warp(lr_last, lr_flow[..., 0], lr_flow[..., 1], "border",
-                             max_flow=self.max_flow)
+                             max_flow=self.max_flow, axis=axis)
         tel = None
         if triples:
             # the STN flow is normalised: pixel displacement = u·W/2, v·H/2
-            # of the warped image
+            # of the warped image (the frame's height under an axis)
             h, w = x.shape[-2:]
+            h *= axis.size if axis is not None else 1
             tel = (telemetry.exceedance_triple(self.max_flow, sr_flow[..., 0].abs() * (w * r / 2.0),
                                                sr_flow[..., 1].abs() * (h * r / 2.0)),
                    telemetry.exceedance_triple(self.max_flow, lr_flow[..., 0].abs() * (w / 2.0),
@@ -211,7 +240,8 @@ class FRVSRNet(nn.Module):
         if triples:
             for name, site in (("sr_flow_window", 0), ("lr_flow_window", 1)):
                 stacked = torch.stack([tel[site] for tel in tels], dim=1)
-                telemetry.record_triple(self, name, telemetry.merge_time_axis(stacked))
+                telemetry.record_triple(self, name, telemetry.over_axis(
+                    telemetry.merge_time_axis(stacked), self.spatial_axis))
         sr_seq = torch.stack(srs, dim=1)
         if self.is_prediction:
             return sr_seq

@@ -138,9 +138,6 @@ def _res_chain(n_blocks: int, width: int, tail: nn.Module, generator: torch.Gene
 class RBPNet(nn.Module):
     """Reference ``rbp_net.py:8-91``: (B, T, h, w, C) → (B, rh, rw, C)."""
 
-    #: every conv takes a halo (``parallel/halo.shard_spatially``)
-    spatial_ready = True
-
     def __init__(self, in_channels: int, out_channels: int, base_filter: int, feat: int,
                  num_stages: int, num_resblocks: int, num_frames: int, upscale_factor: int,
                  generator: torch.Generator | None = None):

@@ -274,8 +274,6 @@ class RefineNet(nn.Module):
 
     #: registered but never called (quirk #3): no gradient, no optimizer state
     unused_parameters = ("refine_block.prelu.weight",)
-    #: its every conv takes a halo (``parallel/halo.shard_spatially``)
-    spatial_ready = True
 
     def __init__(
         self,

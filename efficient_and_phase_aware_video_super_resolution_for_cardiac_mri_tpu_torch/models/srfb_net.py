@@ -147,8 +147,6 @@ class SRFBNet(nn.Module):
     bilinear (``align_corners=False``) upscale of the input plus the
     reconstruction of that step's hidden state."""
 
-    #: every conv and the skip take a halo (``parallel/halo.shard_spatially``)
-    spatial_ready = True
     #: the axis the bilinear skip takes its band over
     spatial_axis = None
 
@@ -180,8 +178,6 @@ class DRFSISRNet(nn.Module):
     """DRF SISR variant (reference ``drf_sisr_net.py:8-148``): the feature-space
     sum of the LR features and the hidden state through the shared
     PixelShuffle ``UpsampleBlock``, one output a step."""
-
-    spatial_ready = True
 
     def __init__(self, in_channels: int, out_channels: int, num_steps: int, num_features: int,
                  num_groups: int, upscale_factor: int, generator: torch.Generator | None = None):
@@ -215,8 +211,6 @@ class DRFNet(nn.Module):
     backward keeps only the hidden states across frames and recomputes
     the rest (the JAX package's ``nn.remat`` of ``_DRFStep``); under a
     spatial axis the recompute reissues the step's halo exchanges."""
-
-    spatial_ready = True
 
     def __init__(self, in_channels: int, out_channels: int, num_features: int, num_groups: int,
                  upscale_factor: int, remat: bool = False, generator: torch.Generator | None = None):

@@ -25,6 +25,16 @@ telemetry site (``ops/telemetry.py``: ``spy_net/pyramid_flow_window`` and
 ``flow_window``, the JAX package's ``_sow_flow``), recorded only inside
 ``telemetry.collect``.
 
+Under a spatial axis (``parallel/halo.py``) each rank holds a band of rows
+of every frame: the bicubic upscale takes its band of the frame's
+(``ops/resize.py``), the pad's minimum is the frame's and its rows go to
+the top and bottom ranks (``models/common.pad_to_multiple``), the pools are
+row-local (a band's rows stay even down the pyramid), the flow resizes
+take their band, every 7×7 and 9×9 conv exchanges its halo, and each warp
+reads the rows its window reaches from the neighbours under ``max_flow``,
+else the frame gathered whole (``ops/warp.py``); each telemetry triple is
+the frame's (``ops/telemetry.over_axis``).
+
 Channels-last at the boundary, (B, T, h, w, C) → (B, rh, rw, C); NCHW
 inside, flows (B, H, W, 2).  Keys: ``spy_net.blocks.{i}.block.{0,1,3,4,6,7,
 9,10,12}`` and ``out_block.{0,2,4,6}`` (the JAX package's
@@ -37,10 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import telemetry
-from ..ops.resize import resize_bilinear, upsample_bicubic
+from ..ops.resize import upsample_bicubic, upsample_bilinear
 from ..ops.warp import flow_warp
-from .common import (BatchNorm2d, PromotedConv2d, batch_norm, batch_norm_active, conv2d,
-                     global_batch_norm, pad_to_multiple)
+from .common import (BatchNorm2d, PromotedConv2d, band_misfit, batch_norm, batch_norm_active,
+                     check_band, conv2d, global_batch_norm, pad_to_multiple)
 
 
 class _BatchNorm2d(BatchNorm2d):
@@ -66,12 +76,13 @@ class _BatchNorm2d(BatchNorm2d):
         return y
 
 
-def _record_flow(module: nn.Module, name: str, bound: int | None, flow: torch.Tensor) -> None:
-    """|flow| in pixels against the ``max_flow`` exactness bound; nothing is
-    computed unless collecting."""
+def _record_flow(module: nn.Module, name: str, bound: int | None, flow: torch.Tensor,
+                 axis=None) -> None:
+    """|flow| in pixels against the ``max_flow`` exactness bound, over the
+    frame's bands under ``axis``; nothing is computed unless collecting."""
     if bound is not None and telemetry.collecting(module):
-        telemetry.record_triple(module, name, telemetry.exceedance_triple(
-            bound, flow[..., 0].abs(), flow[..., 1].abs()))
+        telemetry.record_triple(module, name, telemetry.over_axis(telemetry.exceedance_triple(
+            bound, flow[..., 0].abs(), flow[..., 1].abs()), axis))
 
 
 def _conv(in_features: int, features: int, kernel_size: int, generator: torch.Generator):
@@ -103,6 +114,9 @@ class SpyNet(nn.Module):
     """Coarse-to-fine pyramid flow (reference ``toflow_net.py:70-92``):
     (ref, nbr) (B, C, H, W), H and W multiples of 16 → flow (B, H, W, 2)."""
 
+    #: the axis the flow resizes and warps take their rows over
+    spatial_axis = None
+
     def __init__(self, in_channels: int, generator: torch.Generator, max_flow: int | None = None):
         super().__init__()
         self.blocks = nn.ModuleList(SpyNetBlock(in_channels, generator) for _ in range(4))
@@ -115,11 +129,11 @@ class SpyNet(nn.Module):
             refs.insert(0, F.avg_pool2d(refs[0], 2))
             nbrs.insert(0, F.avg_pool2d(nbrs[0], 2))
         flow = ref.new_zeros(B, H // 16, W // 16, 2)
+        axis = self.spatial_axis
         for block, r, n in zip(self.blocks, refs, nbrs):
-            h, w = flow.shape[1] * 2, flow.shape[2] * 2
-            flow_up = resize_bilinear(flow, (h, w), align_corners=True) * 2.0
-            _record_flow(self, "pyramid_flow_window", self.max_flow, flow_up)
-            feats = torch.cat([r, flow_warp(n, flow_up, max_flow=self.max_flow),
+            flow_up = upsample_bilinear(flow, 2, align_corners=True, axis=axis) * 2.0
+            _record_flow(self, "pyramid_flow_window", self.max_flow, flow_up, axis)
+            feats = torch.cat([r, flow_warp(n, flow_up, max_flow=self.max_flow, axis=axis),
                                flow_up.permute(0, 3, 1, 2)], dim=1)
             flow = flow_up + block(feats).permute(0, 2, 3, 1)
         return flow
@@ -131,6 +145,18 @@ class TOFlowNet(nn.Module):
     ``max_flow=R``: every warp takes the windowed path of ``ops/warp.py``,
     exact while |flow| <= R px (the JAX package's option; None is the
     reference's unbounded warp)."""
+
+    spatial_axis = None
+    #: a band after the centred pad: a multiple of SpyNet's factor 16 (its
+    #: coarsest flow is H/16 rows) and at least 24 rows (its level H/8
+    #: takes 7×7 halos)
+    spatial_band = (16, 24)
+
+    def band_misfit(self, rows: int, ranks: int) -> str | None:
+        """Why LR frames of ``rows`` rows do not split over ``ranks``
+        spatial ranks into bands this net takes (of the upsampled frame);
+        None when they do."""
+        return band_misfit(self.upscale_factor * rows, ranks, *self.spatial_band)
 
     def __init__(self, in_channels: int, out_channels: int, num_frames: int, upscale_factor: int,
                  max_flow: int | None = None, generator: torch.Generator | None = None):
@@ -151,9 +177,11 @@ class TOFlowNet(nn.Module):
     def forward(self, lr_imgs: torch.Tensor) -> torch.Tensor:
         T = self.num_frames
         ref_idx = T // 2 if T % 2 == 1 else T // 2 - 1
-        x = upsample_bicubic(lr_imgs, self.upscale_factor, align_corners=False)
-        x, crops = pad_to_multiple(x, 16, dims=(-3, -2))
+        axis = self.spatial_axis
+        x = upsample_bicubic(lr_imgs, self.upscale_factor, align_corners=False, axis=axis)
+        x, crops = pad_to_multiple(x, 16, dims=(-3, -2), axis=axis)
         B, _, H, W, C = x.shape
+        check_band(H, *self.spatial_band, "TOFlowNet", axis)
         x = x.permute(0, 1, 4, 2, 3).contiguous()  # (B, T, C, H, W)
         x_ref = x[:, ref_idx]
         if self.training:
@@ -163,15 +191,16 @@ class TOFlowNet(nn.Module):
                     warped.append(x_ref)
                     continue
                 flow = self.spy_net(x_ref, x[:, i])
-                _record_flow(self, "flow_window", self.max_flow, flow)
-                warped.append(flow_warp(x[:, i], flow, max_flow=self.max_flow))
+                _record_flow(self, "flow_window", self.max_flow, flow, axis)
+                warped.append(flow_warp(x[:, i], flow, max_flow=self.max_flow, axis=axis))
         else:
             nbr_idx = [i for i in range(T) if i != ref_idx]
             n = len(nbr_idx)
             flat = x[:, nbr_idx].reshape(B * n, C, H, W)
             flows = self.spy_net(x_ref.repeat_interleave(n, dim=0), flat)
-            _record_flow(self, "flow_window", self.max_flow, flows)
-            warped_nbrs = flow_warp(flat, flows, max_flow=self.max_flow).reshape(B, n, C, H, W)
+            _record_flow(self, "flow_window", self.max_flow, flows, axis)
+            warped_nbrs = flow_warp(flat, flows, max_flow=self.max_flow,
+                                    axis=axis).reshape(B, n, C, H, W)
             nbr_of = {i: k for k, i in enumerate(nbr_idx)}
             warped = [x_ref if i == ref_idx else warped_nbrs[:, nbr_of[i]] for i in range(T)]
         # frame-major channels: the reference's view(B, T*C, H, W)

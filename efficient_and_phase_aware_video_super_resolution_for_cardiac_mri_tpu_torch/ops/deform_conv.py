@@ -8,8 +8,8 @@ passes are the hand-written kernels of ``csrc/deform_conv.cu``, and the
 contraction is one ``torch.matmul``:
 
 * sampling point of output (ho, wo), tap (i, j), deformable group g:
-    py = ho·stride − pad + i·dilation + offset[b, g·2K + 2·tap, ho, wo]
-    px = wo·stride − pad + j·dilation + offset[b, g·2K + 2·tap + 1, ho, wo]
+    py = ho·stride − pad_h + i·dilation + offset[b, g·2K + 2·tap, ho, wo]
+    px = wo·stride − pad_w + j·dilation + offset[b, g·2K + 2·tap + 1, ho, wo]
   (channel ``g·2K + 2·tap`` is y, ``+1`` is x; the mask's is ``g·K + tap``;
   K = kh·kw, tap = i·kw + j), coordinates in fp32 whatever the dtype;
 * a bilinear sample with zero padding: a corner outside the image adds
@@ -38,6 +38,17 @@ Dtypes follow the JAX package's promotion: col is in the promoted dtype of
 x and the mask (an fp32 mask from an fp32 offset conv makes a bf16 x's col
 fp32, as in JAX), the product in the promoted dtype of col and the weight.
 The kernels compute in fp32 and round once, at the store.
+
+The geometry takes a row origin: ``pad_h`` (the conv's padding by default)
+may differ from ``pad_w`` and be negative, and the output height ``Ho`` is
+the caller's.  Under a spatial axis (``parallel/halo.py``) the modules
+below pass the kernels one of two x's for a band of output rows: with
+``max_offset=R`` the band with the R + 2 frame rows above and below it
+that a window reaches (fewer at the frame's border, where the frame
+ends), ``pad_h`` = padding − the rows above; without, the frame gathered
+whole (``parallel/halo.gather_frame``), ``pad_h`` = padding − the band's
+first row.  Either way a sample's corners and its outer test are the
+whole frame's.
 
 On CUDA tensors :func:`deform_conv2d` always runs the kernels (a failed
 build or launch raises); on CPU tensors the same autograd function runs the
@@ -106,10 +117,11 @@ class Geometry:
     kh: int
     kw: int
     stride: int
-    pad: int
+    pad_w: int
     dil: int
     dg: int
     R: int
+    pad_h: int
 
     @property
     def K(self) -> int:
@@ -117,22 +129,26 @@ class Geometry:
 
     def as_int64(self):
         vals = (self.B, self.C, self.H, self.W, self.Ho, self.Wo, self.kh, self.kw,
-                self.stride, self.pad, self.dil, self.dg, self.R)
+                self.stride, self.pad_w, self.dil, self.dg, self.R, self.pad_h)
         return (ctypes.c_int64 * len(vals))(*vals)
 
 
 def geometry(x_shape, kh: int, kw: int, stride: int = 1, padding: int = 0, dilation: int = 1,
-             deformable_groups: int = 1, max_offset: int | None = None) -> Geometry:
+             deformable_groups: int = 1, max_offset: int | None = None,
+             pad_h: int | None = None, out_h: int | None = None) -> Geometry:
     """The geometry of a deformable conv on x of ``x_shape``; the window
-    applies at stride and dilation 1 only (the JAX package's dispatch)."""
+    applies at stride and dilation 1 only (the JAX package's dispatch).
+    ``pad_h`` (``padding`` by default) is the row origin: output row ho
+    reads x's rows from ho·stride − pad_h; ``out_h`` the output height
+    (by default from H and ``padding``)."""
     B, C, H, W = x_shape
     if C % deformable_groups:
         raise ValueError(f"Cin={C} not divisible by deformable_groups={deformable_groups}.")
-    Ho = (H + 2 * padding - (dilation * (kh - 1) + 1)) // stride + 1
+    Ho = (H + 2 * padding - (dilation * (kh - 1) + 1)) // stride + 1 if out_h is None else out_h
     Wo = (W + 2 * padding - (dilation * (kw - 1) + 1)) // stride + 1
     windowed = max_offset is not None and stride == 1 and dilation == 1
     return Geometry(B, C, H, W, Ho, Wo, kh, kw, stride, padding, dilation, deformable_groups,
-                    int(max_offset) if windowed else -1)
+                    int(max_offset) if windowed else -1, padding if pad_h is None else pad_h)
 
 
 # ------------------------------------------------------------ plain versions
@@ -150,8 +166,8 @@ def _corners(offset: torch.Tensor, g: Geometry):
     taps = torch.arange(K, device=dev)
     ty = ((taps // g.kw) * g.dil).float().view(1, 1, K, 1, 1)
     tx = ((taps % g.kw) * g.dil).float().view(1, 1, K, 1, 1)
-    by = (torch.arange(Ho, device=dev) * g.stride - g.pad).float().view(1, 1, 1, Ho, 1) + ty
-    bx = (torch.arange(Wo, device=dev) * g.stride - g.pad).float().view(1, 1, 1, 1, Wo) + tx
+    by = (torch.arange(Ho, device=dev) * g.stride - g.pad_h).float().view(1, 1, 1, Ho, 1) + ty
+    bx = (torch.arange(Wo, device=dev) * g.stride - g.pad_w).float().view(1, 1, 1, 1, Wo) + tx
     py, px = by + oy, bx + ox
     inside = (py > -1) & (px > -1) & (py < g.H) & (px < g.W)
     if g.R < 0:
@@ -250,10 +266,12 @@ def _contract(col: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
 
 
 def deform_conv2d_reference(x, offset, weight, mask=None, bias=None, stride=1, padding=0,
-                            dilation=1, deformable_groups=1, max_offset=None):
+                            dilation=1, deformable_groups=1, max_offset=None, pad_h=None,
+                            out_h=None):
     """The plain version of :func:`deform_conv2d`, under autograd."""
     kh, kw = weight.shape[2:]
-    g = geometry(x.shape, kh, kw, stride, padding, dilation, deformable_groups, max_offset)
+    g = geometry(x.shape, kh, kw, stride, padding, dilation, deformable_groups, max_offset,
+                 pad_h, out_h)
     return _contract(deform_im2col_reference(x, offset, mask, g), weight, bias, g)
 
 
@@ -433,16 +451,19 @@ class _DeformConv(torch.autograd.Function):
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                   mask: torch.Tensor | None = None, bias: torch.Tensor | None = None,
                   stride: int = 1, padding: int = 0, dilation: int = 1,
-                  deformable_groups: int = 1, max_offset: int | None = None) -> torch.Tensor:
+                  deformable_groups: int = 1, max_offset: int | None = None,
+                  pad_h: int | None = None, out_h: int | None = None) -> torch.Tensor:
     """(Modulated) deformable conv, NCHW.
 
     x (B, Cin, H, W); offset (B, dg·2K, Ho, Wo) in the layout of the module
     docstring; mask (B, dg·K, Ho, Wo) or None (DCNv1); weight (Cout, Cin,
     kh, kw); bias (Cout,) or None → (B, Cout, Ho, Wo).  ``max_offset=R``:
-    the windowed sampling (stride and dilation 1).  The CUDA kernels on CUDA
-    tensors, the plain versions on CPU tensors."""
+    the windowed sampling (stride and dilation 1).  ``pad_h`` and ``out_h``:
+    the row origin and the output height (:func:`geometry`).  The CUDA
+    kernels on CUDA tensors, the plain versions on CPU tensors."""
     kh, kw = weight.shape[2:]
-    g = geometry(x.shape, kh, kw, stride, padding, dilation, deformable_groups, max_offset)
+    g = geometry(x.shape, kh, kw, stride, padding, dilation, deformable_groups, max_offset,
+                 pad_h, out_h)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"deform_conv2d runs on CUDA or CPU tensors, got {x.device}")
     return _DeformConv.apply(x, offset, mask, weight, bias, g)
@@ -480,9 +501,40 @@ def _zero_conv(cin: int, cout: int, k: int, stride: int, padding: int) -> nn.Con
     return conv
 
 
+#: deformable convs run under a spatial axis, by the x the kernels took:
+#: the band with its window's rows (``band``), the gathered frame (``frame``)
+SPATIAL_CALLS = {"band": 0, "frame": 0}
+
+
+def spatial_operand(x: torch.Tensor, kh: int, padding: int, max_offset: int | None,
+                    axis) -> tuple[torch.Tensor, int, str]:
+    """The x the kernels take for this rank's band of output rows of a
+    stride-1 deformable conv of ``x`` (…, H_local, W), and its row origin:
+    ``(x, pad_h, kind)``.  Windowed (``max_offset=R``): the band with the
+    frame rows a kept corner or the outer test can reach, padding + R + 1
+    above and kh − 1 − padding + R + 1 below (R + 2 for EDVR's 3×3), cut
+    where the frame ends, so that the kernels' outer test at the frame's
+    border is the frame's; when the band cannot lend that many rows, and
+    without a window, the frame gathered whole."""
+    from ..parallel.halo import gather_frame, halo
+
+    rows, S, i = x.shape[-2], axis.size, axis.index
+    if max_offset is not None:
+        k = max(padding, kh - 1 - padding) + int(max_offset) + 1
+        if k <= rows:
+            xh = halo(x, k, axis)
+            above, below = (k if i > 0 else 0), (k if i < S - 1 else 0)
+            return xh[..., k - above:k + rows + below, :], padding - above, "band"
+    return gather_frame(x, axis), padding - i * rows, "frame"
+
+
 class DeformConv(nn.Module):
     """DCNv1 with external offsets (reference ``:151-198``): no bias unless
-    ``bias=True``."""
+    ``bias=True``.  Under a spatial axis (stride 1, 'same' padding) each
+    rank computes its band of output rows (:func:`spatial_operand`)."""
+
+    #: the spatial axis (``parallel/halo.shard_spatially``)
+    spatial_axis = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -497,12 +549,23 @@ class DeformConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def _conv(self, x, offset, mask=None):
+        axis = self.spatial_axis
         if self.max_offset is not None:
             telemetry.record_offset_exceedance(self, offset, self.deformable_groups,
-                                               self.max_offset)
+                                               self.max_offset, axis=axis)
+        pad_h = out_h = None
+        if axis is not None:
+            if self.stride != 1 or self.dilation != 1 or offset.shape[-2] != x.shape[-2]:
+                raise ValueError("a sharded deformable conv takes stride 1, dilation 1 and "
+                                 "'same' padding")
+            out_h = x.shape[-2]
+            x, pad_h, kind = spatial_operand(x, self.kernel_size, self.padding, self.max_offset,
+                                             axis)
+            SPATIAL_CALLS[kind] += 1
         return deform_conv2d(x, offset, self.weight, mask=mask, bias=self.bias,
                              stride=self.stride, padding=self.padding, dilation=self.dilation,
-                             deformable_groups=self.deformable_groups, max_offset=self.max_offset)
+                             deformable_groups=self.deformable_groups, max_offset=self.max_offset,
+                             pad_h=pad_h, out_h=out_h)
 
     def forward(self, x, offset):
         return self._conv(x, offset)
@@ -557,4 +620,5 @@ __all__ = ["deform_conv2d", "modulated_deform_conv2d", "deform_conv2d_reference"
            "deform_im2col", "deform_col2im", "deform_col2im_coord", "deform_im2col_reference",
            "deform_col2im_reference", "deform_col2im_coord_reference", "geometry", "Geometry",
            "DeformConv", "ModulatedDeformConv", "DeformConvPack", "ModulatedDeformConvPack",
-           "LAUNCHES", "BF16_LAUNCHES", "TRACE_NAMES", "trace_share", "reset_launches"]
+           "LAUNCHES", "BF16_LAUNCHES", "TRACE_NAMES", "trace_share", "reset_launches",
+           "SPATIAL_CALLS", "spatial_operand"]

@@ -29,8 +29,9 @@ rows of the **global** height matrix for that band, against the rank's
 rows with the halo those rows reach attached (:func:`band_plan`).  The
 zero halo rows past the frame's border meet zero columns, since a clamped
 tap's weight sits in the edge column.  Where the halo would exceed a band
-(a few rows a rank under bicubic), the frame is gathered whole instead;
-the resizes' input is a net's input, which carries no gradient.
+(a few rows a rank under bicubic, a pyramid's coarsest level), the frame
+is gathered whole instead (``parallel/halo.gather_frame``, whose backward
+returns each rank its rows' gradient).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import functools
 import numpy as np
 import torch
 
-from ..parallel.halo import SpatialAxis, gather_rows, halo
+from ..parallel.halo import SpatialAxis, gather_frame, halo
 
 
 def _cubic_kernel(x: np.ndarray, A: float = -0.75) -> np.ndarray:
@@ -139,13 +140,11 @@ def _band_rows(x: torch.Tensor, out_h: int, align_corners: bool, kind: str,
     parts = axis.size
     k, mh = _device_band(x.shape[-3] * parts, out_h * parts, align_corners, kind, parts,
                          axis.index, x.device)
+    # the exchanges run over (…, H, W): channels to the front and back
+    x = x.movedim(-1, -3)
     if k is None:
-        if x.requires_grad:  # gather_rows returns no gradient
-            raise ValueError(f"a band of {x.shape[-3]} rows is narrower than its resize's halo, "
-                             "and a gathered frame carries no gradient back")
-        return gather_rows(x, axis), mh
-    # the halo exchange runs over (…, H, W): channels to the front and back
-    return halo(x.movedim(-1, -3), k, axis).movedim(-3, -1), mh
+        return gather_frame(x, axis).movedim(-3, -1), mh
+    return halo(x, k, axis).movedim(-3, -1), mh
 
 
 def _resize(x: torch.Tensor, out_hw, align_corners: bool, kind: str,

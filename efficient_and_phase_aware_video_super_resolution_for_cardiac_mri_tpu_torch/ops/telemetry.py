@@ -60,6 +60,19 @@ def merge_triples(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([a[:2] + b[:2], torch.maximum(a[2:], b[2:])])
 
 
+def over_axis(triple: torch.Tensor, axis) -> torch.Tensor:
+    """A band's triple merged with the other bands' of its frame (every
+    rank of the spatial ``axis`` calls it; ``parallel/halo.SpatialAxis``,
+    None: the triple itself), by one ``all_gather``."""
+    if axis is None:
+        return triple
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(triple) for _ in range(axis.size)]
+    dist.all_gather(parts, triple.contiguous(), group=axis.group)
+    return merge_time_axis(torch.stack(parts, dim=1))
+
+
 def merge_time_axis(stacked: torch.Tensor) -> torch.Tensor:
     """Fold a (3, T) stack of per-step triples into one."""
     return torch.stack([stacked[0].sum(), stacked[1].sum(), stacked[2].max()])
@@ -128,18 +141,19 @@ def record_triple(module: nn.Module, name: str, triple: torch.Tensor) -> None:
 
 
 def record_offset_exceedance(module: nn.Module, offset: torch.Tensor, deformable_groups: int,
-                             bound: float, name: str = "dcn_offset_window") -> None:
+                             bound: float, name: str = "dcn_offset_window", axis=None) -> None:
     """A deformable conv's call site (the JAX package's
     ``sow_offset_exceedance``): |y| and |x| of every group's and tap's
     offset, (B, dg·2K, Ho, Wo) with channel ``g·2K + 2·tap`` the y and
     ``+1`` the x component, against ``dcn_max_offset``; nothing is computed
-    unless collecting."""
+    unless collecting.  Under a spatial ``axis`` the band's triple is merged
+    with the frame's other bands' (:func:`over_axis`)."""
     if not collecting(module):
         return
     B, C, Ho, Wo = offset.shape
     off = offset.reshape(B, deformable_groups, C // (2 * deformable_groups), 2, Ho, Wo)
-    record_triple(module, name, exceedance_triple(bound, off[:, :, :, 0].abs(),
-                                                  off[:, :, :, 1].abs()))
+    record_triple(module, name, over_axis(exceedance_triple(bound, off[:, :, :, 0].abs(),
+                                                            off[:, :, :, 1].abs()), axis))
 
 
 # --------------------------------------------------------------- host side

@@ -24,6 +24,15 @@ The port's copy of the JAX package's ``ops/warp.py`` for TOFlow:
 
 Images are (B, C, H, W); a grid or a flow is (B, H, W, 2) with x first, as
 ``F.grid_sample`` takes its grid.
+
+Under a spatial ``axis`` (``parallel/halo.py``) each rank holds a band of
+rows of the image and of the flow: the flows are normalised by the
+frame's height and measured from the frame's row index.  The windowed
+path takes its window's rows from the neighbours
+(``parallel/halo.halo_rows``: zeros past the frame's border, or its edge
+row for ``border``); the exact path samples the frame gathered whole
+(``parallel/halo.gather_frame``, whose backward returns each rank its rows'
+gradient) at the band's grid.
 """
 from __future__ import annotations
 
@@ -32,6 +41,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.halo import SpatialAxis, gather_frame, halo_rows
 
 
 def grid_sample(x: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros",
@@ -56,20 +67,33 @@ def _corner_weights(o: torch.Tensor, d: int) -> torch.Tensor:
     return torch.where(fl == d, 1.0 - frac, zero) + torch.where(fl + 1 == d, frac, zero)
 
 
+def _rows(H: int, axis: SpatialAxis | None) -> tuple[int, int]:
+    """(the frame's height, its row of this band's first row) for a band
+    of ``H`` rows."""
+    if axis is None:
+        return H, 0
+    return H * axis.size, H * axis.index
+
+
 def windowed_sample(x: torch.Tensor, off_y: torch.Tensor, off_x: torch.Tensor, max_flow: int,
-                    padding_mode: str = "zeros") -> torch.Tensor:
+                    padding_mode: str = "zeros", axis: SpatialAxis | None = None) -> torch.Tensor:
     """Gather-free bilinear sample of x (B, C, H, W) at each pixel plus the
     displacement (off_y, off_x) (B, H, W), summed over the window d ∈
     [−R, R]² of shifted maps (one pad, then slices) times the corner weights
     (fp32, cast to ``x.dtype`` before the product, in the JAX package's
-    order of operations)."""
+    order of operations).  Under ``axis`` the window's rows above and below
+    the band come from the frame (:func:`parallel.halo.halo_rows`)."""
     B, C, H, W = x.shape
     R = int(max_flow)
     oy, ox = off_y.float(), off_x.float()
     if padding_mode == "border":
         oy, ox = oy.clamp(-R, R), ox.clamp(-R, R)
     mode = "replicate" if padding_mode == "border" else "constant"
-    xp = F.pad(x, (R, R, R, R), mode=mode)
+    if axis is None:
+        xp = F.pad(x, (R, R, R, R), mode=mode)
+    else:
+        xh = halo_rows(x, R, axis, "replicate" if padding_mode == "border" else "zeros")
+        xp = F.pad(xh, (R, R, 0, 0), mode=mode)
     wxs = [_corner_weights(ox, dx) for dx in range(-R, R + 1)]  # the same for every row
     acc = None
     for dy in range(-R, R + 1):
@@ -83,17 +107,19 @@ def windowed_sample(x: torch.Tensor, off_y: torch.Tensor, off_x: torch.Tensor, m
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros",
-              max_flow: int | None = None) -> torch.Tensor:
+              max_flow: int | None = None, axis: SpatialAxis | None = None) -> torch.Tensor:
     """TOFlow's warp: x (B, C, H, W), flow (B, H, W, 2) in pixels, (x, y).
 
     ``max_flow=R`` takes the windowed path, exact while |flow| <= R px on
     both axes: the chain's effective displacement is
     flow·size/(size−1) + pos/(size−1) − 0.5, up to flow/(size−1) + 0.5 px
     beyond |flow|, so the window is widened to
-    ``ceil((2·R·size + size − 1) / (2·size − 2))`` (R + 1 at these sizes)."""
-    B, C, H, W = x.shape
+    ``ceil((2·R·size + size − 1) / (2·size − 2))`` (R + 1 at these sizes).
+    ``axis``: x and flow are this rank's band of rows."""
+    B, C, Hl, W = x.shape
+    H, r0 = _rows(Hl, axis)
     grid_x = torch.arange(W, dtype=torch.float32, device=x.device)[None, None, :]
-    grid_y = torch.arange(H, dtype=torch.float32, device=x.device)[None, :, None]
+    grid_y = torch.arange(r0, r0 + Hl, dtype=torch.float32, device=x.device)[None, :, None]
     vx = grid_x + flow[..., 0].float()
     vy = grid_y + flow[..., 1].float()
     gx = 2.0 * vx / max(W - 1, 1) - 1.0
@@ -106,8 +132,9 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros",
             _ceil_div(2 * max_flow * W + W - 1, 2 * W - 2) if W > 1 else max_flow,
             _ceil_div(2 * max_flow * H + H - 1, 2 * H - 2) if H > 1 else max_flow,
         )
-        return windowed_sample(x, sy - grid_y, sx - grid_x, win, padding_mode)
-    return grid_sample(x, torch.stack([gx, gy], dim=-1), padding_mode, align_corners=False)
+        return windowed_sample(x, sy - grid_y, sx - grid_x, win, padding_mode, axis)
+    return grid_sample(gather_frame(x, axis), torch.stack([gx, gy], dim=-1), padding_mode,
+                       align_corners=False)
 
 
 @functools.lru_cache(maxsize=64)
@@ -122,7 +149,7 @@ def _mesh(size: int, device: torch.device) -> torch.Tensor:
 
 
 def stn_warp(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, padding_mode: str = "border",
-             max_flow: int | None = None) -> torch.Tensor:
+             max_flow: int | None = None, axis: SpatialAxis | None = None) -> torch.Tensor:
     """FRVSR's STN warp: x (B, C, H, W); u, v (B, H, W) normalised flow
     added to the mesh, then sampled with ``align_corners=False`` → (B, C,
     H, W) in ``x.dtype``.
@@ -130,14 +157,17 @@ def stn_warp(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor, padding_mode: st
     ``max_flow=R`` takes the windowed path, exact while the pixel flow
     (normalised flow · size/2) stays within R: the mesh's offset from the
     pixel centres is a position-dependent shift in (−0.5, +0.5], so the
-    window is R + 1."""
-    B, C, H, W = x.shape
+    window is R + 1.  ``axis``: x, u and v are this rank's band of rows,
+    the mesh the frame's rows of that band."""
+    B, C, Hl, W = x.shape
+    H, r0 = _rows(Hl, axis)
     gx = _mesh(W, x.device)[None, None, :] + u.float()
-    gy = _mesh(H, x.device)[None, :, None] + v.float()
+    gy = _mesh(H, x.device)[None, r0:r0 + Hl, None] + v.float()
     if max_flow is not None:
         sx = ((gx + 1.0) * W - 1.0) / 2.0
         sy = ((gy + 1.0) * H - 1.0) / 2.0
         grid_x = torch.arange(W, dtype=torch.float32, device=x.device)[None, None, :]
-        grid_y = torch.arange(H, dtype=torch.float32, device=x.device)[None, :, None]
-        return windowed_sample(x, sy - grid_y, sx - grid_x, max_flow + 1, padding_mode)
-    return grid_sample(x, torch.stack([gx, gy], dim=-1), padding_mode, align_corners=False)
+        grid_y = torch.arange(r0, r0 + Hl, dtype=torch.float32, device=x.device)[None, :, None]
+        return windowed_sample(x, sy - grid_y, sx - grid_x, max_flow + 1, padding_mode, axis)
+    return grid_sample(gather_frame(x, axis), torch.stack([gx, gy], dim=-1), padding_mode,
+                       align_corners=False)

@@ -19,12 +19,15 @@ device is a rank and the axes are process groups:
   spatial), and with equal shards the mean of the ranks' local means is the
   global mean.  A height that the spatial size does not divide is computed
   whole on every rank of the group, with the JAX package's one-time
-  warning; ``pad_h`` edge-extends it to a multiple instead
+  warning, and so is one whose bands would not fit the net's pad and
+  pyramid (TOFlow, FRVSR, EDVR: :func:`spatial_step`); ``pad_h``
+  edge-extends a height to a multiple of the spatial size
   (:func:`pad_height_to_multiple`).  A training BatchNorm reduces its
   statistics over the ranks that hold the step's other rows and other
   items, and no further (:meth:`Mesh.statistics_group`): a replicated
-  item or batch is counted once.  The nets whose class declares
-  ``spatial_ready`` (ROADMAP item 10c).
+  item or batch is counted once.  Every net of the zoo takes the axis;
+  a warp or a deformable conv whose flow or offsets are unbounded reads
+  the frame gathered whole (``parallel/halo.gather_frame``).
 * ``model``: ZeRO-3, as the JAX package's ``param_spec`` /
   ``gather_for_compute`` do it: every parameter and its optimizer state
   are stored sharded over the model ranks (FSDP2 ``fully_shard`` on a 2-D
@@ -283,10 +286,24 @@ def spatial_step(net: torch.nn.Module, shape: tuple, mesh: Mesh | None) -> tuple
     it and the spatial axis, ``net`` given that axis for the item's
     forward (and its backward's recompute); (None, None) without a spatial
     axis, and with the net's axis off when the height is not divisible
-    (:func:`spatial_rows`)."""
+    (:func:`spatial_rows`) or does not give the net the bands its pad and
+    pyramid need (a module's ``band_misfit``; warned once a shape): the
+    item is then computed whole on every rank of the group, as the JAX
+    package's GSPMD runs any height."""
     if mesh is None or mesh.spatial == 1:
         return None, None
     rows = spatial_rows(shape, mesh)
+    height = shape[len(shape) - 3]
+    for module in net.modules() if rows is not None else ():
+        misfit = hasattr(module, "band_misfit") and module.band_misfit(height, mesh.spatial)
+        if misfit:
+            _warn_once(
+                ("spatial", tuple(shape)),
+                f"{type(module).__name__} on spatial_parallel={mesh.spatial}: {misfit}; "
+                f"replicating the {tuple(shape)} array over the spatial axis (no latency win "
+                "for this item). Pick a height that gives such bands to shard.")
+            rows = None
+            break
     axis = mesh.spatial_axis if rows is not None else None
     set_spatial_axis(net, axis)
     return rows, axis

@@ -172,7 +172,7 @@ class BasePredictor:
         #: without a spatial axis)
         self.pad_h = bool(pad_h)
         if net is not None and mesh is not None:
-            shard_spatially(net, mesh.spatial_axis)  # refuses a net not ready for it
+            shard_spatially(net, mesh.spatial_axis)
         self.telemetry = bool(telemetry)
         self.telemetry_warn_frac = float(telemetry_warn_frac)
         #: the run's per-site aggregate of the items' telemetry summaries

@@ -38,6 +38,9 @@ class FRVSRStream:
     that dtype, its carry and inputs cast, its SR frames returned in fp32;
     without it the step reads the net's own weights.  ``aot_cache`` is
     accepted as the predictors accept it (``runner/common.accept_aot_cache``).
+    A net with a spatial axis (``parallel/halo.shard_spatially``) streams
+    this rank's band of each frame: every rank of the group pushes its
+    rows, and the carry keeps them.
     """
 
     def __init__(self, net: FRVSRNet, compute_dtype=None, aot_cache: str | None = None):

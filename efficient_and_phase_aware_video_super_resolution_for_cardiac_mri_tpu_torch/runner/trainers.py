@@ -65,7 +65,8 @@ under a model axis); a directory checkpoint is written by every rank.
 ``skip_nonfinite`` is checked at each epoch boundary, after the train log,
 as in the JAX package (``runner/optim.py``).
 
-Under a spatial axis (the nets whose class declares ``spatial_ready``) the
+Under a spatial axis (every net of the zoo; an item whose height does not
+give the net its bands is computed whole, ``parallel/mesh.spatial_step``) the
 ranks of a spatial group take the same items, and each feeds the net its
 rows of the image arrays (LR and HR; the phase code goes whole): the
 net's convs exchange their halos (``parallel/halo.py``) and each rank's

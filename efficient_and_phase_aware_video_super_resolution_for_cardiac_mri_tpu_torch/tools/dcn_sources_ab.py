@@ -8,8 +8,10 @@ Builds each source given (by nvcc, with the package's flags, into
 ``build/``) beside the package's own ``csrc/deform_conv.cu`` and times,
 per launch, im2col on an NCHW x (its transpose included) and on a
 channels-last x, and col2im, for each build in turns (this tree, the
-others, the others backwards, this tree); col2im_coord for this tree
-alone, as another source's entry point may take other arguments.  The
+others, the others backwards, this tree), and col2im_coord: every
+source's entry points must take the tree's arguments (the geometry's row
+origin ``pad_h`` is its last field, so a source from before it, with one
+``pad``, reads the fields it knows at these meshless geometries).  The
 operands and the timer are ``chip_smoke.py`` phase 19's (EDVR's L1 DCN call
 at the serving window and the training batch, 8 deformable groups, offsets
 up to ±3.5 px, fp32 and bf16, CUDA graphs over operand sets larger than
@@ -48,7 +50,7 @@ def _chip_smoke():
 
 
 def _build_other(source: Path) -> _build.Built:
-    """``source`` built into ``build/`` and its im2col and col2im bound."""
+    """``source`` built into ``build/`` and its three entry points bound."""
     text = source.read_bytes()
     digest = hashlib.sha256(text + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
     out = _build.BUILD_DIR / f"{source.stem}-ab-{digest}.so"
@@ -58,7 +60,8 @@ def _build_other(source: Path) -> _build.Built:
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, operands in {"deform_im2col": [ptr, i32, ptr, ptr, ptr, ptr],
-                           "deform_col2im": [ptr] * 5}.items():
+                           "deform_col2im": [ptr] * 5,
+                           "deform_col2im_coord": [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]}.items():
         for sfx in ("f32", "bf16"):
             f = getattr(lib, f"{name}_{sfx}")
             f.argtypes = [*operands, ptr, ptr]
@@ -97,8 +100,6 @@ def kernels(cs, sources: list[Path]) -> dict:
                 for name in names + names[::-1]:
                     deform_conv.build = lambda name=name: builds[name]
                     for k, (operands, fn) in calls.items():
-                        if k == "col2im_coord_us" and name != TREE:
-                            continue
                         ms = cs.time_graph_ms([lambda a=a, fn=fn: fn(a)
                                                for a in cs._cycled(operands)])
                         times[key][name].setdefault(k, []).append(ms * 1e3)

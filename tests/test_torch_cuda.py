@@ -488,6 +488,55 @@ def test_dcn_kernels_match_plain_versions(cuda, dtype, tol, offsets, channels, d
         assert torch.equal(zero, ops[4].view(1, -1, 1, 1).expand_as(zero).to(zero.dtype))
 
 
+@pytest.mark.parametrize("origin", ["band", "frame"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_dcn_kernels_at_a_row_origin_match_plain_versions(cuda, dtype, tol, origin):
+    """The three kernels at a negative row origin, as the spatial axis runs
+    them (``ops/deform_conv.spatial_operand``) for rows [8, 12) of a frame
+    of 16 held in 4 bands: ``band`` takes the window's R + 2 = 4 rows above
+    and below (R = 2, x rows [4, 16), pad_h = 1 − 4), ``frame`` the whole
+    frame read from the band's first row (exact, pad_h = 1 − 8).  Through
+    the autograd function against the plain version under autograd, as
+    ``test_dcn_kernels_match_plain_versions``, and the output against the
+    whole frame's plain conv cut to the band's rows."""
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.ops import (
+        deform_conv as dcn,
+    )
+
+    B, C, H, W, dg, rows, r0 = 2, 16, 16, 11, 4, 4, 8
+    R = 2 if origin == "band" else None
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(B, C, H, W, generator=gen)
+    off = (torch.rand(B, dg * 18, H, W, generator=gen) * 2 - 1) * 3.5
+    mask = torch.rand(B, dg * 9, H, W, generator=gen)
+    w = torch.randn(8, C, 3, 3, generator=gen) * 0.2
+    b = torch.randn(8, generator=gen)
+    cot = torch.randn(B, 8, rows, W, generator=gen)
+    band = slice(r0, r0 + rows)
+    xb, pad_h = (x[:, :, r0 - 4:r0 + rows + 4], 1 - 4) if R else (x, 1 - r0)
+    cast = lambda t: t.contiguous().to(cuda, dtype)  # noqa: E731
+    ops = [cast(xb), off[:, :, band].contiguous().to(cuda), cast(mask[:, :, band]), cast(w),
+           cast(b)]
+    kwargs = dict(padding=1, deformable_groups=dg, max_offset=R, pad_h=pad_h, out_h=rows)
+    leaves = [t.clone().requires_grad_() for t in ops]
+    before = dict(dcn.LAUNCHES)
+    out = dcn.deform_conv2d(leaves[0], leaves[1], leaves[3], leaves[2], leaves[4], **kwargs)
+    (out.float() * cot.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: dcn.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    ref = [t.detach().float().clone().requires_grad_() for t in ops]
+    want = dcn.deform_conv2d_reference(ref[0], ref[1], ref[3], ref[2], ref[4], **kwargs)
+    (want * cot.to(cuda)).sum().backward()
+    whole = dcn.deform_conv2d_reference(x, off, w, mask, b, padding=1, deformable_groups=dg,
+                                        max_offset=R)[:, :, band]
+    pairs = [("out", out, want), ("out against the frame", out, whole.to(cuda))] + [
+        (n, a.grad, r.grad) for n, a, r in
+        zip(("x", "offset", "mask", "weight", "bias"), leaves, ref)]
+    for name, a, r in pairs:
+        err = ((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        assert err <= tol, (name, err)
+
+
 @pytest.mark.parametrize("channels,dg", [(32, 2), (64, 2), (12, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dcn_col2im_coord_repeats_its_bits(cuda, dtype, channels, dg):

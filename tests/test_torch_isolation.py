@@ -112,21 +112,24 @@ def test_deferred_knobs_at_their_defaults_and_telemetry_are_accepted():
 
 def test_parallel_section_raises(tmp_path):
     """A mesh of several devices runs (``tests/test_torch_parallel*.py``),
-    the spatial axis for RefineNet and the nets a bounded halo reaches too
-    (``tests/test_torch_spatial.py``, ``tests/test_torch_spatial_zoo.py``);
-    for the warping and deformable nets it is still to port (ROADMAP item
-    10c)."""
+    the spatial axis for every net of the zoo too, the warping and
+    deformable nets among them (``tests/test_torch_spatial*.py``); the
+    spatial axis with the model axis raises the JAX package's
+    ``ValueError`` before any work."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
 
-    section = {"num_devices": 2, "spatial_parallel": 2}
+    section = {"num_devices": 4, "spatial_parallel": 2, "model_parallel": 2}
     cfg = Cfg({"main": {"saved_dir": str(tmp_path)}, "parallel": section,
                "net": {"name": "TOFlowNet", "kwargs": {}},
                "predictor": {"name": "AcdcMISRPredictor", "kwargs": {"device": "cpu"}}})
-    with pytest.raises(NotImplementedError, match="parallel.*TOFlowNet.*10c"):
+    with pytest.raises(ValueError, match="cannot be combined"):
         run_port_test(cfg)
     assert not (tmp_path / "config.yaml").exists()  # raised before any work
+    section = {"num_devices": 2, "spatial_parallel": 2}
+    cfg["parallel"] = section
+    assert _check_parallel(cfg, torch.device("cpu")) == section
     cfg["net"] = {"name": "EDSRNet", "kwargs": {}}
     assert _check_parallel(cfg, torch.device("cpu")) == section
 
@@ -230,22 +233,26 @@ def test_ported_trainer_knobs_are_accepted(knob, value):
 ])
 def test_parallel_section_on_cuda(monkeypatch, parallel, visible, error):
     """On the card: as many devices as are visible run (``main.run`` spawns
-    a rank each), more raise the JAX package's ``ValueError``; the spatial
-    axis runs RefineNet and the nets a bounded halo reaches (DUFNet among
-    them) and raises ``NotImplementedError`` for EDVRNet, TOFlowNet and
-    FRVSRNet (ROADMAP item 10c)."""
+    a rank each), more raise the JAX package's ``ValueError``.  The case
+    marked ``NotImplementedError`` is the spatial axis of EDVRNet, refused
+    until the warping and deformable nets' axis was ported: it now runs, as
+    RefineNet's and DUFNet's do, and what stays refused is the spatial axis
+    with the model axis (``ValueError``)."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
         _check_parallel,
     )
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
     cfg = Cfg({"parallel": parallel, "net": {"name": "EDVRNet"}})
-    if error is None:
-        assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
-    else:
-        with pytest.raises(error, match="num_devices" if error is ValueError else "EDVRNet.*10c"):
+    if error is ValueError:
+        with pytest.raises(error, match="num_devices"):
             _check_parallel(cfg, torch.device("cuda:0"))
+    else:
+        assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
     if error is NotImplementedError:
-        for net in ("RefineNet", "DUFNet"):
+        for net in ("RefineNet", "DUFNet", "TOFlowNet", "FRVSRNet"):
             cfg = Cfg({"parallel": parallel, "net": {"name": net}})
             assert _check_parallel(cfg, torch.device("cuda:0")) == parallel
+        cfg = Cfg({"parallel": {**parallel, "model_parallel": 2}, "net": {"name": "EDVRNet"}})
+        with pytest.raises(ValueError, match="cannot be combined"):
+            _check_parallel(cfg, torch.device("cuda:0"))

@@ -36,16 +36,40 @@ def _inputs(shape, F, seed=0):
     return gates, c
 
 
+def _float64_gates(gates, c):
+    """The gate tail in float64 (numpy): the truth each side is measured
+    from when they disagree."""
+    g, c = gates.astype(np.float64), c.astype(np.float64)
+    i, f, o, gg = np.split(g, 4, axis=-1)
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x))  # noqa: E731
+    c_next = sig(f) * c + sig(i) * np.tanh(gg)
+    return sig(o) * np.tanh(c_next), c_next
+
+
 @pytest.mark.parametrize("shape,F", SHAPES)
 def test_gates_match_jax(shape, F):
+    """A miss reports each side's distance from float64, which names the
+    side that moved.  Each side computes on its own copy of the inputs and
+    each JAX result is complete before the next computation starts: this
+    is hygiene, not a repair (no side writes its inputs, so the memory that
+    ``jnp.asarray`` and ``torch.from_numpy`` share with a numpy array
+    cannot move a result)."""
     gates, c = _inputs(shape, F)
-    h_want, c_want = jax_reference(jnp.asarray(gates), jnp.asarray(c))
-    h_pallas, c_pallas = jax_fused(jnp.asarray(gates), jnp.asarray(c), interpret=True)
     before = lstm_gates.LAUNCHES
-    for fn in (lstm_gates.lstm_gates_reference, lstm_gates.fused_lstm_gates):
-        h_got, c_got = fn(torch.from_numpy(gates), torch.from_numpy(c))
-        for got, want in ((h_got, h_want), (c_got, c_want), (h_got, h_pallas), (c_got, c_pallas)):
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    got = {fn.__name__: fn(torch.from_numpy(gates.copy()), torch.from_numpy(c.copy()))
+           for fn in (lstm_gates.lstm_gates_reference, lstm_gates.fused_lstm_gates)}
+    want = {"xla": jax.block_until_ready(jax_reference(jnp.array(gates), jnp.array(c)))}
+    want["pallas"] = jax.block_until_ready(
+        jax_fused(jnp.array(gates), jnp.array(c), interpret=True))
+    truth = _float64_gates(gates, c)
+    for name, (h_got, c_got) in got.items():
+        for oracle, (h_want, c_want) in want.items():
+            for which, a, b, t in (("h", h_got, h_want, truth[0]), ("c", c_got, c_want, truth[1])):
+                a, b = a.numpy(), np.asarray(b)
+                far = {name: np.abs(a - t).max(), oracle: np.abs(b - t).max()}
+                np.testing.assert_allclose(a, b, atol=1e-6, rtol=0,
+                                           err_msg=f"{which}: {name} against {oracle}; the "
+                                                   f"largest distance from float64 {far}")
     assert lstm_gates.LAUNCHES == before  # CPU tensors never reach the kernel
 
 

@@ -266,10 +266,10 @@ def test_cuda_oversubscription_raises(monkeypatch):
 @pytest.mark.parametrize("test", [False, True], ids=["train", "test"])
 def test_spatial_axis_and_pad_h_name_item_10b(section, test):
     """Item 10b is ported: both sections pass ``main``'s checks for
-    RefineNet (``tests/test_torch_spatial.py`` runs them) and for the nets
-    a bounded halo reaches, EDSRNet among them
-    (``tests/test_torch_spatial_zoo.py``); under ``spatial_parallel > 1`` a
-    warping net raises ``NotImplementedError`` naming item 10c before any
+    RefineNet (``tests/test_torch_spatial.py`` runs them) and for the rest
+    of the zoo, EDSRNet and FRVSRNet among them
+    (``tests/test_torch_spatial_zoo.py``, ``tests/test_torch_spatial_video.py``);
+    the spatial axis with the model axis raises ``ValueError`` before any
     rank starts, while ``pad_h`` alone (a no-op without a spatial axis) is
     accepted for any net."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.main import (
@@ -285,11 +285,11 @@ def test_spatial_axis_and_pad_h_name_item_10b(section, test):
     cfg["net"] = {"name": "EDSRNet", "kwargs": {}}
     assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
     cfg["net"] = {"name": "FRVSRNet", "kwargs": {}}
+    assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
     if section.get("spatial_parallel", 1) > 1:
-        with pytest.raises(NotImplementedError, match="FRVSRNet.*10c"):
+        cfg["parallel"] = {**section, "num_devices": 4, "model_parallel": 2}
+        with pytest.raises(ValueError, match="cannot be combined"):
             run(Cfg(cfg), test)
-    else:
-        assert _check_parallel(Cfg(cfg), torch.device("cpu")) == section
 
 
 def test_make_mesh_refusals(monkeypatch):
