@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --convergence edsr_net/exp1_x4 [--seed S]
 
-Drives the port's two main paths, the flagship RefineNet ×4 eval
+The first drives all 36 phases below; the second only phases 1, 2, 31 and
+32, phase 32 for that train YAML (``--seed`` sets the train config's
+``main.random_seed``).  The whole run drives the port's two main paths,
+the flagship RefineNet ×4 eval
 (``configs/test/refine_net/exp1_x4.yaml``: features [64, 64, 64], 3 stages,
 6 warm-up frames each side, window 5, phase code on) and its training
 (``configs/train/refine_net/exp1_x4.yaml``: the same net, batch 16, LR
@@ -237,11 +241,18 @@ exits non-zero and no result is printed:
 32. the flagship's convergence: ``tools/convergence.py refine_net/exp1_x4``
     on ``cuda:0`` for ``CONV_EPOCHS`` epochs of the shipped train YAML on
     phase 31's phantom, then the shipped test YAMLs of RefineNet and
-    Bicubic with their export on: both gate kernels launched, every logged
-    loss finite, trained PSNR at least 1.0 dB over Bicubic's on the
-    held-out split, each export's CSV rows, GIFs (``GIF89a``, one image
-    block a frame) and PNGs (``\x89PNG``); the delta, the wall, ms a step
-    and the epochs printed.
+    Bicubic with their export on: both gate kernels launched and no DCN
+    kernel, every logged loss finite, Bicubic at 26.1204 dB (the JAX
+    package's reading of the same tree), trained PSNR at least 1.0 dB over
+    Bicubic's on the held-out split, each export's CSV rows, GIFs
+    (``GIF89a``, one image block a frame) and PNGs (``\x89PNG``); the
+    tool's JSON line, the delta, the wall, ms a step and the epochs
+    printed.  ``--convergence TRAIN_YAML`` runs this phase for another
+    family's train YAML (``grad_accum_steps`` 2 for RBPN and EDVR, as the
+    JAX package's sweep): its hand kernels launched (EDVR: im2col, col2im
+    and col2im_coord; the others none), its delta at least the JAX
+    package's TPU run's less 1.0 dB and its trained SSIM within 0.02 of
+    that run's (``CONVERGENCE_SWEEP_r05.jsonl``).
 33. DSB15 external eval: ``configs/test/refine_net/exp1_x{2,3,4}_dsb15.yaml``
     at full width with seeded weights on phase 31's DSB15 tree: finite
     logs, exactly 756 gate launches a clip, a CSV row and a PNG a frame, a
@@ -4098,9 +4109,17 @@ def spatial_video_card(port_main, Cfg, lstm_gates, dcn, tmp: Path, dev, card_lin
 # phase 31-32: tools/convergence.py's phantom (4 train + 2 test patients, 2
 # slices, 16 frames, HR 144x144, x4) and its flagship run
 CONV_SIZE, CONV_PATIENTS, CONV_SLICES, CONV_FRAMES = 144, (4, 2), 2, 16
-CONV_EPOCHS = 40  # about 5 minutes of an H100 (PERF.md section 5)
+CONV_EPOCHS = 40  # about 5 minutes of an H100 for the flagship (PERF.md section 5)
+CONV_FLAGSHIP = "refine_net/exp1_x4"  # the plain run's phase 32
 CONV_MIN_DELTA_DB = 1.0  # trained RefineNet x4 over Bicubic on the held-out split
-CONV_NET_KWARGS = None  # the train YAML's net (a CPU rehearsal shrinks it here)
+# the six other families (--convergence): each against the JAX package's
+# TPU run of CONVERGENCE_SWEEP_r05.jsonl, its delta less 1 dB, its SSIM 0.02
+CONV_DELTA_MARGIN_DB, CONV_SSIM_MARGIN = 1.0, 0.02
+CONV_GRAD_ACCUM = {"rbp_net/exp1_x4": 2, "edvr_net/exp1_x4": 2}  # as that sweep trained them
+# Bicubic on the phantom: both packages build the same tree (CONVERGENCE_r05.json)
+CONV_BICUBIC_PSNR, CONV_BICUBIC_TOL = 26.1204, 2e-4
+CONV_KERNELS = {"refine_net": "gates", "edvr_net": "dcn"}  # the others run no hand kernel
+CONV_NET_KWARGS = {}  # train YAML -> its net kwargs overlaid (a CPU rehearsal shrinks them)
 # phase 31's DSB15 tree, which phase 33 serves: one test patient, two sax
 # series of 30 frames (DSB15's shortest) and a malformed one between them
 DSB15_SIZE, DSB15_SLICES, DSB15_FRAMES = 144, 2, 30
@@ -4227,47 +4246,101 @@ def _check_exports(root: Path, sequences: int, frames: int) -> dict:
     return found
 
 
-def flagship_convergence(lstm_gates, work: Path, dev, card_line) -> dict:
-    """Phase 32: ``tools/convergence.py refine_net/exp1_x4`` on the card:
-    the flagship trained from scratch on phase 31's phantom, against
-    Bicubic on the held-out split, with the shipped test YAMLs' export."""
+def jax_sweep() -> dict:
+    """The JAX package's TPU runs of the six other families
+    (``CONVERGENCE_SWEEP_r05.jsonl``, one JSON line a train YAML)."""
+    lines = (REPO / "CONVERGENCE_SWEEP_r05.jsonl").read_text().splitlines()
+    return {row["train_yaml"]: row for row in map(json.loads, filter(None, lines))}
+
+
+def convergence_bounds(train_yaml: str, out: dict, jax: dict | None) -> list:
+    """What a convergence run misses: the flagship's delta under
+    ``CONV_MIN_DELTA_DB``; another family's delta under its JAX run's less
+    ``CONV_DELTA_MARGIN_DB``, its trained SSIM off the JAX run's by more
+    than ``CONV_SSIM_MARGIN``."""
+    if jax is None:
+        return [] if out["delta_psnr_db"] >= CONV_MIN_DELTA_DB else [
+            f"delta {out['delta_psnr_db']} dB under +{CONV_MIN_DELTA_DB}"]
+    missed = []
+    if not out["delta_psnr_db"] >= jax["delta_psnr_db"] - CONV_DELTA_MARGIN_DB:
+        missed.append(f"delta {out['delta_psnr_db']} dB under the JAX run's "
+                      f"{jax['delta_psnr_db']} less {CONV_DELTA_MARGIN_DB}")
+    if not abs(out["trained"]["SSIM"] - jax["trained"]["SSIM"]) <= CONV_SSIM_MARGIN:
+        missed.append(f"SSIM {out['trained']['SSIM']} off the JAX run's "
+                      f"{jax['trained']['SSIM']} by more than {CONV_SSIM_MARGIN}")
+    return missed
+
+
+def family_convergence(train_yaml: str, lstm_gates, dcn, work: Path, dev, card_line,
+                       seed=None) -> dict:
+    """Phase 32: ``tools/convergence.py train_yaml`` on the card: the
+    family trained from scratch on phase 31's phantom (``grad_accum_steps``
+    as the JAX package's sweep trained it; ``seed`` in place of the YAML's
+    ``main.random_seed``), against Bicubic on the held-out split, with the
+    shipped test YAMLs' export; its hand kernels' launches counted."""
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.tools import convergence
 
-    argv = ["refine_net/exp1_x4", "--epochs", str(CONV_EPOCHS), "--size", str(CONV_SIZE),
+    argv = [train_yaml, "--epochs", str(CONV_EPOCHS), "--size", str(CONV_SIZE),
             "--workdir", str(work), "--device", str(dev)]
-    if CONV_NET_KWARGS:
-        argv += ["--net-kwargs", json.dumps(CONV_NET_KWARGS)]
+    if train_yaml in CONV_GRAD_ACCUM:
+        argv += ["--grad-accum", str(CONV_GRAD_ACCUM[train_yaml])]
+    if CONV_NET_KWARGS.get(train_yaml):
+        argv += ["--net-kwargs", json.dumps(CONV_NET_KWARGS[train_yaml])]
     reset_launches(lstm_gates)
+    dcn.reset_launches()
     t0 = time.perf_counter()
-    out, trainer = convergence.run(argv)
+    out, trainer = convergence.run(argv, seed=seed)
     wall = time.perf_counter() - t0
-    counts = launches(lstm_gates)
+    # the tool's own line, as `python -m <torch pkg>.tools.convergence` prints it
+    print(json.dumps(out), flush=True)
+    gates, dcns = launches(lstm_gates), dcn_launches(dcn)
     step_ms = 1e3 / trainer.throughput["train_steps_per_sec"]
     steps = sum(1 for _ in trainer.train_dataloader) * CONV_EPOCHS
-    log("convergence", f"refine_net/exp1_x4, {CONV_EPOCHS} epochs ({steps} steps) on {dev}: trained "
+    jax = jax_sweep().get(train_yaml)
+    versus = "" if jax is None else (
+        f" (the JAX package's TPU run: delta {jax['delta_psnr_db']:+.3f} dB, SSIM "
+        f"{jax['trained']['SSIM']}, train wall {jax['train_wall_sec']} s on a TPU)")
+    side = "above" if out["trained"]["SSIM"] > out["bicubic"]["SSIM"] else "below"
+    log("convergence", f"{train_yaml}, {CONV_EPOCHS} epochs ({steps} steps, grad_accum_steps "
+                       f"{out['grad_accum_steps']}, random_seed "
+                       f"{trainer.seed_state.seed!r}) on {dev}: trained "
                        f"PSNR {out['trained']['PSNR']} dB against Bicubic's "
-                       f"{out['bicubic']['PSNR']} dB, delta {out['delta_psnr_db']:+.3f} dB (at least "
-                       f"+{CONV_MIN_DELTA_DB}); SSIM {out['trained']['SSIM']} against "
-                       f"{out['bicubic']['SSIM']}; train wall {out['train_wall_sec']} s, "
-                       f"{step_ms:.1f} ms a step, whole run {wall:.1f} s ({card_line})")
+                       f"{out['bicubic']['PSNR']} dB, delta {out['delta_psnr_db']:+.3f} dB; SSIM "
+                       f"{out['trained']['SSIM']} against {out['bicubic']['SSIM']} ({side} "
+                       f"Bicubic); train wall {out['train_wall_sec']} s, {step_ms:.1f} ms a "
+                       f"step, whole run {wall:.1f} s{versus} ({card_line})")
     log("convergence", f"valid losses {out['valid_losses']}")
-    log("convergence", f"gate launches (forward, backward, bf16 forward, bf16 backward) {counts}")
+    kernels = CONV_KERNELS.get(train_yaml.split("/")[0])
+    log("convergence", f"gate launches (forward, backward, bf16 forward, bf16 backward) {gates}; "
+                       f"DCN launches (im2col, col2im, col2im_coord, and on bf16) {dcns}" + (
+                           "" if kernels else "; this family's path runs no hand kernel"))
     values = out["train_losses"] + out["valid_losses"] + [
         v for name in ("trained", "bicubic") for v in out[name].values()]
     if len(out["train_losses"]) != CONV_EPOCHS or len(out["valid_losses"]) != CONV_EPOCHS or \
             not all(math.isfinite(v) for v in values):
         raise AssertionError(f"the convergence run logged non-finite or missing values: {out}")
-    if not (counts[0] > 0 and counts[1] > 0):
-        raise AssertionError(f"the convergence run launched the gate kernels {counts}")
-    if not out["delta_psnr_db"] >= CONV_MIN_DELTA_DB:
-        raise AssertionError(f"trained RefineNet is {out['delta_psnr_db']} dB over Bicubic")
+    if not abs(out["bicubic"]["PSNR"] - CONV_BICUBIC_PSNR) <= CONV_BICUBIC_TOL:
+        raise AssertionError(f"Bicubic reads {out['bicubic']['PSNR']} dB on the phantom, not "
+                             f"{CONV_BICUBIC_PSNR}")
+    launched = {"gates": all(n > 0 for n in gates[:2]) and not any(dcns),
+                "dcn": all(n > 0 for n in dcns[:3]) and not any(gates),
+                None: not any(gates) and not any(dcns)}[kernels]
+    if not launched:
+        raise AssertionError(f"{train_yaml} launched the gate kernels {gates} and the DCN "
+                             f"kernels {dcns}")
+    family = train_yaml.replace("/", "_")
     sequences = CONV_PATIENTS[1] * CONV_SLICES
-    exports = {name: _check_exports(work / f"test_refine_net_exp1_x4_{name}", sequences,
-                                    CONV_FRAMES) for name in ("trained", "bicubic")}
+    exports = {name: _check_exports(work / f"test_{family}_{name}", sequences, CONV_FRAMES)
+               for name in ("trained", "bicubic")}
     log("convergence", f"exports of the shipped test YAMLs: {exports}")
-    result = {**out, "wall_s": wall, "step_ms": step_ms, "steps": steps, "launches": counts,
-              "exports": exports, "card": card_line}
+    missed = convergence_bounds(train_yaml, out, jax)
+    result = {**out, "wall_s": wall, "step_ms": step_ms, "steps": steps, "launches": gates,
+              "dcn_launches": dcns, "random_seed": trainer.seed_state.seed,
+              "ssim_side_of_bicubic": side, "missed": missed, "exports": exports,
+              "card": card_line}
     print(json.dumps({"convergence": result}), flush=True)
+    if missed:
+        raise AssertionError(f"{train_yaml}: {'; '.join(missed)}")
     return result
 
 
@@ -4315,8 +4388,41 @@ def dsb15_eval(port_main, lstm_gates, tree: dict, tmp: Path, dev, card_line) -> 
     return out
 
 
-def main() -> int:
+def convergence_only(train_yaml: str, seed, lstm_gates, dcn, dev, card_line, kind: str,
+                     started: float) -> int:
+    """``--convergence TRAIN_YAML``: phase 31, then phase 32 for that train
+    YAML alone; the same last line as the whole run."""
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        offline_pipeline(Path(tmp), card_line)
+        family_convergence(train_yaml, lstm_gates, dcn, Path(tmp) / "convergence", dev, card_line,
+                           seed)
+    log("done", f"phases 1, 2, 31 and 32 ({train_yaml}) in {time.perf_counter() - started:.1f} s, "
+                f"the kernels' builds included ({card_line})")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _parser():
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA card "
+                                             "(phases 1-36; see the module's docstring).")
+    ap.add_argument("--convergence", metavar="TRAIN_YAML", default=None,
+                    help="run only phases 1, 2, 31 and 32, phase 32 for this train YAML under "
+                         "configs/train (e.g. edsr_net/exp1_x4), held to the JAX package's "
+                         "sweep (CONVERGENCE_SWEEP_r05.jsonl)")
+    ap.add_argument("--seed", default=None,
+                    help="with --convergence: the train config's main.random_seed in place of "
+                         "the YAML's")
+    return ap
+
+
+def main(argv=None) -> int:
     started = time.perf_counter()
+    args = _parser().parse_args(argv)
     if not (REPO / PKG / "csrc" / "lstm_gates.cu").is_file():
         print(f"chip_smoke.py: the {PKG} package is not beside this script", file=sys.stderr)
         return 2
@@ -4379,6 +4485,9 @@ def main() -> int:
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
+    if args.convergence:
+        return convergence_only(args.convergence, args.seed, lstm_gates, deform_conv, dev,
+                                card_line, kind, started)
 
     # ------------------------------------------------------- 3 kernel vs plain
     # the gate conv's raw output, c and its bias, in the layout the recurrence
@@ -4936,7 +5045,8 @@ def main() -> int:
 
     # ------------------ 31-33 the offline pipeline, convergence, DSB15 eval
     pipeline = offline_pipeline(tmp, card_line)
-    converged = flagship_convergence(lstm_gates, tmp / "convergence", dev, card_line)
+    converged = family_convergence(CONV_FLAGSHIP, lstm_gates, deform_conv, tmp / "convergence",
+                                   dev, card_line)
     dsb15 = dsb15_eval(port_main, lstm_gates, pipeline["dsb15_tree"], tmp, dev, card_line)
 
     # ------------------------------------------------ 34 the spatial axis, pad_h

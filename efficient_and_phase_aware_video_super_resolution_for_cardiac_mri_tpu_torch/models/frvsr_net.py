@@ -84,6 +84,13 @@ class _ResBlock(nn.Module):
         return x + self.body["conv2"](F.relu(self.body["conv1"](x)))
 
 
+#: SRNet's width and FNet's first encoder width (doubled twice, then
+#: halved back; reference ``frvsr_net.py:65-166``; a CPU test of the
+#: training tool narrows them, as the other nets' kwargs are narrowed)
+_SRNET_FEATURES = 64
+_FNET_FEATURES = 32
+
+
 class SRNet(nn.Module):
     """Reference ``frvsr_net.py:65-95``: the packed warped SR frame and the
     LR frame, (B, C·(r²+1), h, w) → (B, C_out, 4h, 4w)."""
@@ -91,16 +98,17 @@ class SRNet(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, upscale_factor: int,
                  num_resblocks: int, generator: torch.Generator):
         super().__init__()
+        F_ = _SRNET_FEATURES
         self.head = nn.ModuleDict({
-            "conv": _xconv(in_channels * (upscale_factor ** 2 + 1), 64, generator)})
-        self.body = nn.ModuleList(_ResBlock(64, generator) for _ in range(num_resblocks))
+            "conv": _xconv(in_channels * (upscale_factor ** 2 + 1), F_, generator)})
+        self.body = nn.ModuleList(_ResBlock(F_, generator) for _ in range(num_resblocks))
         deconvs = {}
         for i in (1, 2):
-            deconv = conv_transpose2d(64, 64, 3, 2, 1, generator, output_padding=1,
+            deconv = conv_transpose2d(F_, F_, 3, 2, 1, generator, output_padding=1,
                                       cls=HaloConvTranspose2d)
             init_xavier_(deconv.weight, generator)
             deconvs[f"deconv{i}"] = deconv
-        self.tail = nn.ModuleDict({**deconvs, "conv": _xconv(64, out_channels, generator)})
+        self.tail = nn.ModuleDict({**deconvs, "conv": _xconv(F_, out_channels, generator)})
 
     def forward(self, x):
         x = F.relu(self.head["conv"](x))
@@ -121,7 +129,7 @@ class FNet(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, generator: torch.Generator):
         super().__init__()
-        body, f, c_in = {}, 32, 2 * in_channels
+        body, f, c_in = {}, _FNET_FEATURES, 2 * in_channels
         for i in range(3):  # encoder: 32, 64, 128 features, max-pooled
             body[f"conv{i + 1}_1"] = _xconv(c_in, f, generator)
             body[f"conv{i + 1}_2"] = _xconv(f, f, generator)
@@ -131,8 +139,8 @@ class FNet(nn.Module):
             body[f"conv{i + 4}_2"] = _xconv(f, f, generator)
             c_in, f = f, f // 2
         self.body = nn.ModuleDict(body)
-        self.tail = nn.ModuleDict({"conv1": _xconv(c_in, 32, generator),
-                                   "conv2": _xconv(32, out_channels, generator)})
+        self.tail = nn.ModuleDict({"conv1": _xconv(c_in, _FNET_FEATURES, generator),
+                                   "conv2": _xconv(_FNET_FEATURES, out_channels, generator)})
 
     def forward(self, a, b):
         axis = self.spatial_axis

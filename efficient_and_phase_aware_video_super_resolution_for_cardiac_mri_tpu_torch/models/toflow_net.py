@@ -85,6 +85,13 @@ def _record_flow(module: nn.Module, name: str, bound: int | None, flow: torch.Te
             bound, flow[..., 0].abs(), flow[..., 1].abs()), axis))
 
 
+#: the widths of a SpyNet block's conv7×7 layers and of the fusion convs
+#: (reference ``toflow_net.py:95-113``; a CPU test of the training tool
+#: narrows them, as the other nets' kwargs are narrowed)
+_SPYNET_WIDTHS = (32, 64, 32, 16)
+_FUSION_FEATURES = 64
+
+
 def _conv(in_features: int, features: int, kernel_size: int, generator: torch.Generator):
     return conv2d(in_features, features, kernel_size, generator, cls=PromotedConv2d)
 
@@ -100,7 +107,7 @@ class SpyNetBlock(nn.Module):
     def __init__(self, in_channels: int, generator: torch.Generator):
         super().__init__()
         layers, c = [], in_channels
-        for width in (32, 64, 32, 16):
+        for width in _SPYNET_WIDTHS:
             layers += [_conv(c, width, 7, generator), _bn(width), nn.ReLU()]
             c = width
         layers.append(_conv(c, 2, 7, generator))
@@ -167,11 +174,12 @@ class TOFlowNet(nn.Module):
         self.upscale_factor = upscale_factor
         self.max_flow = max_flow
         self.spy_net = SpyNet(2 * in_channels + 2, generator, max_flow)
+        F_ = _FUSION_FEATURES
         self.out_block = nn.Sequential(
-            _conv(in_channels * num_frames, 64, 9, generator), nn.ReLU(),
-            _conv(64, 64, 9, generator), nn.ReLU(),
-            _conv(64, 64, 1, generator), nn.ReLU(),
-            _conv(64, out_channels, 1, generator),
+            _conv(in_channels * num_frames, F_, 9, generator), nn.ReLU(),
+            _conv(F_, F_, 9, generator), nn.ReLU(),
+            _conv(F_, F_, 1, generator), nn.ReLU(),
+            _conv(F_, out_channels, 1, generator),
         )
 
     def forward(self, lr_imgs: torch.Tensor) -> torch.Tensor:

@@ -176,7 +176,9 @@ def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
     left, data = n / (spatial · model).  ``num_devices`` must equal the
     world size; on the card with NCCL it may not exceed the visible devices
     (with gloo several ranks may share one card, for correctness checks
-    only)."""
+    only).  ``device`` None means the card, as the config's device does
+    (``main.resolve_device``); without CUDA that raises: a mesh on the CPU
+    asks for ``device="cpu"``."""
     sp, mp = int(spatial_parallel or 1), int(model_parallel or 1)
     if sp > 1 and mp > 1:
         check_axes(sp * mp, sp, mp)
@@ -184,7 +186,10 @@ def make_mesh(num_devices: int | None = None, model_parallel: int = 1,
         raise RuntimeError("make_mesh needs torch.distributed initialized (parallel/distributed.py)")
     world = dist.get_world_size()
     n = int(num_devices or world)
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh(device=None) means the card, but torch.cuda.is_available() "
+                           "is False; pass device='cpu' for a mesh on the CPU")
+    device = torch.device(device if device is not None else "cuda")
     if dist.get_backend() == "nccl":
         check_devices(n, device)
     if n != world:

@@ -101,9 +101,11 @@ def _parser():
     return ap
 
 
-def run(argv=None):
+def run(argv=None, seed=None):
     """The run of :func:`main` without the print: (its JSON line as a
-    dict, the trainer)."""
+    dict, the trainer).  ``seed`` replaces the train YAML's
+    ``main.random_seed`` (the net's initial weights and the data order;
+    None keeps the YAML's)."""
     args = _parser().parse_args(argv)
     from ..config import load_config
     from ..main import test_from_config, train_from_config
@@ -115,6 +117,8 @@ def run(argv=None):
     cfg = patch_paths_only(load_config(CONFIGS / "train" / f"{args.train_yaml}.yaml"), tree,
                            work / f"train_{family}")
     cfg.trainer.kwargs.num_epochs = args.epochs
+    if seed is not None:
+        cfg.main.random_seed = seed
     if args.grad_accum:
         cfg.trainer.kwargs.grad_accum_steps = args.grad_accum
     if args.device:

@@ -637,7 +637,9 @@ def test_skip_nonfinite_leaves_params_and_adam_state_bit_equal(cuda):
 def test_world_one_ddp_step_equals_the_unwrapped_step(cuda):
     """A mesh of one (NCCL, the net under DDP) trains as the net alone:
     the same losses and weights (1e-6 relative) and the same gate launches
-    a step."""
+    a step.  Both runs take cuDNN's deterministic algorithms: with its
+    default choice the unwrapped run does not repeat itself (its weight
+    gradient's summation order varies; ``tools/ddp_probe.py``)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -666,6 +668,8 @@ def test_world_one_ddp_step_equals_the_unwrapped_step(cuda):
     if made:
         dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                                 world_size=1, rank=0)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         for mesh in (None, make_mesh(1, device=cuda)):
             loader = Dataloader(items, batch_size=2)
@@ -678,6 +682,7 @@ def test_world_one_ddp_step_equals_the_unwrapped_step(cuda):
             launches = (lstm_gates.LAUNCHES - before[0], lstm_gates.BWD_LAUNCHES - before[1])
             runs.append((log, trainer.net.state_dict(), launches, type(trainer.model).__name__))
     finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
         if made:
             dist.destroy_process_group()
     (log0, sd0, n0, kind0), (log1, sd1, n1, kind1) = runs

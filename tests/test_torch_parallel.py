@@ -306,6 +306,29 @@ def test_make_mesh_refusals(monkeypatch):
     assert parallel.batch_slice(4, None) == slice(None)
 
 
+def test_make_mesh_without_a_device_means_the_card(monkeypatch):
+    """``make_mesh()`` on a gloo group of one, where CUDA is absent, raises
+    and names ``device``: a mesh on the CPU is asked for, not fallen into."""
+    import torch.distributed as dist
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.parallel.distributed import (
+        free_port,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                                world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="device"):
+            parallel.make_mesh()
+        assert parallel.make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 # ----------------------------------------------------------- checkpoints
 def _trainer(tmp_path, backend, params, items):
     from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.models import (

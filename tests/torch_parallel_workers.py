@@ -82,7 +82,7 @@ def _train_steps(kind, net_state, net_kwargs, items, batch, world, optimizer, mo
         TOFlowNet,
     )
 
-    mesh = make_mesh(world, model_parallel, spatial_parallel) if world else None
+    mesh = make_mesh(world, model_parallel, spatial_parallel, device="cpu") if world else None
     net_cls, trainer_cls = {"refine": (RefineNet, VSRRefineNetTrainer),
                             "duf": (DUFNet, MISRTrainer), "srfb": (SRFBNet, SISRSRFBTrainer),
                             "drf": (DRFNet, VSRTrainer), "toflow": (TOFlowNet, MISRTrainer),
@@ -181,7 +181,7 @@ def spatial_forward(net_state: dict, net_kwargs: dict, lr: np.ndarray, pos: np.n
         take_rows,
     )
 
-    mesh = make_mesh(None, spatial_parallel=spatial)
+    mesh = make_mesh(None, spatial_parallel=spatial, device="cpu")
     net = RefineNet(**net_kwargs)
     net.load_state_dict(net_state, strict=True)
     shard_spatially(net, mesh.spatial_axis)
@@ -325,7 +325,7 @@ def zoo_forward(name: str, net_kwargs: dict, net_state: dict, lr: np.ndarray,
         take_rows,
     )
 
-    mesh = make_mesh(None, spatial_parallel=spatial)
+    mesh = make_mesh(None, spatial_parallel=spatial, device="cpu")
     net = getattr(models, name)(**net_kwargs)
     net.load_state_dict(net_state, strict=True)
     shard_spatially(net.eval(), mesh.spatial_axis)
@@ -354,7 +354,7 @@ def band_fit(name: str, net_kwargs: dict, net_state: dict, lr: np.ndarray,
         take_rows,
     )
 
-    mesh = make_mesh(None, spatial_parallel=spatial)
+    mesh = make_mesh(None, spatial_parallel=spatial, device="cpu")
     net = getattr(models, name)(**net_kwargs)
     net.load_state_dict(net_state, strict=True)
     mesh_mod._WARNED.clear()
@@ -591,7 +591,7 @@ def frvsr_stream(net_kwargs: dict, net_state: dict, lr: np.ndarray) -> dict:
         FRVSRStream,
     )
 
-    mesh = make_mesh(None, spatial_parallel=torch.distributed.get_world_size())
+    mesh = make_mesh(None, spatial_parallel=torch.distributed.get_world_size(), device="cpu")
     net = FRVSRNet(**net_kwargs)
     net.load_state_dict(net_state, strict=True)
     shard_spatially(net.eval(), mesh.spatial_axis)
