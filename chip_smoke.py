@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --convergence edsr_net/exp1_x4 [--seed S]
 
-The first drives all 36 phases below; the second only phases 1, 2, 31 and
+The first drives all 37 phases below; the second only phases 1, 2, 31 and
 32, phase 32 for that train YAML (``--seed`` sets the train config's
 ``main.random_seed``).  The whole run drives the port's two main paths,
 the flagship RefineNet ×4 eval
@@ -20,8 +20,9 @@ hand-written kernel; then EDVR ×4 with the deformable conv's three
 hand-written kernels, each held against its plain version; then the
 serving daemon, the parallel runs and the training remainders; then the
 offline data pipeline, the flagship trained from scratch against Bicubic,
-the DSB15 external eval, and the spatial axis of the flagship, of the zoo
-and of the warping and deformable nets.  Phases, one or more lines each;
+the DSB15 external eval, the spatial axis of the flagship, of the zoo
+and of the warping and deformable nets, and a JAX orbax checkpoint resumed
+and served.  Phases, one or more lines each;
 any failure
 exits non-zero and no result is printed:
 
@@ -306,6 +307,19 @@ exits non-zero and no result is printed:
     family's train YAML (``edvr_net/exp1_x4_tpu.yaml`` too) against world 1
     (losses, parameters, running statistics).  ms an item and a step are
     printed as correctness only.
+37. the JAX package's orbax checkpoints (``checkpoint_backend: orbax`` /
+    ``orbax_async``, the default of its runs over several processes): the
+    committed ``tests/data/jax_orbax_2proc`` (two JAX CPU processes' epoch
+    of a narrow RefineNet, ``tests/torch_orbax_fixture.py``) read on the
+    host (OCDBT, zarr, zstd; ``runner/orbax_read.py``) twice, every
+    array's sha256 against ``expected.json``, the seconds of ``libzstd``'s
+    loading, of each read and of a full ``gc.collect()`` and the bytes
+    printed (``tools/profile_checkpoint.py`` times full-width reads);
+    ``main.train_from_config`` with ``loaded_path: auto`` over a copy
+    resumes at its epoch + 1 and trains that epoch on ``cuda:0`` (finite
+    logs, the gate kernels' launches ``orbax_launches`` predicts, the JAX
+    run's files unchanged); ``main.test_from_config`` with its weights gives
+    the JAX predictor's Test log within ``TOL_ORBAX_LOG``.
 
 Phase 4 also checks the data path's native NIfTI reader
 (``utils/native_io.py``, built by g++ at first use): it is enabled, it
@@ -4388,6 +4402,136 @@ def dsb15_eval(port_main, lstm_gates, tree: dict, tmp: Path, dev, card_line) -> 
     return out
 
 
+# ---------------------------------- 37 the JAX package's orbax checkpoints
+ORBAX_FIXTURE = REPO / "tests" / "data" / "jax_orbax_2proc"  # tests/torch_orbax_fixture.py
+TOL_ORBAX_LOG = 2e-3  # PERF.md section 2: a Test log equals JAX's within 2e-3, relative
+
+
+def orbax_launches(expected: dict) -> dict:
+    """The gate kernels' launches of phase 37's resumed epoch (forward,
+    backward) and of its test run (forward), from the fixture's net, tree
+    and configs: one forward launch a layer and stage at every frame of an
+    item, one backward at every core frame of a training item."""
+    net, tree = expected["net"], expected["tree"]
+    data = expected["train_config"]["dataset"]["kwargs"]
+    per_frame = len(net["num_features"]) * 2 * net["num_stages"]
+    core, warm = data["num_frames"], 2 * data["num_updated_frames"]
+    patients, slices = tree["splits"]["train"]
+    steps = math.ceil(patients * slices * tree["cycle"]
+                      / expected["train_config"]["dataloader"]["kwargs"]["train_batch_size"])
+    clip = per_frame * (tree["cycle"] + warm)
+    valid = clip * math.prod(tree["splits"]["valid"])
+    test = clip * math.prod(tree["splits"]["test"])
+    return {"train": (per_frame * (core + warm) * steps + valid, per_frame * core * steps),
+            "test": (test, 0)}
+
+
+def orbax_resume(port_main, Cfg, lstm_gates, tmp: Path, dev, card_line) -> dict:
+    """Phase 37: the JAX package's orbax checkpoint as a run over two
+    processes leaves it (``tests/data/jax_orbax_2proc``): every array read
+    on the host against ``expected.json``'s sha256; ``main`` with
+    ``loaded_path: auto`` over a copy resumes at the next epoch and trains
+    it through the gate kernels, the JAX run's files kept byte for byte;
+    ``main --test`` with its weights gives the JAX predictor's Test log."""
+    import gc
+    import hashlib
+    import shutil
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_orbax_common import array_record, fill, leaves, write_tree
+
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.checkpoint import (
+        load_checkpoint,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.runner.orbax_read import (
+        read_tree,
+    )
+    from efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_tpu_torch.utils import zstd
+
+    expected = json.loads((ORBAX_FIXTURE / "expected.json").read_text())
+    ckpt = ORBAX_FIXTURE / expected["checkpoint"]
+    t0 = time.perf_counter()
+    zstd.library()
+    load_s = time.perf_counter() - t0
+    read_s = []  # the process's first read, then a second of the same files
+    for _ in range(2):
+        t0 = time.perf_counter()
+        arrays = read_tree(ckpt / "arrays")
+        read_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    gc.collect()  # what one full collection costs in this process, after the reads
+    gc_s = time.perf_counter() - t0
+    got = {f"{part}/{path}": leaf for part in ("net", "optimizer", "model_state")
+           for path, leaf in leaves(arrays.get(part))}
+    decoded = sum(leaf.nbytes for leaf in got.values())
+    on_disk = sum(p.stat().st_size for p in (ckpt / "arrays").rglob("*") if p.is_file())
+    bad = sorted(k for k in expected["arrays"].keys() | got.keys()
+                 if k not in got or array_record(got[k]) != expected["arrays"].get(k))
+    log("orbax", f"{expected['checkpoint']} ({', '.join(expected['processes'])}): {len(got)} "
+                 f"arrays read in {read_s[0] * 1e3:.1f} ms (again: {read_s[1] * 1e3:.1f} ms; a "
+                 f"full gc.collect() {gc_s * 1e3:.1f} ms), "
+                 f"{decoded} bytes decoded from {on_disk} "
+                 f"bytes on disk (libzstd {zstd.version()}, loaded in {load_s * 1e3:.1f} ms); "
+                 f"sha256 against expected.json: "
+                 f"{len(got) - len(bad)} equal ({card_line})")
+    if bad:
+        raise AssertionError(f"arrays of the orbax checkpoint differ from expected.json: {bad}")
+
+    paths = write_tree(tmp / "orbax_acdc")
+    paths = {k: paths[k] for k in ("videos", "pos_code", "coordinates")}
+    want = orbax_launches(expected)
+    run = tmp / "orbax_run"
+    shutil.copytree(ckpt, run / "checkpoints" / ckpt.name)
+
+    def digests():
+        return {str(p.relative_to(run)): hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in sorted((run / "checkpoints" / ckpt.name).rglob("*")) if p.is_file()}
+
+    before = digests()
+    cfg = fill(expected["train_config"], saved_dir=run, device=str(dev), **paths)
+    cfg.pop("logger", None)
+    reset_launches(lstm_gates)
+    t0 = time.perf_counter()
+    trainer = port_main.train_from_config(Cfg(cfg))
+    train_s = time.perf_counter() - t0
+    train_launches = launches(lstm_gates)
+    history = trainer.history
+    resumed_epoch = load_checkpoint(run / "checkpoints" / f"model_{expected['epoch'] + 1}.pth")
+    log("orbax", f"main with loaded_path auto over the copy: {len(history['train'])} epoch, Train "
+                 f"log {history['train']}, Valid log {history['valid']}; model_"
+                 f"{expected['epoch'] + 1}.pth holds epoch {resumed_epoch['epoch']}; gate "
+                 f"launches (forward, backward) {train_launches[:2]} (expected {want['train']}); "
+                 f"{train_s:.1f} s")
+    epochs = expected["train_config"]["trainer"]["kwargs"]["num_epochs"] - expected["epoch"]
+    if (len(history["train"]) != epochs or resumed_epoch["epoch"] != expected["epoch"] + 1
+            or not all(math.isfinite(v) for h in history["train"] + history["valid"]
+                       for v in h.values())):
+        raise AssertionError(f"the resume over the JAX orbax run went wrong: {history}")
+    if train_launches != (*want["train"], 0, 0):
+        raise AssertionError(f"the resumed epoch launched the gate kernels {train_launches}")
+    if digests() != before:
+        raise AssertionError("the resumed run changed the JAX package's checkpoint")
+
+    cfg = fill(expected["test_config"], saved_dir=tmp / "orbax_test", checkpoint=ckpt,
+               device=str(dev), **paths)
+    reset_launches(lstm_gates)
+    predictor = port_main.test_from_config(Cfg(cfg))
+    test_launches = launches(lstm_gates)
+    rel = {k: abs(predictor.log[k] - v) / abs(v) for k, v in expected["test_log"].items()}
+    log("orbax", f"main --test with its weights: Test log {predictor.log}; JAX's "
+                 f"{expected['test_log']}; largest relative difference {max(rel.values()):.3e} "
+                 f"(tol {TOL_ORBAX_LOG}); gate launches {test_launches[0]} (expected "
+                 f"{want['test'][0]})")
+    if predictor.log.keys() != expected["test_log"].keys() or not max(rel.values()) <= TOL_ORBAX_LOG:
+        raise AssertionError(f"the Test log of the JAX checkpoint disagrees: {rel}")
+    if test_launches != (*want["test"], 0, 0):
+        raise AssertionError(f"the test run launched the gate kernels {test_launches}")
+    return {"libzstd_load_s": load_s, "read_s": read_s, "gc_collect_s": gc_s, "bytes_decoded": decoded, "bytes_on_disk": on_disk,
+            "libzstd": zstd.version(), "arrays": len(got), "train_s": train_s, "train_log": history,
+            "train_launches": train_launches, "test_log": predictor.log, "test_log_rel": rel,
+            "test_launches": test_launches, "card": card_line}
+
+
 def convergence_only(train_yaml: str, seed, lstm_gates, dcn, dev, card_line, kind: str,
                      started: float) -> int:
     """``--convergence TRAIN_YAML``: phase 31, then phase 32 for that train
@@ -4409,7 +4553,7 @@ def _parser():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one NVIDIA card "
-                                             "(phases 1-36; see the module's docstring).")
+                                             "(phases 1-37; see the module's docstring).")
     ap.add_argument("--convergence", metavar="TRAIN_YAML", default=None,
                     help="run only phases 1, 2, 31 and 32, phase 32 for this train YAML under "
                          "configs/train (e.g. edsr_net/exp1_x4), held to the JAX package's "
@@ -5061,8 +5205,12 @@ def main(argv=None) -> int:
     # --------------- 36 the spatial axis of the warping and deformable nets
     video = spatial_video_card(port_main, Cfg, lstm_gates, deform_conv, tmp, dev, card_line)
     print(json.dumps({"spatial_video": video}), flush=True)
+
+    # ---------------------------------- 37 the JAX package's orbax checkpoints
+    orbax = orbax_resume(port_main, Cfg, lstm_gates, tmp, dev, card_line)
+    print(json.dumps({"orbax_resume": orbax}), flush=True)
     tmp_dir.cleanup()
-    log("done", f"phases 1-36 in {time.perf_counter() - started:.1f} s, the kernels' builds "
+    log("done", f"phases 1-37 in {time.perf_counter() - started:.1f} s, the kernels' builds "
                 f"included ({card_line})")
     # the gate and DCN kernels' launches on phase 35's paths, rank 0 (none)
     zoo_gates = [sum(r["launches"][i] for part in ("eval", "train") for r in zoo[part].values())
@@ -5098,7 +5246,9 @@ def main(argv=None) -> int:
                  "spatial_remat_step_rank0": spatial["remat_launches"][0],
                  "spatial_pad_h_rank0": spatial["pad_h_launches"][0],
                  "spatial_batch_infer_rank0": spatial["batch_infer_launches"][0],
-                 "spatial_zoo_rank0": zoo_gates[0], "spatial_video_rank0": video_gates[0]}
+                 "spatial_zoo_rank0": zoo_gates[0], "spatial_video_rank0": video_gates[0],
+                 "train_resume_jax_orbax": orbax["train_launches"][0],
+                 "eval_jax_orbax": orbax["test_launches"][0]}
     bwd_paths = {"eval": 0, "train": train_bwd, "eval_bf16": 0,
                  "train_bf16_remat": train16_launches[3], "eval_tiled": 0,
                  "sisr_eval": 0, "sisr_train": 0, "misr_eval": 0, "misr_train": 0,
@@ -5113,7 +5263,8 @@ def main(argv=None) -> int:
                  "spatial_eval_rank0": 0, "spatial_train_rank0": spatial["train_launches"][1],
                  "spatial_remat_step_rank0": spatial["remat_launches"][1],
                  "spatial_pad_h_rank0": 0, "spatial_batch_infer_rank0": 0,
-                 "spatial_zoo_rank0": zoo_gates[1], "spatial_video_rank0": video_gates[1]}
+                 "spatial_zoo_rank0": zoo_gates[1], "spatial_video_rank0": video_gates[1],
+                 "train_resume_jax_orbax": orbax["train_launches"][1], "eval_jax_orbax": 0}
     f32, b16 = torch.float32, torch.bfloat16
     record = {"kernels": [{
         "name": "lstm_gates",

@@ -39,8 +39,19 @@ net, the epoch, the monitor's and the lr scheduler's state, the
 rate, Adam's moments and count (``ScaleByAdamState(count, mu, nu)``, found
 under ``InjectHyperparamsState`` and any chain or ``ApplyIfFiniteState``,
 carried through the weights' key and layout map as ``exp_avg``,
-``exp_avg_sq`` and ``step``) and the ``apply_if_finite`` counters.  The
-JAX package's orbax directories are not read: orbax is a JAX library.
+``exp_avg_sq`` and ``step``) and the ``apply_if_finite`` counters.
+
+It reads the JAX package's orbax directories (``checkpoint_backend: orbax``
+/ ``orbax_async``, the default of its runs over several processes) to the
+same contract, bit for bit what the pickle of the same state gives:
+``meta.pkl`` (the pickle's other entries) through the same unpickler, and
+``arrays/`` through :mod:`.orbax_read` (OCDBT, zarr and zstd read on the
+host, with no orbax).  orbax keeps the optax states as dicts of their
+fields and tuples as lists; the pickle's namedtuples are read into that
+same form, so one structural reading finds Adam, the injected learning
+rate and the ``apply_if_finite`` counters in both.  Such a directory counts
+as committed once ``arrays/`` exists beside ``meta.pkl`` (orbax renames a
+finished ``arrays`` into place), the JAX package's own rule.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ import torch
 
 from ..utils.jax_weights import state_dict_from_jax_params
 from ..utils.seeding import SeedState
+from .orbax_read import read_tree
 
 _ADMITTED_ROOTS = {"numpy", "builtins", "collections", "copyreg", "_codecs"}
 
@@ -83,55 +95,81 @@ class _WeightsUnpickler(pickle.Unpickler):
         return type(name, (_Stub,), {"__module__": f"stub:{module}"})
 
 
-def _find(tree, name: str):
-    """The first stub of class ``name`` in ``tree`` (stubs' arguments,
-    tuples, lists and dict values, depth first), or None."""
+#: the optax states of the JAX package's optimizers, by field: a pickle holds
+#: them as namedtuples (stubs here, their fields in order), an orbax tree as
+#: dicts of these fields
+_OPTAX_FIELDS = {
+    "ScaleByAdamState": ("count", "mu", "nu"),
+    "InjectHyperparamsState": ("count", "hyperparams", "inner_state"),
+    "InjectStatefulHyperparamsState": ("count", "hyperparams", "hyperparams_states",
+                                       "inner_state"),
+    "ApplyIfFiniteState": ("notfinite_count", "last_finite", "total_notfinite", "inner_state"),
+}
+
+
+def _as_orbax_tree(tree):
+    """An unpickled optax state in the form an orbax tree gives it: the
+    states above as dicts of their fields, an empty namedtuple (optax's
+    ``EmptyState``) as None, other stubs and tuples as lists."""
     if isinstance(tree, _Stub):
-        if type(tree).__name__ == name:
+        children = [_as_orbax_tree(c) for c in tree.args]
+        fields = _OPTAX_FIELDS.get(type(tree).__name__)
+        if fields:
+            return dict(zip(fields, children))
+        return children or None
+    if isinstance(tree, (tuple, list)):
+        return [_as_orbax_tree(c) for c in tree]
+    if isinstance(tree, dict):
+        return {k: _as_orbax_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _find(tree, *fields: str):
+    """The first dict of ``tree`` (dicts and lists, depth first) that holds
+    every one of ``fields``, or None."""
+    if isinstance(tree, dict):
+        if all(f in tree for f in fields):
             return tree
-        children = tree.args
-    elif isinstance(tree, (tuple, list)):
-        children = tree
-    elif isinstance(tree, dict):
         children = tree.values()
+    elif isinstance(tree, list):
+        children = tree
     else:
         return None
     for child in children:
-        found = _find(child, name)
+        found = _find(child, *fields)
         if found is not None:
             return found
     return None
 
 
 def _jax_optimizer(opt_state, net: str) -> dict | None:
-    """What a torch optimizer can take from an optax state: ``lr`` (the
-    injected learning rate), ``moments`` (``{name: (exp_avg, exp_avg_sq)}``
-    and ``step`` from Adam's ``ScaleByAdamState``) and ``nonfinite``
-    (``apply_if_finite``'s [consecutive, total])."""
+    """What a torch optimizer can take from an optax state (a pickle's or an
+    orbax tree's): ``lr`` (the injected learning rate), ``moments``
+    (``{name: (exp_avg, exp_avg_sq)}`` and ``step`` from Adam's
+    ``{count, mu, nu}``) and ``nonfinite`` (``apply_if_finite``'s
+    [consecutive, total])."""
     if opt_state is None:
         return None
+    state = _as_orbax_tree(opt_state)
     out: dict = {}
-    inject = _find(opt_state, "InjectStatefulHyperparamsState") or _find(
-        opt_state, "InjectHyperparamsState")
+    inject = _find(state, "hyperparams")
     if inject is not None:
-        hyper = inject.args[1]
+        hyper = inject["hyperparams"]
         if isinstance(hyper, dict) and "learning_rate" in hyper:
             out["lr"] = float(hyper["learning_rate"])
-    adam = _find(opt_state, "ScaleByAdamState")
+    adam = _find(state, "count", "mu", "nu")
     if adam is not None:
-        count, mu, nu = adam.args
-        mu = state_dict_from_jax_params(mu, net)
-        nu = state_dict_from_jax_params(nu, net)
+        mu = state_dict_from_jax_params(adam["mu"], net)
+        nu = state_dict_from_jax_params(adam["nu"], net)
         from ..config import NETS
 
         # a parameter the net never uses has no state in torch
         unused = set(getattr(NETS.get(net), "unused_parameters", ()))
         out["moments"] = {k: (mu[k], nu[k]) for k in mu if k not in unused}
-        out["step"] = int(count)
-    finite = _find(opt_state, "ApplyIfFiniteState")
+        out["step"] = int(adam["count"])
+    finite = _find(state, "notfinite_count", "last_finite", "total_notfinite")
     if finite is not None:
-        notfinite_count, _, total_notfinite = finite.args[:3]
-        out["nonfinite"] = [int(notfinite_count), int(total_notfinite)]
+        out["nonfinite"] = [int(finite["notfinite_count"]), int(finite["total_notfinite"])]
     return out
 
 
@@ -260,23 +298,50 @@ def _solo_host_group():
     return _SOLO_HOST_GROUP[1]
 
 
+def _half_written(path: Path) -> FileNotFoundError:
+    return FileNotFoundError(
+        f"{path} is a half-written directory checkpoint ({_uncommitted(path)} never "
+        "committed); use an older checkpoint — 'loaded_path: auto' skips these automatically.")
+
+
 def _read_directory(path: Path) -> dict:
-    """A committed directory checkpoint as one dict of full tensors (the
-    meta entries, ``net`` and ``optimizer`` as saved, keyed by name)."""
+    """A committed directory checkpoint of the port as one dict of full
+    tensors (the meta entries, ``net`` and ``optimizer`` as saved, keyed by
+    name)."""
     from torch.distributed.checkpoint.format_utils import dcp_to_torch_save
 
     wait_for_async_saves()
     if not _is_committed(path):
-        raise FileNotFoundError(
-            f"{path} is a half-written directory checkpoint (meta.pt present but "
-            "arrays/.metadata never committed); use an older checkpoint — "
-            "'loaded_path: auto' skips these automatically.")
+        raise _half_written(path)
     payload = torch.load(path / "meta.pt", map_location="cpu", weights_only=True)
     with tempfile.TemporaryDirectory() as tmp:
         full = Path(tmp) / "arrays.pt"
         dcp_to_torch_save(str((path / "arrays").resolve()), str(full))
         payload.update(torch.load(full, map_location="cpu", weights_only=True))
     return payload
+
+
+def _read_jax_directory(path: Path) -> dict:
+    """A committed orbax directory of the JAX package as the payload its
+    pickle holds (``meta.pkl``'s entries, ``net``, ``optimizer``,
+    ``model_state``); bfloat16 leaves widen to float32 numpy, exactly."""
+    if not _is_committed(path):
+        raise _half_written(path)
+    payload = _read_jax_payload(path / "meta.pkl")
+    arrays = _numpy_leaves(read_tree(path / "arrays"))
+    payload.update(net=arrays["net"], optimizer=arrays.get("optimizer"),
+                   model_state=arrays.get("model_state") or None)
+    return payload
+
+
+def _numpy_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_leaves(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
 
 
 def _read_jax_payload(path: Path) -> dict:
@@ -297,16 +362,20 @@ def load_checkpoint(path, net: str = "RefineNet") -> dict:
     """The checkpoint as a dict.  A port ``.pth`` or directory comes back
     whole (a directory's ``optimizer`` keyed by parameter name, as
     ``torch.distributed.checkpoint.state_dict`` gives it); a JAX package
-    pickle of the net named ``net`` as ``{'net': state_dict, 'epoch': ...}``
-    plus its ``monitor`` and ``lr_scheduler`` state where those are plain
-    values, its ``seed_state`` and, under ``optimizer_jax``, what
-    :func:`_jax_optimizer` reads of its optax state."""
+    pickle or orbax directory of the net named ``net`` as ``{'net':
+    state_dict, 'epoch': ...}`` plus its ``monitor`` and ``lr_scheduler``
+    state where those are plain values, its ``seed_state`` and, under
+    ``optimizer_jax``, what :func:`_jax_optimizer` reads of its optax
+    state."""
     path = Path(path)
     if path.is_dir():
-        return _read_directory(path)
-    if _is_torch_zipfile(path):
+        if not _is_jax_directory(path):
+            return _read_directory(path)
+        payload = _read_jax_directory(path)
+    elif _is_torch_zipfile(path):
         return torch.load(path, map_location="cpu", weights_only=True)
-    payload = _read_jax_payload(path)
+    else:
+        payload = _read_jax_payload(path)
     variables = {"params": payload["net"], **(payload.get("model_state") or {})}
     out = {"net": state_dict_from_jax_params(variables, net), "epoch": payload.get("epoch")}
     for key in ("monitor", "lr_scheduler"):
@@ -322,17 +391,34 @@ def load_checkpoint(path, net: str = "RefineNet") -> dict:
 
 
 def load_net_state_dict(path, net: str = "RefineNet") -> dict[str, torch.Tensor]:
-    """The state_dict of the net named ``net`` from a ``.pth`` zip or a JAX
-    pickle checkpoint."""
+    """The state_dict of the net named ``net`` from a ``.pth`` zip, a port
+    directory, or a JAX pickle or orbax directory checkpoint."""
     return load_checkpoint(path, net)["net"]
 
 
+def _is_jax_directory(p: Path) -> bool:
+    """The JAX package's orbax layout: ``meta.pkl`` beside ``arrays/``."""
+    return (p / "meta.pkl").is_file()
+
+
+def _uncommitted(p: Path) -> str | None:
+    """What a directory checkpoint still lacks to count as committed, or
+    None: for the JAX package's layout ``arrays/`` (its
+    ``runner/checkpoint.py`` rule), for the port's ``meta.pt`` and then
+    ``arrays/.metadata`` (written last by ``torch.distributed.checkpoint``)."""
+    if _is_jax_directory(p):
+        return None if (p / "arrays").exists() else "arrays/ (meta.pkl present)"
+    for name in ("meta.pt", "arrays/.metadata"):
+        if not (p / name).is_file():
+            return name
+    return None
+
+
 def _is_committed(p: Path) -> bool:
-    """A file checkpoint counts when it exists; a directory checkpoint only
-    once both ``meta.pt`` and the arrays' ``.metadata`` (written last by
-    ``torch.distributed.checkpoint``) exist."""
+    """A file checkpoint counts when it exists; a directory checkpoint, of
+    either layout, once :func:`_uncommitted` finds nothing missing."""
     if p.is_dir():
-        return (p / "meta.pt").is_file() and (p / "arrays" / ".metadata").is_file()
+        return _uncommitted(p) is None
     return p.is_file()
 
 
@@ -341,6 +427,8 @@ def _peek_epoch(p: Path):
     state_dict; None if unreadable or not stored."""
     try:
         if p.is_dir():
+            if _is_jax_directory(p):
+                return _read_jax_payload(p / "meta.pkl").get("epoch")
             return torch.load(p / "meta.pt", map_location="cpu", weights_only=True).get("epoch")
         if _is_torch_zipfile(p):
             return torch.load(p, map_location="cpu", weights_only=True).get("epoch")
@@ -354,8 +442,9 @@ def find_latest_checkpoint(checkpoints_dir) -> Path | None:
     highest-epoch ``model_{N}.pth``, unless the SIGTERM
     ``model_preempted.pth`` records an equal or later epoch (it is written
     after any periodic save and can be up to saved_freq−1 epochs ahead;
-    epoch numbers, not mtimes, order checkpoints).  Half-written directory
-    checkpoints are skipped.  Falls back to ``model_best.pth``."""
+    epoch numbers, not mtimes, order checkpoints).  The port's directories
+    and the JAX package's orbax directories count alike; half-written ones
+    of either are skipped.  Falls back to ``model_best.pth``."""
     d = Path(checkpoints_dir)
     if not d.is_dir():
         return None

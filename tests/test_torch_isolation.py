@@ -30,7 +30,10 @@ JAX_PACKAGE = "efficient_and_phase_aware_video_super_resolution_for_cardiac_mri_
 # the tests' DCN oracle too: the port keeps its own plain versions
 # cv2, imageio: the card's machine has neither; the port's phase-code tools
 # are numpy, its GIF and PNG exports ``utils/imgio.py``
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE, "dcn_oracle", "cv2", "imageio"}
+# orbax, tensorstore, zstandard: the port reads the JAX package's orbax
+# directories itself (``runner/orbax_read.py``, ``utils/zstd.py``)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", JAX_PACKAGE, "dcn_oracle", "cv2", "imageio",
+             "orbax", "tensorstore", "zstandard"}
 
 
 def _port_modules():
@@ -42,7 +45,8 @@ def _port_modules():
 def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("runner.predictors", "runner.trainers", "runner.optim", "runner.monitor",
-                 "runner.loggers", "runner.checkpoint", "tools.profile_train", "ops.tiling",
+                 "runner.loggers", "runner.checkpoint", "runner.orbax_read", "utils.zstd",
+                 "tools.profile_train", "ops.tiling",
                  "utils.casting", "parallel.mesh", "parallel.distributed", "tools.batch_infer",
                  "utils.imgio", "ops.kspace", "tools.acdc_preprocess", "tools.dsb15_preprocess",
                  "tools.dsb15_dicom2nifty", "tools.gen_synthetic_data", "tools.convergence"):
@@ -70,8 +74,23 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def _repo_modules_imported_by(path: Path) -> list[Path]:
+    """``path`` and the repo's own modules outside the port that it imports,
+    at any depth (``chip_smoke.py`` puts ``tests/`` on its path)."""
+    found, todo = [], [path]
+    while todo:
+        current = todo.pop()
+        if current in found:
+            continue
+        found.append(current)
+        for root in _imported_roots(current):
+            todo += [p for p in (REPO / f"{root}.py", REPO / "tests" / f"{root}.py") if p.is_file()]
+    return found
+
+
 def test_no_source_of_the_port_imports_jax():
-    sources = sorted(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    sources = sorted(PORT_DIR.rglob("*.py")) + _repo_modules_imported_by(REPO / "chip_smoke.py")
+    assert REPO / "tests" / "torch_orbax_common.py" in sources
     for path in sources:
         bad = set(_imported_roots(path)) & FORBIDDEN
         assert not bad, f"{path} imports {bad}"
